@@ -1,0 +1,82 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with
+``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``build/<name>-<hash>.so`` at the root of the checkout; the hash
+covers the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built when a module is imported:
+the first launch, or :func:`build_all`, builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns each name's compiler output
+    (``-Xptxas -v``: registers, shared memory, spills); raises with the
+    output of any compile that fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs: List[tuple] = []
+    logs: Dict[str, str] = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            logs[name] = "(already built)"
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        text, _ = proc.communicate()
+        logs[name] = text
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode})\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

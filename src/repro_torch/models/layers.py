@@ -1,0 +1,99 @@
+"""Shared layers as plain functions on tensors (port of
+``repro/models/layers.py``).
+
+The roundings follow the reference op by op: ``rmsnorm`` works in f32 and
+casts back; ``rope`` multiplies the input by f32 cos/sin, so a bf16 input
+is promoted to f32 and rounded once at the end (``layers.py:40``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distrib.logical import P, ShardCtx
+
+
+def rmsnorm_spec(d: int) -> dict:
+    return {"scale": P((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``layers.py:20``: f32 inside, eps 1e-6."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """``layers.py:31``, half-split layout.  x: (..., S, H, D);
+    positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freq = theta ** (-ar / half)
+    angles = positions[..., None].float() * freq           # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_spec(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.activation in ("swiglu", "geglu"):
+        return {
+            "wi": P((d, f), ("embed", "ffn")),
+            "wg": P((d, f), ("embed", "ffn")),
+            "wo": P((f, d), ("ffn", "embed")),
+        }
+    return {
+        "wi": P((d, f), ("embed", "ffn")),
+        "wo": P((f, d), ("ffn", "embed")),
+    }
+
+
+def _gelu_tanh(a: torch.Tensor) -> torch.Tensor:
+    return F.gelu(a, approximate="tanh")
+
+
+def mlp(params, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
+        ) -> torch.Tensor:
+    """``layers.py:64``: silu for swiglu, tanh-gelu for geglu and gelu."""
+    dt = x.dtype
+    if cfg.activation in ("swiglu", "geglu"):
+        act = F.silu if cfg.activation == "swiglu" else _gelu_tanh
+        h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    else:
+        h = _gelu_tanh(x @ params["wi"].to(dt))
+    h = ctx.constrain(h, "batch", "seq", "act_ffn")
+    return h @ params["wo"].to(dt)
+
+
+def embed_spec(cfg: ArchConfig) -> dict:
+    spec = {"tok": P((cfg.vocab, cfg.d_model), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return spec
+
+
+def embed(params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return params["tok"].to(dtype)[tokens]
+
+
+def unembed_matrix(params, cfg: ArchConfig, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["tok"].to(dtype).T
+    return params["unembed"].to(dtype)
+
+
+def logits_last(params, cfg: ArchConfig, h_last: torch.Tensor
+                ) -> torch.Tensor:
+    """(B, D) -> (B, V) f32 logits for decode."""
+    w = unembed_matrix(params, cfg, h_last.dtype)
+    return (h_last @ w).float()

@@ -1,0 +1,270 @@
+"""Serving loops: continuous batching with a retained lockstep reference.
+
+Port of ``repro/runtime/serve.py`` to torch; the behaviour, the step clock
+and the bit-identity contract are the reference's.  The servers run on
+``cuda`` unless given ``device="cpu"``.  They cast the parameters to the
+compute dtype once at load (``models.model.precast``) and keep an f32 KV
+cache that each step updates in place.
+
+``BatchedServer`` is a continuous-batching greedy server: every slot
+carries its own position and KV-cache occupancy, requests are admitted
+mid-flight via the ``submit()/step()/drain()`` streaming API, and the
+flash-decode CUDA kernel (``repro_torch.kernels.ops.decode_attention``) can
+run the generation path with per-slot ``length`` instead of a shared
+position.  ``run()`` stays as a thin closed-batch compat wrapper.
+
+``LockstepServer`` retains the original loop — one shared ``pos``, a
+closed-batch ``run()``, hard truncation at ``S-1`` — as the bit-identity
+reference: on closed batches without slot reuse every slot consumes one
+token per step, so the per-slot positions coincide with the shared
+position and the continuous server's greedy outputs are bit-identical.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.distrib.logical import NOSHARD
+from repro_torch.models.blocks import ModelOpts
+from repro_torch.models.model import Model, compute_dtype, precast
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int = 16
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # step-clock bookkeeping (set by the continuous server; units = decode
+    # steps, which are wall-clock-independent and therefore deterministic)
+    arrived: Optional[int] = None      # submit() time
+    started: Optional[int] = None      # slot admission time
+    finished: Optional[int] = None     # completion time
+
+
+class LockstepServer:
+    """Original lockstep loop (shared position) — bit-identity reference.
+
+    All slots advance one shared ``pos`` together; the whole batch hard-
+    truncates when it reaches ``S-1``.  Late-admitted requests inherit the
+    current shared position, so only batches without slot reuse are served
+    at correct positions — exactly the regime the continuous server's
+    ``run()`` is pinned bit-identical against.
+    """
+
+    def __init__(self, model: Model, params, *, batch_size: int = 4,
+                 max_seq: int = 256, opts: ModelOpts = ModelOpts(),
+                 eos_id: Optional[int] = None, device=None):
+        self.model = model
+        self.device = resolve_device(device)
+        self.params = _load(model, params, self.device)
+        self.B = batch_size
+        self.S = max_seq
+        self.opts = opts
+        self.eos_id = eos_id
+        self.cache = model.init_cache(batch_size, max_seq, torch.float32,
+                                      self.device)
+        self.pos = 0                       # shared position (lockstep batch)
+
+    def _decode(self, token: np.ndarray, pos) -> np.ndarray:
+        logits, self.cache = self.model.decode_step(
+            self.params,
+            {"token": torch.from_numpy(token).to(self.device), "pos": pos},
+            self.cache, NOSHARD, self.opts)
+        return logits.argmax(dim=-1).cpu().numpy()
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Serve a closed batch of requests to completion (greedy)."""
+        queue = list(requests)
+        active: List[Optional[Request]] = [None] * self.B
+        results: Dict[int, List[int]] = {}
+        cursor = np.zeros(self.B, np.int64)      # per-slot prompt cursor
+        token = np.zeros((self.B, 1), np.int32)
+
+        def admit():
+            for i in range(self.B):
+                if active[i] is None and queue:
+                    r = queue.pop(0)
+                    active[i] = r
+                    cursor[i] = 0
+                    token[i, 0] = r.prompt[0]
+
+        admit()
+        while any(a is not None for a in active) or queue:
+            nxt = self._decode(token, self.pos)
+            self.pos += 1
+            for i in range(self.B):
+                r = active[i]
+                if r is None:
+                    continue
+                cursor[i] += 1
+                if cursor[i] < len(r.prompt):
+                    token[i, 0] = r.prompt[cursor[i]]    # prompt feeding
+                else:
+                    t = int(nxt[i])
+                    r.output.append(t)
+                    token[i, 0] = t
+                    if len(r.output) >= r.max_new_tokens or \
+                            (self.eos_id is not None and t == self.eos_id):
+                        results[r.rid] = list(r.output)
+                        active[i] = None
+            if self.pos >= self.S - 1:
+                for i in range(self.B):
+                    if active[i] is not None:
+                        results[active[i].rid] = list(active[i].output)
+                        active[i] = None
+                break
+            admit()
+        return results
+
+
+class BatchedServer:
+    """Continuous-batching greedy server with per-slot positions.
+
+    Streaming API: ``submit(request)`` enqueues, ``step()`` admits queued
+    requests into free slots and runs ONE fused batched decode step
+    (returning the requests that finished on it), ``drain()`` steps until
+    the queue and all slots are empty.  A slot frees the moment its
+    request finishes — the next queued request is admitted at position 0
+    on the very next step, while its co-batched neighbours keep decoding
+    at their own positions.
+
+    ``run()`` is a closed-batch compat wrapper; on batches without slot
+    reuse its greedy outputs are bit-identical to :class:`LockstepServer`
+    (the per-slot mask rows and rope positions coincide with the shared
+    position, and the argmax over identical logits is deterministic).
+
+    ``use_kernel=True`` puts the flash-decode CUDA kernel on the
+    generation path with per-slot ``length``; it is forced off for
+    sliding-window configs, as in the reference (``serve.py:161-164``).
+    On CPU tensors the kernel's wrapper runs its plain version and counts
+    that apart (``kernels.decode_attention.COUNT``).  The port covers the
+    dense family; the reference's lockstep fallback for hybrid/vlm and its
+    ssm slot reset come with those families.
+    """
+
+    def __init__(self, model: Model, params, *, batch_size: int = 4,
+                 max_seq: int = 256, opts: ModelOpts = ModelOpts(),
+                 eos_id: Optional[int] = None,
+                 use_kernel: Optional[bool] = None, device=None):
+        self.model = model
+        self.device = resolve_device(device)
+        self.B = batch_size
+        self.S = max_seq
+        self.opts = opts
+        self.eos_id = eos_id
+        cfg = model.cfg
+        if use_kernel is None:
+            use_kernel = opts.use_kernel
+        self.use_kernel = bool(use_kernel and cfg.family in ("dense", "moe")
+                               and not cfg.sliding_window)
+        self.params = _load(model, params, self.device)
+        self.cache = model.init_cache(batch_size, max_seq, torch.float32,
+                                      self.device)
+        self.steps = 0                     # completed decode steps
+        self.queue: List[Request] = []
+        self.active: List[Optional[Request]] = [None] * self.B
+        self.results: Dict[int, List[int]] = {}
+        self._cursor = np.zeros(self.B, np.int64)   # per-slot prompt cursor
+        self._token = np.zeros((self.B, 1), np.int32)
+        self._pos = np.zeros(self.B, np.int32)      # per-slot position
+        self._dopts = dataclasses.replace(opts, use_kernel=self.use_kernel)
+
+    # ------------------------------------------------------------------
+    # Streaming API
+    # ------------------------------------------------------------------
+    def submit(self, request: Request) -> None:
+        """Enqueue a request; it is admitted on the next free slot."""
+        if request.arrived is None:
+            request.arrived = self.steps
+        self.queue.append(request)
+
+    def step(self) -> List[Request]:
+        """Admit queued requests, run one fused decode step.
+
+        Returns the requests that finished on this step (streamed out in
+        slot order).  A no-op (empty list) when nothing is queued/active.
+        """
+        self._admit()
+        if not any(a is not None for a in self.active):
+            return []
+        logits, self.cache = self.model.decode_step(
+            self.params,
+            {"token": torch.from_numpy(self._token).to(self.device),
+             "pos": torch.from_numpy(self._pos).to(self.device)},
+            self.cache, NOSHARD, self._dopts)
+        nxt = logits.argmax(dim=-1).cpu().numpy()
+        self.steps += 1
+        finished: List[Request] = []
+        for i in range(self.B):
+            r = self.active[i]
+            if r is None:
+                continue
+            self._pos[i] += 1
+            self._cursor[i] += 1
+            if self._cursor[i] < len(r.prompt):
+                self._token[i, 0] = r.prompt[self._cursor[i]]  # prompt feed
+            else:
+                t = int(nxt[i])
+                r.output.append(t)
+                self._token[i, 0] = t
+                if len(r.output) >= r.max_new_tokens or \
+                        (self.eos_id is not None and t == self.eos_id):
+                    self._finish(i, finished)
+                    continue
+            if self._pos[i] >= self.S - 1:
+                # this slot's KV budget is exhausted: truncate ONLY this
+                # request (the lockstep loop flushed the whole batch here)
+                self._finish(i, finished)
+        return finished
+
+    def drain(self) -> Dict[int, List[int]]:
+        """Step until every queued/active request has finished."""
+        out: Dict[int, List[int]] = {}
+        while any(a is not None for a in self.active) or self.queue:
+            for r in self.step():
+                out[r.rid] = list(r.output)
+        return out
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Closed-batch compat wrapper: submit everything, drain."""
+        for r in requests:
+            self.submit(r)
+        return self.drain()
+
+    # ------------------------------------------------------------------
+    # Internals
+    # ------------------------------------------------------------------
+    def _admit(self) -> None:
+        for i in range(self.B):
+            if self.active[i] is None and self.queue:
+                r = self.queue.pop(0)
+                self.active[i] = r
+                self._cursor[i] = 0
+                self._pos[i] = 0
+                self._token[i, 0] = r.prompt[0]
+                r.started = self.steps
+                # the slot's old KV entries at/above position 0 are masked
+                # out and overwritten as it advances: no reset needed
+
+    def _finish(self, i: int, finished: List[Request]) -> None:
+        r = self.active[i]
+        r.done = True
+        r.finished = self.steps
+        self.results[r.rid] = list(r.output)
+        self.active[i] = None
+        finished.append(r)
+
+
+def _load(model: Model, params, device: torch.device):
+    """Parameters on the device, cast once to the compute dtype."""
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return tree.to(device)
+    return precast(to(params), compute_dtype(model.cfg))
