@@ -3,13 +3,19 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds every CUDA kernel of the
-port's serving path from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-per source, all started together), holds each kernel against its plain
-PyTorch version on the card, then serves requests through
-``BatchedServer(use_kernel=True)`` at the full width of ``qwen1.5-4b``
-(40 layers, d_model 2560, vocab 151936; random weights from a seeded
-``torch.Generator``) and checks the kernels really ran there.  Any
-failure raises, so the exit code is nonzero; without a CUDA device it
+port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
+started together) and holds each kernel against its plain PyTorch version
+on the card.  Then it drives two paths at full width, with random weights
+from a seeded ``torch.Generator``, and checks that each path's kernel
+really ran there:
+
+* dense serving: ``BatchedServer(use_kernel=True)`` on ``qwen1.5-4b``
+  (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel;
+* ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
+  50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
+  plain path, then ``BatchedServer`` serving requests on the same model.
+
+Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
 
 Output: environment and per-phase lines, then one JSON line of kernel
@@ -34,14 +40,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models.blocks import ModelOpts  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import build_model, precast  # noqa: E402
 from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-KERNELS = ["decode_attention"]
+KERNELS = ["decode_attention", "ssd_scan"]
+PORT_KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
+                     "chunk_state_kernel", "state_pass_kernel",
+                     "chunk_scan_kernel")       # the __global__s of csrc/
 
 ARCH = "qwen1.5-4b"
 BATCH, MAX_SEQ = 8, 512
@@ -49,6 +59,14 @@ N_REQUESTS, NEW_TOKENS, PROMPT_LEN = 16, 32, (8, 64)
 TEACHER_STEPS = 4
 BF16_MARGIN = 0.5     # bf16: greedy tokens must agree above this margin
 F32_LOGIT_TOL = 1e-3  # f32: 40 layers summed in another order, abs and rel
+
+SSM_ARCH = "mamba2-130m"
+SSM_BATCH, SSM_LEN, SSM_CE_CHUNK = 8, 4096, 1024     # the train_4k length
+SSM_FORWARDS = 3            # timed kernel-path Model.loss calls
+SSM_F32_TOL = 1e-3          # f32 config: hidden states and loss, abs and rel
+SSM_BF16_REL = 2e-2         # bf16, one layer: hidden states, ||k-p|| / ||p||
+SSM_BF16_LOSS_REL = 1e-3    # bf16, 24 layers: the loss, relative
+SSM_SERVE_SEQ = 128
 
 
 def log(*a) -> None:
@@ -150,8 +168,132 @@ def measure_decode_attention(main_lengths):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def ssd_inputs(B, L, H, P, N, dtype, seed, *, d_dtype=torch.float32,
+               strided=False, dt_scale=0.5):
+    """x, Bm, Cm in ``dtype`` (as the strided slices of one (B, L, H*P+2N)
+    conv output when ``strided``, as the model passes them), dt f32, A f32,
+    D in ``d_dtype``."""
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    if strided:
+        di = H * P
+        conv = (0.4 * randn(B, L, di + 2 * N)).to(dtype)
+        x = conv[..., :di].reshape(B, L, H, P)
+        Bm, Cm = conv[..., di:di + N], conv[..., di + N:]
+    else:
+        x = (0.5 * randn(B, L, H, P)).to(dtype)
+        Bm = (0.3 * randn(B, L, N)).to(dtype)
+        Cm = (0.3 * randn(B, L, N)).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, L, H)) * dt_scale
+    A = -torch.exp(0.3 * randn(H))
+    D = (1 + 0.2 * randn(H)).to(d_dtype)
+    return x, dt, A, Bm, Cm, D
+
+
+SSD_MAIN = (SSM_BATCH, SSM_LEN, 24, 64, 128, 256)   # B, L, H, P, N, chunk
+
+
+def ssd_main_inputs():
+    """The model's shape and layout: bf16 strided views of the conv
+    output, bf16 D (precast), steps like the model's softplus(in_proj)
+    so that cum reaches about -200 in a chunk and exp overflows above the
+    diagonal."""
+    B, L, H, P, N, _ = SSD_MAIN
+    return ssd_inputs(B, L, H, P, N, torch.bfloat16, seed=50,
+                      d_dtype=torch.bfloat16, strided=True, dt_scale=1.0)
+
+
+def _ssd_compare(name, args, chunk):
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yp, sp = ssd.ssd_scan_plain(*args, chunk=chunk)
+    dt = args[0].dtype
+    err = (y.float() - yp.float()).abs().max().item()
+    serr = (st - sp).abs().max().item()
+    x, _, _, Bm, _, D = args
+    log(f"ssd_scan {name}: x {tuple(x.shape)} {str(dt)[6:]} N={Bm.shape[-1]} "
+        f"chunk={chunk} D {str(D.dtype)[6:]} strides {x.stride()}: "
+        f"y max_abs_err={err:.3e} (tol {5 * TOL[dt]:g} abs+rel), state "
+        f"max_abs_err={serr:.3e} (tol 1e-4 abs+rel)")
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"ssd_scan is not finite at {name}")
+    if not torch.allclose(y.float(), yp.float(), atol=5 * TOL[dt],
+                          rtol=5 * TOL[dt]):
+        raise AssertionError(f"ssd_scan y disagrees at {name}")
+    if not torch.allclose(st, sp, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"ssd_scan state disagrees at {name}")
+    return err, y, st
+
+
+def check_ssd_scan():
+    """The sweep of tests/test_kernels.py:39-43, bf16 D, the model's
+    strided layout, chunk invariance, and the main path's shape."""
+    cases = [   # name, B, L, H, P, N, chunk, dtype, d_dtype, strided
+        ("test_kernels 1", 2, 256, 3, 64, 32, 64, torch.float32,
+         torch.float32, False),
+        ("test_kernels 2", 1, 512, 2, 64, 64, 128, torch.float32,
+         torch.float32, False),
+        ("test_kernels 3", 2, 256, 4, 32, 16, 128, torch.bfloat16,
+         torch.float32, False),
+        ("test_kernels 4", 1, 128, 1, 16, 8, 32, torch.float32,
+         torch.float32, False),
+        ("bf16 D", 2, 256, 3, 64, 32, 64, torch.float32, torch.bfloat16,
+         False),
+        ("strided, Q < 64", 2, 96, 3, 16, 24, 32, torch.bfloat16,
+         torch.bfloat16, True),
+        ("Q not a multiple of 64", 1, 200, 2, 64, 128, 100, torch.float32,
+         torch.float32, True),
+    ]
+    for i, (name, B, L, H, P, N, chunk, dt, ddt, strided) in enumerate(cases):
+        args = ssd_inputs(B, L, H, P, N, dt, seed=10 + i, d_dtype=ddt,
+                          strided=strided)
+        _ssd_compare(name, args, chunk)
+    args = ssd_inputs(1, 256, 2, 32, 16, torch.float32, seed=30)
+    _, y64, s64 = _ssd_compare("chunk 64", args, 64)
+    _, y256, s256 = _ssd_compare("chunk 256", args, 256)
+    if not (torch.allclose(y64, y256, atol=1e-4, rtol=1e-4)
+            and torch.allclose(s64, s256, atol=1e-4, rtol=1e-4)):
+        raise AssertionError("ssd_scan depends on the chunk size")
+    log(f"ssd_scan chunk invariance: y 64 vs 256 max diff "
+        f"{(y64 - y256).abs().max().item():.3e} (tol 1e-4 abs+rel)")
+    err, _, _ = _ssd_compare("main path", ssd_main_inputs(), SSD_MAIN[-1])
+    return err
+
+
+def measure_ssd_scan():
+    """Times at the main path's shape: kernel and plain version.  No single
+    PyTorch call computes the SSD scan, so there is no library time."""
+    B, L, H, P, N, chunk = SSD_MAIN
+    args = ssd_main_inputs()
+    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
+    plain_ms = time_ms(lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
+                       reps=10)
+    Q, n = chunk, L // chunk
+    x, dt, A, Bm, Cm, D = args
+    el = x.element_size()
+    nbytes = (2 * B * L * H * P * el              # x read, y written
+              + dt.numel() * 4 + A.numel() * 4 + D.numel() * D.element_size()
+              + 2 * B * L * N * el                # Bm, Cm
+              + B * H * P * N * 4)                # final state
+    tri = Q * (Q + 1) // 2
+    ops = (B * n * tri * N * 2                    # C.B^T, causal, per (b, c)
+           + B * H * n * (tri * P * 2             # (C.B^T o L) . dt x
+                          + 2 * Q * P * N * 2))   # carried state, new state
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[torch.float32] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"ssd_scan main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"no library call; bound {bound_ms:.5f} ms ({nbytes} bytes at "
+        f"3.35 TB/s = {bytes_ms:.5f} ms; {ops} flops at the f32 rate of "
+        f"67 TFLOP/s = {ops_ms:.5f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 3: the dense serving path at full width
 # ---------------------------------------------------------------------------
 def serve_full_width():
     cfg = get_config(ARCH)
@@ -265,21 +407,28 @@ def teacher_forced_check(model, server):
 
 
 def profile_steps(model, server, n=3):
-    """Device time by kernel over a few kernel-path decode steps."""
+    """Device time by kernel over a few decode steps of the server's
+    path (with the kernel where the server uses it)."""
+    tok = torch.zeros((server.B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((server.B,), 100, dtype=torch.int32, device="cuda")
+    opts = ModelOpts(use_kernel=server.use_kernel)
+    profile_window(lambda: model.decode_step(
+        server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
+        n, "step")
+
+
+def profile_window(fn, n, unit):
+    """Device time by kernel over ``n`` calls of ``fn`` after one warm-up
+    call: device busy and idle share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    tok = torch.zeros((BATCH, 1), dtype=torch.long, device="cuda")
-    pos = torch.full((BATCH,), 100, dtype=torch.int32, device="cuda")
-    opts = ModelOpts(use_kernel=True)
-    model.decode_step(server.params, {"token": tok, "pos": pos}, server.cache,
-                      opts=opts)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            model.decode_step(server.params, {"token": tok, "pos": pos},
-                              server.cache, opts=opts)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device rows only: an operator's own "device time" repeats its kernels'
@@ -291,11 +440,172 @@ def profile_steps(model, server, n=3):
         log("profile: no device time in the trace (not measured)")
         return
     busy = sum(r[0] for r in rows)
-    log(f"profile over {n} steps (profiler on): wall {wall_ms / n:.3f} "
-        f"ms/step, {sum(r[2] for r in rows) // n} kernels/step, device "
-        f"busy {busy / n:.3f} ms/step, idle share {1 - busy / wall_ms:.1%}")
+    log(f"profile over {n} {unit}s (profiler on): wall {wall_ms / n:.3f} "
+        f"ms/{unit}, {sum(r[2] for r in rows) // n} kernels/{unit}, device "
+        f"busy {busy / n:.3f} ms/{unit}, idle share "
+        f"{1 - busy / wall_ms:.1%}")
+    groups = {"port kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
+    for ms, key, _ in rows:
+        if any(k in key for k in PORT_KERNEL_NAMES):
+            groups["port kernels"] += ms
+        elif "nvjet" in key or "gemm" in key.lower():
+            groups["GEMMs"] += ms
+        else:
+            groups["other"] += ms
+    log("  by kind: " + ", ".join(f"{k} {v / n:.3f} ms/{unit}"
+                                  for k, v in groups.items()))
     for ms, key, count in rows[:10]:
-        log(f"  {ms / n:9.4f} ms/step  x{count // n:<5d} {key[:90]}")
+        log(f"  {ms / n:9.4f} ms/{unit}  x{count // n:<5d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the ssm family at full width
+# ---------------------------------------------------------------------------
+def ssm_batch(cfg):
+    toks = np.random.default_rng(4).integers(0, cfg.vocab,
+                                             (SSM_BATCH, SSM_LEN + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
+                                      device="cuda")}
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _first_layers(tree, n):
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def ssm_forward_full_width():
+    """``Model.loss`` on mamba2-130m at B=8 x L=4096, kernel path timed and
+    counted, then held against the plain path.  In a float32 config, the
+    decisive check, the hidden states and the loss at SSM_F32_TOL.  In
+    bf16 one flipped bf16 rounding grows over 24 random layers (the hidden
+    states of the two paths differ by a few percent in norm there), so
+    bf16 holds the 24-layer loss at SSM_BF16_LOSS_REL and the hidden
+    states after the first layer at SSM_BF16_REL in norm."""
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg)
+    t0 = time.time()
+    params = precast(model.init(torch.Generator("cuda").manual_seed(0)),
+                     torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = ssm_batch(cfg)
+    kopts = ModelOpts(use_kernel=True, ce_chunk=SSM_CE_CHUNK)
+    popts = dataclasses.replace(kopts, use_kernel=False)
+    tokens = SSM_BATCH * SSM_LEN
+    with torch.no_grad():
+        model.loss(params, batch, opts=kopts)           # warm-up
+        torch.cuda.synchronize()
+        log(f"{SSM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+            f"{cfg.ssm_state}, {n_params} parameters, set up in "
+            f"{time.time() - t0:.1f} s")
+        ssd.COUNT.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SSM_FORWARDS):
+            loss_k = model.loss(params, batch, opts=kopts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / SSM_FORWARDS
+        launches, plain = ssd.COUNT.launches, ssd.COUNT.plain
+        log(f"Model.loss with the kernel: {SSM_BATCH} x {SSM_LEN} tokens, "
+            f"{wall * 1e3:.3f} ms/forward, {tokens / wall:.0f} tokens/s; "
+            f"ssd_scan launches {launches} = {cfg.n_layers} x "
+            f"{SSM_FORWARDS} forwards; plain-version calls {plain}")
+        if launches != cfg.n_layers * SSM_FORWARDS or plain != 0:
+            raise AssertionError("the ssm forward did not go through the "
+                                 "kernel")
+        t0 = time.perf_counter()
+        loss_p = model.loss(params, batch, opts=popts)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        log(f"Model.loss on the plain path: {plain_wall * 1e3:.3f} "
+            f"ms/forward, {tokens / plain_wall:.0f} tokens/s")
+        profile_window(lambda: model.loss(params, batch, opts=kopts), 1,
+                       "forward")
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = model32.init(torch.Generator("cuda").manual_seed(0))
+        h_k, _ = model32.forward(params32, batch, opts=kopts)
+        h_p, _ = model32.forward(params32, batch, opts=popts)
+        l_k = model32.loss(params32, batch, opts=kopts).item()
+        l_p = model32.loss(params32, batch, opts=popts).item()
+        herr = (h_k - h_p).abs().max().item()
+        log(f"float32 kernel vs plain: hidden states max diff {herr:.3e}, "
+            f"loss {l_k:.6f} vs {l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel)")
+        if not torch.allclose(h_k, h_p, atol=SSM_F32_TOL, rtol=SSM_F32_TOL) \
+                or abs(l_k - l_p) > SSM_F32_TOL * (1 + abs(l_p)):
+            raise AssertionError("float32 kernel and plain ssm forwards "
+                                 "differ")
+        del h_k, h_p, params32
+
+        lk, lp = loss_k.item(), loss_p.item()
+        h_k = model.forward(params, batch, opts=kopts)[0]
+        h_p = model.forward(params, batch, opts=popts)[0]
+        if h_k.shape != (SSM_BATCH, SSM_LEN, cfg.d_model) or not (
+                np.isfinite(lk) and torch.isfinite(h_k.float()).all()):
+            raise AssertionError("the ssm forward is not finite or is "
+                                 f"shaped {tuple(h_k.shape)}")
+        rel_24 = _rel(h_k, h_p)
+        model1 = build_model(dataclasses.replace(cfg, n_layers=1))
+        params1 = dict(params, layers=_first_layers(params["layers"], 1))
+        h_k = model1.forward(params1, batch, opts=kopts)[0]
+        h_p = model1.forward(params1, batch, opts=popts)[0]
+        rel_1 = _rel(h_k, h_p)
+        log(f"bf16 kernel vs plain: loss {lk:.6f} vs {lp:.6f} (rel tol "
+            f"{SSM_BF16_LOSS_REL:g}); hidden states after 1 layer "
+            f"{rel_1:.3e} in norm (tol {SSM_BF16_REL:g}), after "
+            f"{cfg.n_layers} layers {rel_24:.3e} (not held)")
+        if abs(lk - lp) > SSM_BF16_LOSS_REL * abs(lp) \
+                or rel_1 > SSM_BF16_REL:
+            raise AssertionError("bf16 kernel and plain ssm forwards differ")
+        del h_k, h_p
+    return model, params, launches
+
+
+def ssm_serve_full_width(model, params):
+    """16 requests through ``BatchedServer`` at full mamba2-130m width;
+    then one request served in a reused slot against serving it alone."""
+    server = BatchedServer(model, params, batch_size=BATCH,
+                           max_seq=SSM_SERVE_SEQ, use_kernel=True,
+                           device="cuda")
+    if server.use_kernel or not server.continuous:
+        raise AssertionError("the ssm server must be continuous, kernel off")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, model.cfg.vocab,
+                rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1)).tolist(),
+            max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = server.steps
+    generated = sum(len(v) for v in results.values())
+    log(f"{SSM_ARCH} served {len(results)} requests: {steps} decode steps, "
+        f"{generated} tokens generated, {wall:.3f} s, "
+        f"{wall / steps * 1e3:.3f} ms/step, {generated / wall:.2f} tokens/s")
+    if sorted(results) != list(range(N_REQUESTS)) or any(
+            len(v) != NEW_TOKENS for v in results.values()):
+        raise AssertionError("not every ssm request finished")
+    profile_steps(model, server)
+
+    mk = lambda: Request(rid=7, prompt=reqs[-1].prompt, max_new_tokens=8)
+    alone = BatchedServer(model, params, batch_size=1,
+                          max_seq=SSM_SERVE_SEQ, device="cuda").run([mk()])
+    reused = BatchedServer(model, params, batch_size=1,
+                           max_seq=SSM_SERVE_SEQ, device="cuda")
+    reused.run([Request(rid=0, prompt=reqs[0].prompt, max_new_tokens=8)])
+    again = reused.run([mk()])
+    log(f"ssm slot reuse: {again[7]} vs alone {alone[7]}")
+    if again != alone:
+        raise AssertionError("the reused slot leaked recurrent state")
 
 
 def main() -> None:
@@ -325,15 +635,27 @@ def main() -> None:
     err = check_decode_attention(main_lengths)
     timing = measure_decode_attention(main_lengths)
 
+    ssd_err = check_ssd_scan()
+    ssd_timing = measure_ssd_scan()
+
     model, server, launches, run = serve_full_width()
     profile_steps(model, server)
     teacher_forced_check(model, server)
+    del model, server
+    torch.cuda.empty_cache()
+
+    ssm_model, ssm_params, ssd_launches = ssm_forward_full_width()
+    ssm_serve_full_width(ssm_model, ssm_params)
 
     kernels = [dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
-        launches=launches, max_abs_err=err, **timing)]
+        launches=launches, max_abs_err=err, **timing), dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:68",
+        launches=ssd_launches, max_abs_err=ssd_err, **ssd_timing)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

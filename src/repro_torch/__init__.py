@@ -1,4 +1,4 @@
-"""PyTorch port of the ``repro`` serving stack for one NVIDIA H100.
+"""PyTorch port of the ``repro`` model and serving stack for one NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``configs``, ``distrib``, ``models``, ``kernels``, ``runtime``,

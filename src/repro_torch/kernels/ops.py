@@ -7,5 +7,12 @@ runs the kernel's plain version (see each kernel module).  The reference's
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-__all__ = ["decode_attention"]
+
+def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """``ops.py:38``: the SSD chunk scan -> (y, final_state)."""
+    return ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+
+__all__ = ["decode_attention", "ssd"]

@@ -1,5 +1,6 @@
-"""Plain torch oracles for the attention kernels (port of
-``repro/kernels/ref.py``): dense softmax, f32 inside, output in q's dtype.
+"""Plain torch oracles for the kernels (port of ``repro/kernels/ref.py``):
+for attention a dense softmax, f32 inside, output in q's dtype; for the
+SSD scan the model layer's chunked reference.
 
 Unlike the reference's ``decode_mha_ref`` (``ref.py:42``), which accepts
 only a scalar ``length``, this one also takes per-sequence ``(B,)``
@@ -51,3 +52,10 @@ def decode_mha_ref(q, k, v, *, length=None):
         s = torch.where(kpos < ln, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bhsd->bhd", p, vq).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, D, chunk: int):
+    """``ref.py:48``: delegates to the model layer's chunked SSD reference
+    (``models.ssm.ssd_reference``, same math)."""
+    from repro_torch.models.ssm import ssd_reference
+    return ssd_reference(x, dt, A, Bm, Cm, D, chunk)

@@ -1,11 +1,13 @@
 """Serving launcher: batched greedy decoding (port of
-``repro/launch/serve.py``, dense family).
+``repro/launch/serve.py``, dense and ssm families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
 
 Same flags and JSON as the reference, plus ``--device`` (default
-``cuda``) and ``--use-kernel/--no-use-kernel`` (default on for cuda).
-Parameters come from a seeded ``torch.Generator`` on the device.
+``cuda``) and ``--use-kernel/--no-use-kernel`` (default on for cuda; the
+server keeps it off where the family's decode step has no kernel, as for
+ssm).  Parameters come from a seeded ``torch.Generator`` on the device.
 """
 from __future__ import annotations
 

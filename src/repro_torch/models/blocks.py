@@ -1,30 +1,48 @@
-"""Dense transformer block, pre-norm residual (port of
-``repro/models/blocks.py``; MoE, Mamba and cross-attention blocks belong
-to later slices)."""
+"""Dense transformer and Mamba blocks, pre-norm residual (port of
+``repro/models/blocks.py``; MoE and cross-attention blocks belong to later
+slices)."""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import ShardCtx
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
-    """Run-time knobs of the serving path (``blocks.py:19``; the
-    reference's training knobs come with the training slice)."""
+    """Run-time knobs (``blocks.py:19``)."""
     attn_chunk: int = 512        # query chunk of the prefill attention
+    ce_chunk: int = 1024         # sequence chunk of the cross-entropy
+    remat: str = "full"          # none | full | dots; see remat_wrap
+    banded_local: bool = False   # banded sliding-window path (not ported)
     use_kernel: bool = False     # hand-written CUDA kernels
+    aux_loss_coef: float = 0.01
+
+
+def remat_wrap(fn, opts: ModelOpts):
+    """``blocks.py:29``.  A no-op here: the port has no backward pass yet.
+    With the training slice ``ModelOpts.remat`` maps onto
+    ``torch.utils.checkpoint`` ("full": checkpoint the layer; "dots": keep
+    the matrix products' outputs)."""
+    return fn
 
 
 def _dense_only(cfg: ArchConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the MoE block is not ported yet")
+            f"{cfg.name}: the MoE block is not ported yet; the port covers "
+            "the dense and ssm families")
 
 
+# ---------------------------------------------------------------------------
+# Dense attention block
+# ---------------------------------------------------------------------------
 def dense_block_spec(cfg: ArchConfig) -> dict:
     _dense_only(cfg)
     return {
@@ -33,6 +51,20 @@ def dense_block_spec(cfg: ArchConfig) -> dict:
         "ln2": rmsnorm_spec(cfg.d_model),
         "mlp": mlp_spec(cfg),
     }
+
+
+def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
+                positions, is_global=True):
+    """Forward block (``blocks.py:54``), without the banded path.
+    Returns (h, aux loss), the aux loss a zero (no MoE)."""
+    _dense_only(cfg)
+    h = ctx.constrain(h, "batch", "seq", "act_embed")
+    a = attn.self_attention(
+        p["attn"], rmsnorm(p["ln1"], h), cfg, ctx,
+        positions=positions, is_global=is_global, chunk=opts.attn_chunk)
+    h = h + a
+    f = mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx)
+    return h + f, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
@@ -46,3 +78,25 @@ def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
         pos=pos, is_global=is_global, use_kernel=use_kernel)
     h = h + a
     return h + mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx), k_new, v_new
+
+
+# ---------------------------------------------------------------------------
+# Mamba block wrapper
+# ---------------------------------------------------------------------------
+def mamba_block_spec(cfg: ArchConfig) -> dict:
+    """``blocks.py:124``."""
+    return {"ln": rmsnorm_spec(cfg.d_model), "mixer": ssm_mod.mamba_spec(cfg)}
+
+
+def mamba_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts):
+    """``blocks.py:128``: the only route to the ``ssd_scan`` kernel."""
+    h = ctx.constrain(h, "batch", "seq", "act_embed")
+    return h + ssm_mod.mamba_block(p["mixer"], rmsnorm(p["ln"], h), cfg, ctx,
+                                   use_kernel=opts.use_kernel)
+
+
+def mamba_block_decode(p, h, cache, cfg: ArchConfig, ctx: ShardCtx):
+    """``blocks.py:134``: -> (h, new cache)."""
+    y, cache = ssm_mod.mamba_decode_step(
+        p["mixer"], rmsnorm(p["ln"], h), cache, cfg, ctx)
+    return h + y, cache

@@ -3,7 +3,8 @@
 
 The roundings follow the reference op by op: ``rmsnorm`` works in f32 and
 casts back; ``rope`` multiplies the input by f32 cos/sin, so a bf16 input
-is promoted to f32 and rounded once at the end (``layers.py:40``).
+is promoted to f32 and rounded once at the end (``layers.py:40``);
+``chunked_cross_entropy`` sums in f32 chunk by chunk.
 """
 from __future__ import annotations
 
@@ -97,3 +98,33 @@ def logits_last(params, cfg: ArchConfig, h_last: torch.Tensor
     """(B, D) -> (B, V) f32 logits for decode."""
     w = unembed_matrix(params, cfg, h_last.dtype)
     return (h_last @ w).float()
+
+
+def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
+                          labels: torch.Tensor, ctx: ShardCtx,
+                          chunk: int = 1024) -> torch.Tensor:
+    """``layers.py:100``: mean CE without materialising (B, S, V) logits.
+
+    h: (B, S, D); labels: (B, S) int, -1 = ignore.  Each sequence chunk
+    makes its (B, chunk, V) f32 logits, adds its CE to an f32 sum and
+    drops them.  ``S`` must be a multiple of ``min(chunk, S)``, as the
+    reference asserts.
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
+    w = unembed_matrix(params, cfg, h.dtype)              # (D, V)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.int64, device=h.device)
+    for start in range(0, S, chunk):
+        hc = h[:, start:start + chunk]
+        yc = labels[:, start:start + chunk]
+        logits = ctx.constrain((hc @ w).float(), "batch", "seq", "vocab")
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            yc.clamp_min(0).long()[..., None])[..., 0]
+        valid = yc >= 0
+        loss_sum = loss_sum + torch.sum((lse - gold) * valid)
+        count = count + valid.sum()
+    return loss_sum / count.clamp_min(1).float()

@@ -1,10 +1,11 @@
-"""Model assembly for the dense family: specs, prefill, decode (port of
-``repro/models/model.py``).
+"""Model assembly for the dense and ssm families: specs, forward, loss,
+prefill, decode (port of ``repro/models/model.py``).
 
 Parameters are an explicit nested dict of tensors with the reference's
 keys and stacked per-layer layout (leading ``layers`` axis), so a JAX tree
 loads as it is (``repro_torch.interop``).  The reference's ``lax.scan``
-over the stack is a Python loop over its slices here.
+over the stack is a Python loop over its slices here.  The moe, hybrid,
+vlm and audio families raise ``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
 
@@ -19,9 +20,13 @@ from repro_torch.distrib.logical import (
     NOSHARD, P, ShardCtx, init_params, spec_map)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import ModelOpts
 from repro_torch.models.layers import (
-    embed, embed_spec, logits_last, mlp, rmsnorm, rmsnorm_spec)
+    chunked_cross_entropy, embed, embed_spec, logits_last, mlp, rmsnorm,
+    rmsnorm_spec)
+
+FAMILIES = ("dense", "ssm")
 
 
 def stack_spec(spec: dict, *ns: int) -> dict:
@@ -49,18 +54,20 @@ class Model:
     cfg: ArchConfig
 
     def _check_family(self) -> None:
-        if self.cfg.family != "dense":
+        if self.cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} is not ported "
-                "yet; the port covers the dense family")
+                f"yet; the port covers the {' and '.join(FAMILIES)} families")
 
     def param_spec(self) -> dict:
-        """``model.py:64`` for the dense family."""
+        """``model.py:64`` for the dense and ssm families."""
         self._check_family()
         cfg = self.cfg
+        block = (B.dense_block_spec(cfg) if cfg.family == "dense"
+                 else B.mamba_block_spec(cfg))
         return {"embed": embed_spec(cfg),
                 "ln_f": rmsnorm_spec(cfg.d_model),
-                "layers": stack_spec(B.dense_block_spec(cfg), cfg.n_layers)}
+                "layers": stack_spec(block, cfg.n_layers)}
 
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32) -> dict:
@@ -70,34 +77,91 @@ class Model:
     def global_flags(self) -> np.ndarray:
         return np.array([g for _, g in self.cfg.layer_pattern()], bool)
 
-    # ---------------- prefill (forward + KV cache) ----------------
+    # ---------------- forward and loss ----------------
+    def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
+                opts: ModelOpts = ModelOpts()):
+        """``model.py:106``: -> (hidden (B, S, D) after the final norm,
+        aux loss).  For the ssm family ``opts.use_kernel`` runs every
+        layer's scan through the ``ssd_scan`` kernel."""
+        self._check_family()
+        cfg = self.cfg
+        if opts.banded_local and cfg.local_global_ratio \
+                and cfg.sliding_window:
+            raise NotImplementedError(
+                "the banded local:global path comes with the gemma3 slice")
+        dtype = compute_dtype(cfg)
+        params = precast(params, dtype)
+        h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
+                          "batch", "seq", "act_embed")
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.family == "dense":
+            positions = torch.arange(h.shape[1], device=h.device)[None]
+            body = B.remat_wrap(B.dense_block, opts)
+            for i, flag in enumerate(self.global_flags()):
+                h, a = body(layer_slice(params["layers"], i), h, cfg, ctx,
+                            opts, positions=positions, is_global=bool(flag))
+                aux = aux + a
+        else:
+            body = B.remat_wrap(B.mamba_block, opts)
+            for i in range(cfg.n_layers):
+                h = body(layer_slice(params["layers"], i), h, cfg, ctx, opts)
+        return rmsnorm(params["ln_f"], h), aux
+
+    def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
+             opts: ModelOpts = ModelOpts()) -> torch.Tensor:
+        """``model.py:225``: mean CE over labels >= 0 plus the aux loss."""
+        h, aux = self.forward(params, batch, ctx, opts)
+        ce = chunked_cross_entropy(params["embed"], self.cfg, h,
+                                   batch["labels"], ctx, chunk=opts.ce_chunk)
+        return ce + opts.aux_loss_coef * aux
+
+    # ---------------- prefill (forward + KV/state cache) ----------------
     def prefill(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
-        """``model.py:234``: -> (last-position logits (B, V) f32, cache)
-        with cache {"k", "v"}: (L, B, S, Hkv, D) in the compute dtype."""
+        """``model.py:234``: -> (last-position logits (B, V) f32, cache).
+        dense: {"k", "v"}: (L, B, S, Hkv, D) in the compute dtype; ssm:
+        {"ssm": (L, B, H, P, N) f32, "conv": (L, B, W-1, C) in the compute
+        dtype}.  The ssm prefill runs ``ssd_reference``, as the reference
+        does, whatever ``opts.use_kernel`` says."""
         self._check_family()
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
         h = embed(params["embed"], batch["tokens"], dtype)
-        positions = torch.arange(h.shape[1], device=h.device)[None]
-        ks, vs = [], []
-        for i, flag in enumerate(self.global_flags()):
-            h, (k, v) = _dense_prefill(layer_slice(params["layers"], i), h,
-                                       cfg, ctx, opts, positions, bool(flag))
-            ks.append(k)
-            vs.append(v)
+        if cfg.family == "dense":
+            positions = torch.arange(h.shape[1], device=h.device)[None]
+            ks, vs = [], []
+            for i, flag in enumerate(self.global_flags()):
+                h, (k, v) = _dense_prefill(layer_slice(params["layers"], i),
+                                           h, cfg, ctx, opts, positions,
+                                           bool(flag))
+                ks.append(k)
+                vs.append(v)
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        else:
+            ssms, convs = [], []
+            for i in range(cfg.n_layers):
+                h, (st, conv) = _mamba_prefill(
+                    layer_slice(params["layers"], i), h, cfg, ctx)
+                ssms.append(st)
+                convs.append(conv)
+            cache = {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
         h = rmsnorm(params["ln_f"], h)
-        return (logits_last(params["embed"], cfg, h[:, -1]),
-                {"k": torch.stack(ks), "v": torch.stack(vs)})
+        return logits_last(params["embed"], cfg, h[:, -1]), cache
 
     # ---------------- decode ----------------
     def init_cache(self, batch: int, seq: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Any = "cpu") -> Dict[str, torch.Tensor]:
-        """``model.py:315``: zeros (L, B, S, Hkv, D) for k and v."""
+        """``model.py:315``: dense: zeros (L, B, S, Hkv, D) for k and v;
+        ssm: the zero state and conv history of every layer (``seq`` is
+        unused; the ssm state is f32 whatever ``dtype`` is)."""
         self._check_family()
         cfg = self.cfg
+        if cfg.family == "ssm":
+            m = ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
+            return {"ssm": _tile(m["ssm"], cfg.n_layers),
+                    "conv": _tile(m["conv"], cfg.n_layers)}
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -110,9 +174,10 @@ class Model:
         -> (logits (B,V) f32, cache)
 
         A scalar ``pos`` is the lockstep path; a ``(B,)`` vector gives each
-        slot its own position.  The cache is updated IN PLACE, one layer at
-        a time, and returned; its final contents equal the reference's
-        single write after the layer scan (``model.py:386-399``).
+        slot its own position; the ssm family's recurrent state has no
+        position and ignores it (``model.py:402-411``).  The cache is
+        updated IN PLACE, one layer at a time, and returned; its final
+        contents equal the reference's (``model.py:386-399``).
         """
         self._check_family()
         cfg = self.cfg
@@ -120,6 +185,16 @@ class Model:
         params = precast(params, dtype)
         pos = batch["pos"]
         h = embed(params["embed"], batch["token"], dtype)   # (B,1,D)
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                h, new = B.mamba_block_decode(
+                    layer_slice(params["layers"], i), h,
+                    {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
+                    cfg, ctx)
+                cache["ssm"][i].copy_(new["ssm"])
+                cache["conv"][i].copy_(new["conv"])
+            h = rmsnorm(params["ln_f"], h)
+            return logits_last(params["embed"], cfg, h[:, 0]), cache
         for i, flag in enumerate(self.global_flags()):
             h, _, _ = B.dense_block_decode(
                 layer_slice(params["layers"], i), h, cache["k"][i],
@@ -143,13 +218,30 @@ def _dense_prefill(p, h, cfg, ctx, opts, positions, is_global):
     return h + mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx), (k, v)
 
 
+def _mamba_prefill(p, h, cfg, ctx):
+    """``model.py:510``: a Mamba block that also returns (final ssm state,
+    conv tail).  The tail is the last W-1 rows of xBC before the conv.
+    The scan is ``ssd_reference``, as in the reference."""
+    L = h.shape[1]
+    y, state, xBC = ssm_mod._mixer(p["mixer"], rmsnorm(p["ln"], h), cfg, ctx,
+                                   use_kernel=False)
+    conv_tail = xBC[:, L - (cfg.ssm_conv_width - 1):, :]   # pre-activation
+    return h + y, (state, conv_tail.to(h.dtype))
+
+
+def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``model.py:537``: n stacked copies (a new tensor, not a view)."""
+    return x[None].repeat((n,) + (1,) * x.dim())
+
+
 def precast(params, dtype: torch.dtype):
     """Port of ``_precast`` (``model.py:541``): cast every f32 leaf with
     ``ndim >= 2`` to the compute dtype; 1-D leaves stay f32.
 
     On the stacked tree that rounds the per-layer norm scales and qkv
-    biases, shaped (L, d), to bf16 while ``ln_f.scale``, shaped (d,),
-    stays f32, exactly as the reference.  Casting is idempotent, so a
+    biases, shaped (L, d), and the ssm family's (L, H) ``A_log``, ``D``
+    and ``dt_bias``, to bf16 while ``ln_f.scale``, shaped (d,), stays f32,
+    exactly as the reference.  Casting is idempotent, so a
     server casts once at load and the per-step call returns the same
     tensors; the reference casts inside every jitted step.
     """

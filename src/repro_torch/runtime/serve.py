@@ -4,7 +4,8 @@ Port of ``repro/runtime/serve.py`` to torch; the behaviour, the step clock
 and the bit-identity contract are the reference's.  The servers run on
 ``cuda`` unless given ``device="cpu"``.  They cast the parameters to the
 compute dtype once at load (``models.model.precast``) and keep an f32 KV
-cache that each step updates in place.
+cache (dense) or f32 recurrent state (ssm) that each step updates in
+place.
 
 ``BatchedServer`` is a continuous-batching greedy server: every slot
 carries its own position and KV-cache occupancy, requests are admitted
@@ -141,12 +142,19 @@ class BatchedServer:
 
     ``use_kernel=True`` puts the flash-decode CUDA kernel on the
     generation path with per-slot ``length``; it is forced off for
-    sliding-window configs, as in the reference (``serve.py:161-164``).
-    On CPU tensors the kernel's wrapper runs its plain version and counts
-    that apart (``kernels.decode_attention.COUNT``).  The port covers the
-    dense family; the reference's lockstep fallback for hybrid/vlm and its
-    ssm slot reset come with those families.
+    sliding-window configs and for families other than dense/moe, as in
+    the reference (``serve.py:161-164``): the ssm decode step runs no
+    kernel.  On CPU tensors the kernel's wrapper runs its plain version
+    and counts that apart (``kernels.decode_attention.COUNT``).
+
+    Families with per-slot support (``SLOT_FAMILIES``): dense/moe (KV
+    caches) and ssm (position-free recurrent state, re-zeroed per slot on
+    admission).  The reference serves hybrid/vlm through an internal
+    :class:`LockstepServer` behind ``run()``; that fallback comes with
+    those families, and until then such a server raises.
     """
+
+    SLOT_FAMILIES = ("dense", "moe", "ssm")
 
     def __init__(self, model: Model, params, *, batch_size: int = 4,
                  max_seq: int = 256, opts: ModelOpts = ModelOpts(),
@@ -163,6 +171,11 @@ class BatchedServer:
             use_kernel = opts.use_kernel
         self.use_kernel = bool(use_kernel and cfg.family in ("dense", "moe")
                                and not cfg.sliding_window)
+        self.continuous = cfg.family in self.SLOT_FAMILIES
+        if not self.continuous:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet; its "
+                "lockstep fallback comes with it")
         self.params = _load(model, params, self.device)
         self.cache = model.init_cache(batch_size, max_seq, torch.float32,
                                       self.device)
@@ -249,8 +262,17 @@ class BatchedServer:
                 self._pos[i] = 0
                 self._token[i, 0] = r.prompt[0]
                 r.started = self.steps
-                # the slot's old KV entries at/above position 0 are masked
-                # out and overwritten as it advances: no reset needed
+                self._reset_slot(i)
+
+    def _reset_slot(self, i: int) -> None:
+        """``serve.py:273``.  KV entries at/above the slot's position are
+        masked out and overwritten as it advances; the ssm family's
+        recurrent state would carry across occupants, so it is re-zeroed
+        (every cache entry ``[:, i]``, in place)."""
+        if self.model.cfg.family != "ssm":
+            return
+        for v in self.cache.values():
+            v[:, i].zero_()
 
     def _finish(self, i: int, finished: List[Request]) -> None:
         r = self.active[i]

@@ -1,10 +1,11 @@
-"""The port's flash-decode against the Pallas kernel and the oracles.
+"""The port's flash-decode and SSD scan against the Pallas kernels and the
+oracles.
 
-On the CPU the wrapper runs its plain version; it is held here against
-``repro.kernels.decode_attention`` in interpret mode (as
-``tests/test_kernels.py`` runs it) on the same numpy inputs.  The CUDA
-kernel itself is held against the plain version by the ``cuda`` tests,
-which skip without a card, and by ``chip_smoke.py``.
+On the CPU each wrapper runs its plain version; it is held here against
+``repro.kernels.decode_attention`` and ``repro.kernels.ssd_scan`` in
+interpret mode (as ``tests/test_kernels.py`` runs them) on the same numpy
+inputs.  The CUDA kernels themselves are held against the plain versions
+by the ``cuda`` tests, which skip without a card, and by ``chip_smoke.py``.
 """
 import inspect
 from pathlib import Path
@@ -16,9 +17,12 @@ import torch
 
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.ref import decode_mha_ref as jax_decode_ref
+from repro.kernels.ref import ssd_ref as jax_ssd_ref
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_mha_ref, mha_ref
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.kernels.ref import decode_mha_ref, mha_ref, ssd_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -206,3 +210,209 @@ def test_kernel_matches_plain_on_card(B, Hq, Hkv, S, D, length, dt):
     torch.cuda.synchronize()
     assert da.COUNT.launches == 1 and da.COUNT.plain == 0
     _close(out.float().cpu(), da.decode_attention_plain(q, k, v, ln).cpu(), dt)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+SSD_SRC = Path(ssd_mod.__file__).parent / "csrc" / "ssd_scan.cu"
+SSD_SWEEP = [   # tests/test_kernels.py:39-43
+    (2, 256, 3, 64, 32, 64, "float32"),
+    (1, 512, 2, 64, 64, 128, "float32"),
+    (2, 256, 4, 32, 16, 128, "bfloat16"),
+    (1, 128, 1, 16, 8, 32, "float32"),
+]
+
+
+def _ssd_inputs(B, L, H, P, N, dt, seed=1, a_scale=0.3, d_dt="float32"):
+    """As tests/test_kernels.py:45-51, from numpy; D random, not ones."""
+    rng = np.random.default_rng(seed)
+    x = 0.5 * rng.standard_normal((B, L, H, P), np.float32)
+    dtv = 0.5 * np.log1p(np.exp(rng.standard_normal((B, L, H)))
+                         ).astype(np.float32)
+    A = -np.exp(a_scale * rng.standard_normal(H)).astype(np.float32)
+    Bm = 0.3 * rng.standard_normal((B, L, N), np.float32)
+    Cm = 0.3 * rng.standard_normal((B, L, N), np.float32)
+    D = 1 + 0.2 * rng.standard_normal(H).astype(np.float32)
+    if dt == "bfloat16":     # round once, so both packages see the same bits
+        x, Bm, Cm = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                     for a in (x, Bm, Cm))
+    if d_dt == "bfloat16":
+        D = np.asarray(jnp.asarray(D, jnp.bfloat16), np.float32)
+    return x, dtv, A, Bm, Cm, D
+
+
+def _ssd_pair(B, L, H, P, N, chunk, dt, d_dt="float32", **kw):
+    x, dtv, A, Bm, Cm, D = _ssd_inputs(B, L, H, P, N, dt, d_dt=d_dt, **kw)
+    yj, sj = jax_ssd_scan(_jax(x, dt), jnp.asarray(dtv), jnp.asarray(A),
+                          _jax(Bm, dt), _jax(Cm, dt), _jax(D, d_dt),
+                          chunk=chunk, interpret=True)
+    ssd_mod.COUNT.reset()
+    yt, st = ops.ssd(_torch(x, dt), torch.from_numpy(dtv), torch.from_numpy(A),
+                     _torch(Bm, dt), _torch(Cm, dt), _torch(D, d_dt),
+                     chunk=chunk)
+    assert (ssd_mod.COUNT.launches, ssd_mod.COUNT.plain) == (0, 1)
+    assert yt.dtype == TORCH_DT[dt] and st.dtype == torch.float32
+    assert yt.shape == (B, L, H, P) and st.shape == (B, H, P, N)
+    return (yj, sj), (yt, st)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", SSD_SWEEP)
+def test_ssd_plain_matches_pallas_interpret(B, L, H, P, N, chunk, dt):
+    """y at 5 x TOL, state at 1e-4, as tests/test_kernels.py:53-57."""
+    (yj, sj), (yt, st) = _ssd_pair(B, L, H, P, N, chunk, dt)
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
+                               atol=5 * TOL[dt], rtol=5 * TOL[dt])
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_ssd_plain_takes_bf16_D(dt):
+    """The model's precast turns the stacked (L, H) D into bf16, so D
+    reaches the kernel in bf16 while x may be either."""
+    (yj, sj), (yt, st) = _ssd_pair(2, 128, 2, 16, 8, 32, dt,
+                                   d_dt="bfloat16")
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
+                               atol=5 * TOL[dt], rtol=5 * TOL[dt])
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_plain_is_finite_where_the_upper_triangle_overflows():
+    """A = -e (A_log = 1, as the model's init) and large steps: cum falls
+    to about -500 across a 256-chunk, so exp(cum_q - cum_s) above the
+    diagonal is inf.  Selecting (not masking by a product) keeps y finite
+    and equal to the reference."""
+    x, dtv, A, Bm, Cm, D = _ssd_inputs(1, 256, 2, 16, 8, "float32")
+    A[:] = -np.e
+    dtv = dtv + 0.5
+    args_j = [jnp.asarray(a) for a in (x, dtv, A, Bm, Cm, D)]
+    yj, sj = jax_ssd_scan(*args_j, chunk=256, interpret=True)
+    ssd_mod.COUNT.reset()
+    yt, st = ops.ssd(*(torch.from_numpy(a) for a in (x, dtv, A, Bm, Cm, D)),
+                     chunk=256)
+    cum = np.cumsum(dtv[0, :, 0] * A[0])
+    assert cum[0] - cum[-1] > 400        # exp overflows f32 above 88.7
+    assert torch.isfinite(yt).all() and torch.isfinite(st).all()
+    tol = 5 * TOL["float32"]
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=tol, rtol=tol)
+
+
+def test_ssd_chunk_invariance():
+    """tests/test_kernels.py:60: chunk 64 and 256 give the same y."""
+    args = [torch.from_numpy(a)
+            for a in _ssd_inputs(1, 256, 2, 32, 16, "float32", seed=2)]
+    y64, s64 = ops.ssd(*args, chunk=64)
+    y256, s256 = ops.ssd(*args, chunk=256)
+    np.testing.assert_allclose(y64.numpy(), y256.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(s64.numpy(), s256.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_ref_matches_reference_oracle():
+    x, dtv, A, Bm, Cm, D = _ssd_inputs(2, 128, 3, 16, 8, "float32", seed=3)
+    yj, sj = jax_ssd_ref(*(jnp.asarray(a) for a in (x, dtv, A, Bm, Cm, D)),
+                         chunk=32)
+    yt, st = ssd_ref(*(torch.from_numpy(a) for a in (x, dtv, A, Bm, Cm, D)),
+                     chunk=32)
+    tol = 5 * TOL["float32"]
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=tol, rtol=tol)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-4,
+                               rtol=1e-4)
+
+
+def _model_views(B, L, H, P, N, dt, seed=4):
+    """x, Bm, Cm as the strided slices ``mamba_block`` makes of its conv
+    output (B, L, H*P + 2N), and the other inputs."""
+    rng = np.random.default_rng(seed)
+    conv = torch.from_numpy(
+        0.4 * rng.standard_normal((B, L, H * P + 2 * N), np.float32)
+    ).to(TORCH_DT[dt])
+    di = H * P
+    x = conv[..., :di].reshape(B, L, H, P)
+    Bm, Cm = conv[..., di:di + N], conv[..., di + N:]
+    dtv = torch.from_numpy(0.5 * np.log1p(np.exp(rng.standard_normal(
+        (B, L, H)))).astype(np.float32))
+    A = torch.from_numpy(-np.exp(0.3 * rng.standard_normal(H)
+                                 ).astype(np.float32))
+    D = torch.from_numpy(1 + 0.2 * rng.standard_normal(H).astype(np.float32))
+    return x, dtv, A, Bm, Cm, D
+
+
+def test_ssd_takes_the_model_strided_views_as_they_are():
+    x, dtv, A, Bm, Cm, D = _model_views(2, 64, 3, 16, 8, "float32")
+    assert not x.is_contiguous() and Bm.stride(1) == 3 * 16 + 16
+    a = ops.ssd(x, dtv, A, Bm, Cm, D, chunk=16)
+    b = ops.ssd(x.contiguous(), dtv, A, Bm.contiguous(), Cm.contiguous(), D,
+                chunk=16)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("bad,exc", [
+    ("x dtype", TypeError), ("dt dtype", TypeError), ("shape", ValueError),
+    ("ragged L", ValueError), ("stride", ValueError),
+    ("head dim", ValueError), ("state", ValueError)])
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
+    x, dtv, A, Bm, Cm, D = (torch.from_numpy(a) for a in
+                            _ssd_inputs(1, 64, 2, 16, 8, "float32"))
+    chunk = 16
+    if bad == "x dtype":
+        x, Bm, Cm = x.half(), Bm.half(), Cm.half()
+    elif bad == "dt dtype":
+        dtv = dtv.to(torch.bfloat16)
+    elif bad == "shape":
+        Cm = Cm[:, :32]
+    elif bad == "ragged L":
+        chunk = 24
+    elif bad == "stride":
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "head dim":
+        x = torch.zeros(1, 64, 2, 80)
+    else:
+        Bm = Cm = torch.zeros(1, 64, 136)
+    with pytest.raises(exc):
+        ops.ssd(x, dtv, A, Bm, Cm, D, chunk=chunk)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_ssd_wrapper_raises_under_autograd(device):
+    """No backward yet: with grad enabled and an input that requires it,
+    the wrapper raises before it looks at the device; under no_grad it
+    runs."""
+    x, dtv, A, Bm, Cm, D = (torch.from_numpy(a).to(device) for a in
+                            _ssd_inputs(1, 32, 2, 16, 8, "float32"))
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd(x, dtv, A, Bm, Cm, D, chunk=16)
+    if device == "cpu":
+        with torch.no_grad():
+            ops.ssd(x, dtv, A, Bm, Cm, D, chunk=16)
+
+
+def test_ssd_kernel_selects_the_upper_triangle():
+    """The CUDA source selects exp(cum_q - cum_s) where s <= q (a ternary),
+    never multiplies by a 0/1 mask."""
+    src = SSD_SRC.read_text()
+    assert "keep ? g[i][j] * expf(cum_s[q] - cum_s[s]) : 0.f" in src
+    assert "pallas_call at :80" in src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", SSD_SWEEP + [
+    (8, 512, 24, 64, 128, 256, "bfloat16")])
+def test_ssd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dt):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device; compared against its plain version by "
+                    "chip_smoke.py")
+    x, dtv, A, Bm, Cm, D = _model_views(B, L, H, P, N, dt)
+    args = [t.cuda() for t in (x, dtv, A, Bm, Cm, D)]
+    ssd_mod.COUNT.reset()
+    y, s = ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.COUNT.launches == 1 and ssd_mod.COUNT.plain == 0
+    yp, sp = ssd_mod.ssd_scan_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), yp.float(), atol=5 * TOL[dt],
+                               rtol=5 * TOL[dt])
+    torch.testing.assert_close(s, sp, atol=1e-4, rtol=1e-4)

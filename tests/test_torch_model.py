@@ -2,8 +2,9 @@
 reference, on the same numpy parameters and inputs.
 
 Parameters come from the reference's ``Model.init``; its biases are zero
-and its norm scales one, which would hide a wrong bias or scale path, so
-those leaves are overwritten with seeded random values first.  Tolerances:
+and its norm scales one (and, for the ssm family, ``A_log`` and ``D`` one,
+``dt_bias`` and ``conv_b`` zero), which would hide a wrong path, so those
+leaves are overwritten with seeded random values first.  Tolerances:
 f32 2e-5, bf16 2e-2 (``tests/test_kernels.py:14``), unless a test says
 otherwise.
 """
@@ -56,11 +57,14 @@ def _np_params(jcfg, seed=0):
         for key, leaf in tree.items():
             if isinstance(leaf, dict):
                 fill(leaf, path + (key,))
-            elif key in ("bq", "bk", "bv"):
+            elif key in ("bq", "bk", "bv", "dt_bias", "conv_b"):
                 tree[key] = (0.1 * rng.standard_normal(leaf.shape)
                              ).astype(np.float32)
-            elif key == "scale":
+            elif key in ("scale", "D"):
                 tree[key] = (1 + 0.2 * rng.standard_normal(leaf.shape)
+                             ).astype(np.float32)
+            elif key == "A_log":
+                tree[key] = (0.5 * rng.standard_normal(leaf.shape)
                              ).astype(np.float32)
     fill(params)
     return params
@@ -342,6 +346,7 @@ def test_decode_matches_prefill(use_kernel):
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-130m", "phi3.5-moe-42b-a6.6b", "zamba2-7b"):
+    for arch in ("phi3.5-moe-42b-a6.6b", "zamba2-7b", "hubert-xlarge",
+                 "llama-3.2-vision-90b"):
         with pytest.raises(NotImplementedError):
             Model(tconfigs.REGISTRY[arch].reduced()).param_spec()
