@@ -34,18 +34,22 @@
 // its conv output, row stride d_inner + 2N); every sum is f32 on CUDA cores.
 //
 // What bounds it, at the model's shape (B=8, L=4096, H=24, P=64, N=128,
-// Q=256, bf16 x/B/C, on an H100 SXM: 3.35 TB/s, 67 TFLOP/s f32 without
-// tensor cores): the bytes are x and y 100.7 MB each, dt 3.1 MB, B and C
-// 8.4 MB each, the state 6.3 MB: about 228 MB, 68 us.  The products are
-// about 54 GFLOP with C.B^T computed once per (b, chunk) over the full
-// (Q,Q), 103 GFLOP as the Pallas kernel computes them (C.B^T per head),
-// and about 74 GFLOP as this kernel does (C.B^T per head, lower-triangle
-// tiles only): 0.8-1.5 ms at the f32 rate.  So the kernel is bound by
-// operations, some ten times above the bytes bound.  A later redesign
-// would move the three products onto the tensor cores (wgmma in bf16 with
-// f32 sums, or TF32, at a tolerance that allows it), compute C.B^T once per
-// (b, chunk) for all heads, and feed the tiles by TMA; it would then near
-// the bytes bound.  This first kernel uses plain loads, 4x4 or 4x8
+// Q=256, bf16 x/B/C, on an H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 with
+// f32 sums, 67 TFLOP/s f32 without tensor cores): the bytes are x and y
+// 100.7 MB each, dt 3.1 MB, B and C 8.4 MB each, the state 6.3 MB: about
+// 228 MB, 68 us.  The least work is C.B^T's lower triangle once per
+// (b, chunk), 1.08 GFLOP of bf16 x bf16 products (1.1 us at the bf16
+// rate), and 37.9 GFLOP of products with an f32 operand: the intra-chunk
+// term's lower triangle per head (12.9), the carried-state term over the
+// 15 chunks whose incoming state is not zero (12.1) and each chunk's own
+// state (12.9), 0.566 ms at the f32 rate.  So the function is bound by
+// operations, at 0.567 ms, some eight times above the bytes bound.  The
+// Pallas kernel computes about 103 GFLOP (full (Q,Q) tiles, C.B^T per
+// head), this kernel about 74 GFLOP (C.B^T per head, lower-triangle tiles
+// only).  A later redesign would move the three products onto the tensor
+// cores (wgmma in bf16 with f32 sums, or TF32, at a tolerance that allows
+// it), compute C.B^T once per (b, chunk) for all heads, and feed the tiles
+// by TMA; it would then near the bytes bound.  This first kernel uses plain loads, 4x4 or 4x8
 // register tiles per thread, and CUDA-core FMAs.
 
 #include <cuda_bf16.h>

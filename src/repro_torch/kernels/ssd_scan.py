@@ -17,8 +17,8 @@ Where the Pallas kernel walks the chunks of one (b, h) in order, the CUDA
 kernel takes the chunked decomposition of the Mamba2 paper (arXiv
 2405.21060) in three launches: each chunk's cumulative decay and its own
 state contribution; the state passed from chunk to chunk; each chunk's
-output.  :func:`ssd_scan_plain` computes the same three phases in plain
-torch.
+output.  Its plain version is ``kernels.ref.ssd_ref``, the model layer's
+chunked reference (``models.ssm.ssd_reference``).
 
 On CPU tensors the wrapper runs the plain version and counts that in
 ``COUNT.plain``; on CUDA tensors it launches the kernel
@@ -34,6 +34,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import ssd_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64        # P: one block's output tile is (64 rows, P)
@@ -52,45 +53,6 @@ class LaunchCount:
 
 
 COUNT = LaunchCount()
-
-
-def ssd_scan_plain(x, dt, A, Bm, Cm, D, *, chunk: int):
-    """The kernel's function in plain torch, in the kernel's three phases:
-    per-chunk cumulative decay ``cum`` and state contribution, state
-    passing across chunks, per-chunk output.  f32 throughout; the upper
-    triangle of ``exp(cum_q - cum_s)`` is selected away (``-inf`` before
-    ``exp``), never multiplied by a mask, since it overflows."""
-    B_, L, H, Pd = x.shape
-    N = Bm.shape[-1]
-    Q = min(chunk, L)
-    n = L // Q
-    a = (dt.float() * A.float()[None, None, :]).reshape(B_, n, Q, H)
-    cum = torch.cumsum(a.transpose(2, 3), dim=-1)            # (B, n, H, Q)
-    xw = (x.float() * dt.float()[..., None]).reshape(B_, n, Q, H, Pd)
-    Bc = Bm.float().reshape(B_, n, Q, N)
-    Cc = Cm.float().reshape(B_, n, Q, N)
-
-    # phase 1: each chunk's own contribution to the state at its end
-    decay_to_end = torch.exp(cum[..., -1:] - cum)             # (B, n, H, Q)
-    contrib = torch.einsum("bcqn,bchq,bcqhp->bchpn", Bc, decay_to_end, xw)
-    # phase 2: the state entering each chunk
-    state = torch.zeros((B_, H, Pd, N), dtype=torch.float32, device=x.device)
-    starts = []
-    for c in range(n):
-        starts.append(state)
-        state = state * torch.exp(cum[:, c, :, -1])[..., None, None] \
-            + contrib[:, c]
-    start = torch.stack(starts, dim=1)                        # (B, n, H, P, N)
-    # phase 3: output, intra-chunk term + carried-state term + D * x
-    G = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)               # (B, n, Q, Q)
-    seg = cum[..., :, None] - cum[..., None, :]               # (B, n, H, Q, Q)
-    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    Lmat = torch.exp(seg.masked_fill(~tril, float("-inf")))
-    y_diag = torch.einsum("bchqs,bcshp->bcqhp", G[:, :, None] * Lmat, xw)
-    y_off = torch.einsum("bcqn,bchpn,bchq->bcqhp", Cc, start, torch.exp(cum))
-    y = (y_diag + y_off).reshape(B_, L, H, Pd) \
-        + x.float() * D.float()[None, None, :, None]
-    return y.to(x.dtype), state
 
 
 _lib = None
@@ -161,7 +123,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     Q = _check(x, dt, A, Bm, Cm, D, chunk)
     if x.device.type == "cpu":
         COUNT.plain += 1
-        return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+        return ssd_ref(x, dt, A, Bm, Cm, D, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
 

@@ -5,8 +5,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import ShardCtx
 from repro_torch.models import attention as attn
@@ -22,7 +20,6 @@ class ModelOpts:
     remat: str = "full"          # none | full | dots; see remat_wrap
     banded_local: bool = False   # banded sliding-window path (not ported)
     use_kernel: bool = False     # hand-written CUDA kernels
-    aux_loss_coef: float = 0.01
 
 
 def remat_wrap(fn, opts: ModelOpts):
@@ -55,8 +52,9 @@ def dense_block_spec(cfg: ArchConfig) -> dict:
 
 def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
                 positions, is_global=True):
-    """Forward block (``blocks.py:54``), without the banded path.
-    Returns (h, aux loss), the aux loss a zero (no MoE)."""
+    """Forward block (``blocks.py:54``), without the banded path.  Returns
+    h alone: the reference's second output is the MoE aux loss, which
+    comes with the MoE slice."""
     _dense_only(cfg)
     h = ctx.constrain(h, "batch", "seq", "act_embed")
     a = attn.self_attention(
@@ -64,7 +62,7 @@ def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
         positions=positions, is_global=is_global, chunk=opts.attn_chunk)
     h = h + a
     f = mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx)
-    return h + f, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + f
 
 
 def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,

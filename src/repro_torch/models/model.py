@@ -81,8 +81,10 @@ class Model:
     def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
         """``model.py:106``: -> (hidden (B, S, D) after the final norm,
-        aux loss).  For the ssm family ``opts.use_kernel`` runs every
-        layer's scan through the ``ssd_scan`` kernel."""
+        aux loss).  The aux loss is a constant zero: it is the MoE
+        router's, and MoE is not ported.  For the ssm family
+        ``opts.use_kernel`` runs every layer's scan through the
+        ``ssd_scan`` kernel."""
         self._check_family()
         cfg = self.cfg
         if opts.banded_local and cfg.local_global_ratio \
@@ -93,27 +95,26 @@ class Model:
         params = precast(params, dtype)
         h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
                           "batch", "seq", "act_embed")
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "dense":
             positions = torch.arange(h.shape[1], device=h.device)[None]
             body = B.remat_wrap(B.dense_block, opts)
             for i, flag in enumerate(self.global_flags()):
-                h, a = body(layer_slice(params["layers"], i), h, cfg, ctx,
-                            opts, positions=positions, is_global=bool(flag))
-                aux = aux + a
+                h = body(layer_slice(params["layers"], i), h, cfg, ctx,
+                         opts, positions=positions, is_global=bool(flag))
         else:
             body = B.remat_wrap(B.mamba_block, opts)
             for i in range(cfg.n_layers):
                 h = body(layer_slice(params["layers"], i), h, cfg, ctx, opts)
-        return rmsnorm(params["ln_f"], h), aux
+        return rmsnorm(params["ln_f"], h), torch.zeros(
+            (), dtype=torch.float32, device=h.device)
 
     def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
              opts: ModelOpts = ModelOpts()) -> torch.Tensor:
-        """``model.py:225``: mean CE over labels >= 0 plus the aux loss."""
-        h, aux = self.forward(params, batch, ctx, opts)
-        ce = chunked_cross_entropy(params["embed"], self.cfg, h,
-                                   batch["labels"], ctx, chunk=opts.ce_chunk)
-        return ce + opts.aux_loss_coef * aux
+        """``model.py:225``: mean CE over labels >= 0 (the aux loss term
+        comes with MoE)."""
+        h, _ = self.forward(params, batch, ctx, opts)
+        return chunked_cross_entropy(params["embed"], self.cfg, h,
+                                     batch["labels"], ctx, chunk=opts.ce_chunk)
 
     # ---------------- prefill (forward + KV/state cache) ----------------
     def prefill(self, params, batch, ctx: ShardCtx = NOSHARD,

@@ -142,19 +142,20 @@ class BatchedServer:
 
     ``use_kernel=True`` puts the flash-decode CUDA kernel on the
     generation path with per-slot ``length``; it is forced off for
-    sliding-window configs and for families other than dense/moe, as in
-    the reference (``serve.py:161-164``): the ssm decode step runs no
-    kernel.  On CPU tensors the kernel's wrapper runs its plain version
+    sliding-window configs and for families other than dense (the
+    reference's dense/moe, ``serve.py:161-164``): the ssm decode step runs
+    no kernel.  On CPU tensors the kernel's wrapper runs its plain version
     and counts that apart (``kernels.decode_attention.COUNT``).
 
-    Families with per-slot support (``SLOT_FAMILIES``): dense/moe (KV
-    caches) and ssm (position-free recurrent state, re-zeroed per slot on
-    admission).  The reference serves hybrid/vlm through an internal
-    :class:`LockstepServer` behind ``run()``; that fallback comes with
-    those families, and until then such a server raises.
+    Families with per-slot support (``SLOT_FAMILIES``): dense (KV caches)
+    and ssm (position-free recurrent state, re-zeroed per slot on
+    admission).  The reference also serves moe per slot, and hybrid/vlm
+    through an internal :class:`LockstepServer` behind ``run()``; those
+    come with their families' slices, and until then such a server
+    raises.
     """
 
-    SLOT_FAMILIES = ("dense", "moe", "ssm")
+    SLOT_FAMILIES = ("dense", "ssm")
 
     def __init__(self, model: Model, params, *, batch_size: int = 4,
                  max_seq: int = 256, opts: ModelOpts = ModelOpts(),
@@ -169,10 +170,9 @@ class BatchedServer:
         cfg = model.cfg
         if use_kernel is None:
             use_kernel = opts.use_kernel
-        self.use_kernel = bool(use_kernel and cfg.family in ("dense", "moe")
+        self.use_kernel = bool(use_kernel and cfg.family == "dense"
                                and not cfg.sliding_window)
-        self.continuous = cfg.family in self.SLOT_FAMILIES
-        if not self.continuous:
+        if cfg.family not in self.SLOT_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; its "
                 "lockstep fallback comes with it")

@@ -412,7 +412,7 @@ def test_ssd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dt):
     y, s = ops.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_mod.COUNT.launches == 1 and ssd_mod.COUNT.plain == 0
-    yp, sp = ssd_mod.ssd_scan_plain(*args, chunk=chunk)
+    yp, sp = ssd_ref(*args, chunk=chunk)
     torch.testing.assert_close(y.float(), yp.float(), atol=5 * TOL[dt],
                                rtol=5 * TOL[dt])
     torch.testing.assert_close(s, sp, atol=1e-4, rtol=1e-4)

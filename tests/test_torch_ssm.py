@@ -383,7 +383,7 @@ def test_continuous_bit_identical_to_lockstep(ssm_model, B, n):
                           device="cpu")
     cont = BatchedServer(model, params, batch_size=B, max_seq=64,
                          use_kernel=True, device="cpu")
-    assert cont.continuous and not cont.use_kernel     # no ssm decode kernel
+    assert not cont.use_kernel                         # no ssm decode kernel
     assert cont.run(_reqs(n)) == lock.run(_reqs(n))
 
 
@@ -417,5 +417,13 @@ def test_greedy_tokens_match_jax_server():
 
 def test_unported_family_server_raises():
     _, tcfg = _cfgs("zamba2-7b")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        BatchedServer(Model(tcfg), {}, batch_size=2, device="cpu")
+
+
+def test_moe_server_raises_until_its_slice():
+    """The reference serves moe per slot; the port's server refuses it
+    until the MoE block is ported."""
+    _, tcfg = _cfgs("phi3.5-moe-42b-a6.6b")
     with pytest.raises(NotImplementedError, match="not ported"):
         BatchedServer(Model(tcfg), {}, batch_size=2, device="cpu")
