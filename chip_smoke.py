@@ -13,7 +13,13 @@ really ran there:
   (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel;
 * ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
   50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
-  plain path, then ``BatchedServer`` serving requests on the same model.
+  plain path, then ``BatchedServer`` serving requests on the same model;
+* kernel search: both rungs of the ``kernel`` fidelity ladder
+  (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
+  and ``kernel_domain("small")``, which runs all three kernels at every
+  block size the domain offers.  ``flash_attention`` is also held against
+  its plain version and timed through ``ops.mha`` at two full-width
+  prefill shapes (qwen1.5-4b; a gemma3-27b local layer).
 
 Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
@@ -27,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,10 +45,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import bench  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.kernels.ref import ssd_ref  # noqa: E402
+from repro_torch.kernels.ref import mha_ref, ssd_ref  # noqa: E402
 from repro_torch.distrib.logical import NOSHARD  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import ModelOpts  # noqa: E402
@@ -53,10 +63,11 @@ from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-KERNELS = ["decode_attention", "ssd_scan"]
+KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 PORT_KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                      "chunk_state_kernel", "state_pass_kernel",
-                     "chunk_scan_kernel")       # the __global__s of csrc/
+                     "chunk_scan_kernel",
+                     "flash_fwd_kernel")        # the __global__s of csrc/
 
 ARCH = "qwen1.5-4b"
 BATCH, MAX_SEQ = 8, 512
@@ -72,6 +83,15 @@ SSM_F32_TOL = 1e-3          # f32 config: hidden states and loss, abs and rel
 SSM_BF16_MIXER_REL = 1e-3   # bf16, layer 0's mixer output, ||k-p|| / ||p||
 SSM_BF16_LOSS_REL = 1e-3    # bf16, 24 layers: the loss, relative
 SSM_SERVE_SEQ = 128
+
+# full-width prefill shapes for flash_attention through ops.mha, bf16:
+# name, B, S (the train_4k length), Hq, Hkv, D, window
+FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
+              ("gemma3-27b local layer", 1, 4096, 32, 16, 128, 1024)]
+DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
+DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
+              "decode_attention": TOL[torch.float32],
+              "ssd_scan": 2e-2}                # tests/test_fidelity.py:347
 
 
 def log(*a) -> None:
@@ -300,6 +320,149 @@ def measure_ssd_scan():
         f"and {ops_f32} at the f32 rate of 67 TFLOP/s = {ops_ms:.5f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def flash_inputs(B, Hq, Hkv, Sq, D, dtype, seed, Sk=None):
+    g = torch.Generator("cuda").manual_seed(seed)
+    Sk = Sq if Sk is None else Sk
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    return randn(B, Hq, Sq, D), randn(B, Hkv, Sk, D), randn(B, Hkv, Sk, D)
+
+
+def _flash_compare(name, q, k, v, causal, window, bq, bk):
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, bq=bq,
+                             bk=bk)
+    torch.cuda.synchronize()
+    ref = mha_ref(q, k, v, causal=causal, window=window).float()
+    dt = q.dtype
+    err = (out.float() - ref).abs().max().item()
+    log(f"flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"{str(dt)[6:]} causal={causal} window={window} bq={bq} bk={bk} "
+        f"max_abs_err={err:.3e} (tol {TOL[dt]:g} abs+rel)")
+    if not torch.allclose(out.float(), ref, atol=TOL[dt], rtol=TOL[dt]):
+        raise AssertionError(f"flash_attention disagrees at {name}")
+    return out
+
+
+def check_flash_attention():
+    """Kernel vs plain (``mha_ref``) on the card: the sweep of
+    tests/test_kernels.py:17-25, every (bq, bk) of both presets of the
+    kernel search domain, rows with every key masked (Sq > Sk with a
+    window), bq = bk = 256 at D = 128, and the window = Sk == causal
+    property."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
+        (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
+        (1, 8, 2, 256, 64, True, 0, bf16),
+        (2, 4, 2, 512, 128, True, 128, f32),
+        (1, 4, 1, 256, 64, True, 0, f32),      # MQA
+        (1, 4, 4, 256, 64, False, 0, f32),     # bidirectional
+        (1, 2, 2, 384, 64, True, 0, f32)]      # non-pow2 seq
+    for i, (B, Hq, Hkv, S, D, causal, window, dt) in enumerate(sweep):
+        q, k, v = flash_inputs(B, Hq, Hkv, S, D, dt, seed=60 + i)
+        _flash_compare(f"test_kernels {i + 1}", q, k, v, causal, window,
+                       128, 128)
+    for preset in ("tiny", "small"):
+        B, Hq, Hkv, S, D = bench.PRESETS[preset]["flash_attention"]
+        q, k, v = flash_inputs(B, Hq, Hkv, S, D, f32, seed=70)
+        for bq in bench._BLOCKS[preset]["flash"]:
+            for bk in bench._BLOCKS[preset]["flash"]:
+                _flash_compare(f"{preset} preset", q, k, v, True, 0, bq, bk)
+    q, k, v = flash_inputs(1, 4, 2, 256, 32, f32, seed=71, Sk=64)
+    for causal in (True, False):
+        out = _flash_compare("Sq > Sk, rows 95.. keep no key", q, k, v,
+                             causal, 32, 64, 32)
+        mean = v.mean(dim=2).repeat_interleave(2, dim=1)[:, :, None]
+        if not torch.allclose(out[:, :, 95:], mean.expand_as(out[:, :, 95:]),
+                              atol=1e-5):
+            raise AssertionError("a row with every key masked is not the "
+                                 "mean of v")
+    q, k, v = flash_inputs(1, 4, 2, 512, 128, bf16, seed=72)
+    _flash_compare("D=128, bq=bk=256 in sub-tiles", q, k, v, True, 0, 256,
+                   256)
+    q, k, v = flash_inputs(2, 4, 2, 256, 64, f32, seed=73)
+    a = fa.flash_attention(q, k, v, causal=True, window=0)
+    b = fa.flash_attention(q, k, v, causal=True, window=256)
+    diff = (a - b).abs().max().item()
+    log(f"flash_attention window = Sk vs causal: max diff {diff:.3e} "
+        "(tol 1e-5)")
+    if diff > 1e-5:
+        raise AssertionError("window = Sk differs from causal")
+
+
+def _pairs(S, window):
+    """(q, k) pairs a causal mask with this window keeps, per head."""
+    qpos = np.arange(S)
+    return int((np.minimum(qpos + 1, window) if window else qpos + 1).sum())
+
+
+def measure_flash_attention():
+    """``ops.mha`` at the full-width shapes, (B,S,H,D) bf16: kernel vs
+    plain, then the times of the kernel, the plain version and SDPA (the
+    library yardstick; the port never calls it).  Returns the error and
+    times of the first shape."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for name, B, S, Hq, Hkv, D, window in FLASH_FULL:
+        g = torch.Generator("cuda").manual_seed(80)
+        q = torch.randn(B, S, Hq, D, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fa.COUNT.reset()
+        o = ops.mha(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        if (fa.COUNT.launches, fa.COUNT.plain) != (1, 0):
+            raise AssertionError("ops.mha did not launch the kernel once")
+        ref = mha_ref(qt, kt, vt, causal=True, window=window).transpose(1, 2)
+        err = (o.float() - ref.float()).abs().max().item()
+        if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
+                not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
+                                   rtol=TOL[q.dtype]):
+            raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
+        if window:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                  enable_gqa=True)
+        else:
+            lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+        # SDPA rounds p to bf16 for p.v, so it is held four times looser
+        lib_err = (lib_fn().transpose(1, 2).float() - ref.float()).abs().max()
+        if lib_err.item() > 4 * TOL[q.dtype]:
+            raise AssertionError("SDPA yardstick computes another function")
+        del o, ref
+        ms = time_ms(lambda: ops.mha(q, k, v, causal=True, window=window))
+        plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True,
+                                           window=window), reps=10)
+        library_ms = time_ms(lib_fn)
+        pairs = B * Hq * _pairs(S, window)
+        flops = 2 * D * pairs                  # each of q.k and p.v
+        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q,o,k,v
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # q.k: bf16 operands with f32 sums, the bf16 rate; p.v: p is f32
+        ops_ms = (flops / PEAK_OPS[torch.bfloat16]
+                  + flops / PEAK_OPS[torch.float32]) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"window={window}, ops.mha bf16): max_abs_err={err:.3e} (tol "
+            f"{TOL[q.dtype]:g} abs+rel), sdpa vs plain {lib_err.item():.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({pairs} kept "
+            f"pairs: {flops} flops of q.k at 989 TFLOP/s and {flops} of p.v "
+            f"at 67 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s "
+            f"= {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
+            f"kernel/sdpa {ms / library_ms:.2f}")
+        out.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by="bytes" if bytes_ms >= ops_ms
+                        else "operations"))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -617,6 +780,96 @@ def ssm_serve_full_width(model, params):
         raise AssertionError("the reused slot leaked recurrent state")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the kernel search domain on the card
+# ---------------------------------------------------------------------------
+def _ranks(x):
+    """Average ranks (ties share their mean rank)."""
+    x = np.asarray(x, dtype=float)
+    order = np.argsort(x, kind="stable")
+    r = np.empty(len(x))
+    r[order] = np.arange(len(x), dtype=float)
+    for val in np.unique(x):
+        tie = x == val
+        r[tie] = r[tie].mean()
+    return r
+
+
+def spearman(a, b) -> float:
+    ra, rb = _ranks(a), _ranks(b)
+    if ra.std() == 0 or rb.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+DOMAIN_COUNTS = {"flash_attention": fa.COUNT, "decode_attention": da.COUNT,
+                 "ssd_scan": ssd.COUNT}
+
+
+def kernel_domain_phase():
+    """Both rungs of the ``kernel`` ladder on every candidate of the
+    ``tiny`` and ``small`` domains, on the card (``context`` without a
+    device means cuda), then the candidate's call on the host clock.  Each
+    candidate's maxerr is held; each kernel's launches must grow by
+    exactly the calls made (``eval_kernel_time``: a warm-up, the reps, one
+    for maxerr; then the host-clock reps), with no plain-version call.
+    Returns the launches per kernel over both presets."""
+    for c in DOMAIN_COUNTS.values():
+        c.reset()
+    for preset in ("tiny", "small"):
+        before = {n: (c.launches, c.plain) for n, c in DOMAIN_COUNTS.items()}
+        calls = dict.fromkeys(DOMAIN_COUNTS, 0)
+        rows = []
+        t0 = time.perf_counter()
+        for provider, config in bench.kernel_domain(preset).all_candidates():
+            params = dict(provider=provider, preset=preset,
+                          config=tuple(sorted(config.items())),
+                          reps=DOMAIN_REPS)
+            an = bench.eval_kernel_analytic(params, {})
+            r = bench.eval_kernel_time(params, {})
+            # what a caller waits for one call: host clock, synchronised
+            fn, args = bench._kernel_fn(provider, preset, config, "cuda")
+            host = []
+            for _ in range(DOMAIN_REPS):
+                t1 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t1)
+            calls[provider] += 2 * DOMAIN_REPS + 2
+            log(f"domain {preset} {provider} {config}: analytic "
+                f"{an['value']:.1f} ({an['grid_steps']} grid steps); card "
+                f"{r['kernel_us']:.2f} us, plain {r['ref_us']:.2f} us, ratio "
+                f"{r['ratio']:.4f}, maxerr {r['maxerr']:.3e} (tol "
+                f"{DOMAIN_TOL[provider]:g}); one call on the host clock "
+                f"{np.median(host) * 1e6:.2f} us")
+            if not (r["value"] == r["kernel_us"] > 0
+                    and r["maxerr"] < DOMAIN_TOL[provider]):
+                raise AssertionError(f"candidate {provider} {config} failed")
+            rows.append((provider, config, an["value"], r["kernel_us"]))
+        for name, c in DOMAIN_COUNTS.items():
+            grew = c.launches - before[name][0]
+            if grew != calls[name] or c.plain != before[name][1]:
+                raise AssertionError(
+                    f"{name}: {grew} launches for {calls[name]} calls, "
+                    f"{c.plain - before[name][1]} plain calls")
+        log(f"domain {preset}: {len(rows)} candidates in "
+            f"{time.perf_counter() - t0:.1f} s; launches "
+            + ", ".join(f"{n} +{calls[n]}" for n in calls)
+            + "; no plain-version call")
+        for provider in DOMAIN_COUNTS:
+            mine = [r for r in rows if r[0] == provider]
+            best = min(mine, key=lambda r: r[3])
+            best_an = min(mine, key=lambda r: r[2])
+            log(f"domain {preset} {provider}: best on the card {best[1]} "
+                f"({best[3]:.2f} us); analytic pick {best_an[1]}; rank "
+                f"correlation analytic vs card "
+                f"{spearman([r[2] for r in mine], [r[3] for r in mine]):.3f}")
+        log(f"domain {preset}, all {len(rows)} candidates: rank correlation "
+            f"analytic vs card "
+            f"{spearman([r[2] for r in rows], [r[3] for r in rows]):.3f}")
+    return {n: c.launches for n, c in DOMAIN_COUNTS.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -633,10 +886,15 @@ def main() -> None:
     logs = build.build_all(KERNELS)
     log(f"built {KERNELS} in {time.time() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "Used" in line or ("spill" in line
-                                  and "0 bytes spill" not in line):
-                log(f"  {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        if not regs:
+            log(f"  {name}: {text}")
+            continue
+        spills = sorted({line.strip() for line in text.splitlines()
+                         if "spill" in line and "0 bytes spill" not in line})
+        log(f"  {name}: {len(regs)} kernels, registers "
+            f"{min(regs)}-{max(regs)}"
+            + (f"; {'; '.join(spills)}" if spills else "; no spills"))
 
     # lengths of the served run: prompt 8-64 plus up to 32 new tokens
     main_lengths = np.random.default_rng(3).integers(
@@ -647,6 +905,9 @@ def main() -> None:
     ssd_err = check_ssd_scan()
     ssd_timing = measure_ssd_scan()
 
+    check_flash_attention()
+    flash_timing = measure_flash_attention()
+
     model, server, launches, run = serve_full_width()
     profile_steps(model, server)
     teacher_forced_check(model, server)
@@ -655,6 +916,10 @@ def main() -> None:
 
     ssm_model, ssm_params, ssd_launches = ssm_forward_full_width()
     ssm_serve_full_width(ssm_model, ssm_params)
+    del ssm_model, ssm_params
+    torch.cuda.empty_cache()
+
+    domain_launches = kernel_domain_phase()
 
     kernels = [dict(
         name="decode_attention", route="cuda",
@@ -664,7 +929,11 @@ def main() -> None:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",
-        launches=ssd_launches, max_abs_err=ssd_err, **ssd_timing)]
+        launches=ssd_launches, max_abs_err=ssd_err, **ssd_timing), dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75",
+        launches=domain_launches["flash_attention"], **flash_timing)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,9 @@
 //  * The KV sequence is cut into `n_split` chunks, one block each, so
 //    that small batches still fill the 132 SMs; a second kernel combines
 //    the partial (max, sum, acc) triples by log-sum-exp.  With one split
-//    the first kernel writes the output itself.
+//    the first kernel writes the output itself.  The wrapper picks the
+//    chunk from the SM count, or takes the reference's block size `bk`
+//    as the chunk when the caller gives one (the kernel search domain).
 //  * The ragged last tile is masked here, so S need not be a multiple of
 //    the tile (the Pallas wrapper asserts S % bk == 0).
 //
@@ -244,6 +246,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
                          k_ss, v_sb, v_sh, v_ss, scale, st);
   switch (D) {
     REPRO_DECODE_CASE(16)
+    REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
     REPRO_DECODE_CASE(128)
     REPRO_DECODE_CASE(256)
@@ -257,11 +260,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Keys per shared-memory tile for head dim D (the split chunk is a
-// multiple of it), or 0 for an unsupported D.
+// Keys per shared-memory tile for head dim D, or 0 for an unsupported D.
 int decode_attention_tile_keys(int D) {
   switch (D) {
     case 16: return Tile<16>::kKeys;
+    case 32: return Tile<32>::kKeys;
     case 64: return Tile<64>::kKeys;
     case 128: return Tile<128>::kKeys;
     case 256: return Tile<256>::kKeys;

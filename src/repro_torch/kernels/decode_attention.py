@@ -10,8 +10,13 @@ k and v ``(B,Hkv,S,D)``, ``length`` a scalar or ``(B,)``; it returns
 ``(B,Hq,D)`` in q's dtype.  k and v may be any strided view whose last
 dimension is contiguous, such as ``cache.transpose(1, 2)`` of the model's
 ``(B,S,Hkv,D)`` cache, so the model passes its cache without a copy.
-Unlike the reference wrapper it does not need ``S`` to be a multiple of a
-block size.
+
+``bk=None`` (the serving path) lets the wrapper cut the KV sequence into
+splits from the card's SM count, and then ``S`` need not be a multiple
+of anything.  An int ``bk`` follows the reference: ``bk = min(bk, S)``,
+``S % bk == 0`` or ``ValueError``, and each split covers ``bk`` keys,
+combined by log-sum-exp when there is more than one.  The kernel search
+domain (``kernels/bench.py``) searches exactly this ``bk``.
 
 On CPU tensors it runs :func:`decode_attention_plain` and counts that in
 ``COUNT.plain``; on CUDA tensors it launches the kernel (``COUNT.launches``)
@@ -22,13 +27,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
 
@@ -116,9 +122,24 @@ def _n_split(B: int, Hkv: int, S: int, tile: int, device) -> int:
     return max(1, min(n_tiles, -(-2 * sms // (B * Hkv))))
 
 
-def decode_attention(q, k, v, length) -> torch.Tensor:
-    """q: (B,Hq,D); k,v: (B,Hkv,S,D); attends positions < length -> (B,Hq,D)."""
+def _block(bk: Optional[int], S: int) -> Optional[int]:
+    """The reference's ``bk = min(bk, S)``; raises where it asserts."""
+    if bk is None:
+        return None
+    if bk < 1:
+        raise ValueError(f"bk must be positive; got {bk}")
+    bk = min(bk, S)
+    if S % bk:
+        raise ValueError(f"S={S} is not a multiple of bk={bk}")
+    return bk
+
+
+def decode_attention(q, k, v, length, *, bk: Optional[int] = None
+                     ) -> torch.Tensor:
+    """q: (B,Hq,D); k,v: (B,Hkv,S,D); attends positions < length -> (B,Hq,D).
+    ``bk``: keys per KV split, or ``None`` for a split by the SM count."""
     _check(q, k, v)
+    bk = _block(bk, k.shape[2])
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {devices}")
@@ -135,9 +156,12 @@ def decode_attention(q, k, v, length) -> torch.Tensor:
     if lib.decode_attention_smem_bytes(D, G) > _MAX_SMEM:
         raise ValueError(f"G={G} query heads per kv head at D={D} do not fit "
                          "in shared memory")
-    tile = lib.decode_attention_tile_keys(D)
-    n_split = _n_split(B, Hkv, S, tile, q.device)
-    chunk = -(-S // (n_split * tile)) * tile
+    if bk is None:
+        tile = lib.decode_attention_tile_keys(D)
+        n_split = _n_split(B, Hkv, S, tile, q.device)
+        chunk = -(-S // (n_split * tile)) * tile
+    else:
+        chunk = bk
     n_split = -(-S // chunk)
     ln = _lengths(length, B, q.device)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)

@@ -1,0 +1,145 @@
+"""Flash-attention forward: q tiles against KV tiles with an online softmax.
+
+Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py:75``
+(``flash_attention``; body ``_kernel`` at ``:28``).  The kernel is
+hand-written CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``,
+built with ``nvcc`` at first use and bound with ``ctypes``.
+
+:func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
+k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
+of ``Hkv`` (query head ``h`` reads KV head ``h // G``, nothing is
+repeated); it returns ``(B,Hq,Sq,D)`` in q's dtype.  As in the reference,
+``bq = min(bq, Sq)`` and ``bk = min(bk, Sk)`` must divide ``Sq`` and
+``Sk``; a ``window`` without ``causal`` bounds only the past.  q, k and
+v may be any strided views whose last dimension is contiguous, so
+:func:`mha` hands over its ``(B,S,H,D)`` tensors without a copy.
+
+The plain version is ``kernels.ref.mha_ref``, the same function.  On CPU
+tensors the wrapper runs it and counts ``COUNT.plain``; on CUDA tensors it
+launches the kernel (``COUNT.launches``) or raises.  It raises when
+autograd would need a gradient: the reference defines none.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import mha_ref
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
+
+
+@dataclasses.dataclass
+class LaunchCount:
+    launches: int = 0        # kernel launches, on CUDA tensors
+    plain: int = 0           # plain-version calls, on CPU tensors
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain = 0
+
+
+COUNT = LaunchCount()
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load("flash_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = (
+            [i, i] + [p] * 4 + [i] * 9 + [p, ctypes.c_float, p])
+        lib.flash_attention_launch.restype = i
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v, window: int, bq: int, bk: int):
+    """Raise on what the kernel does not take; return ``(bq, bk)``."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"want q (B,Hq,Sq,D), k = v (B,Hkv,Sk,D); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if Sq < 1 or Sk < 1 or bq < 1 or bk < 1:
+        raise ValueError(f"empty sequence or block: Sq={Sq}, Sk={Sk}, "
+                         f"bq={bq}, bk={bk}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
+    bq, bk = min(bq, Sq), min(bk, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"Sq={Sq} and Sk={Sk} must be multiples of "
+                         f"bq={bq} and bk={bk}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the head dimension of q, k and v must be contiguous")
+    if B > 65535 or Hq > 65535:
+        raise ValueError("batch and query heads must each be below 65536")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v on different devices: {devices}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() "
+            "or with inputs that do not require grad")
+    return bq, bk
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    bq: int = 128, bk: int = 128,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B,Hq,Sq,D); k,v: (B,Hkv,Sk,D) -> (B,Hq,Sq,D) in q's dtype.
+
+    ``out``, if given, is a ``(B,Hq,Sq,D)`` view in q's dtype with its last
+    dimension contiguous; the result is written there and returned."""
+    bq, bk = _check(q, k, v, window, bq, bk)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    elif out.shape != q.shape or out.dtype != q.dtype \
+            or out.stride(3) != 1 or out.device != q.device:
+        raise ValueError("out must be shaped, typed and placed like q, with "
+                         "its last dimension contiguous")
+    if q.device.type == "cpu":
+        COUNT.plain += 1
+        return out.copy_(mha_ref(q, k, v, causal=causal, window=window))
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+
+    lib = _library()
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if lib.flash_attention_smem_bytes(D, bq, bk) > _MAX_SMEM:
+        raise ValueError(f"bq={bq}, bk={bk} at D={D} do not fit in shared "
+                         "memory")
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_launch(
+            _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, Hq, Hq // Hkv, Sq, Sk, bq, bk,
+            int(bool(causal)), int(window), strides, 1.0 / math.sqrt(D),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    COUNT.launches += 1
+    return out

@@ -212,6 +212,60 @@ def test_kernel_matches_plain_on_card(B, Hq, Hkv, S, D, length, dt):
     _close(out.float().cpu(), da.decode_attention_plain(q, k, v, ln).cpu(), dt)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [None, 256, 128, 64, 32])
+def test_kernel_at_head_dim_32_and_every_bk_on_card(bk):
+    """D = 32 (the domain's tiny preset) with the SM split and with the
+    reference's bk, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device; compared against its plain version by "
+                    "chip_smoke.py")
+    q, k, v = (_torch(a, "float32").cuda()
+               for a in _inputs(2, 4, 2, 256, 32, "float32"))
+    ln = torch.tensor([200, 0], dtype=torch.int32, device="cuda")
+    da.COUNT.reset()
+    out = ops.decode_attention(q, k, v, ln, bk=bk)
+    torch.cuda.synchronize()
+    assert da.COUNT.launches == 1 and da.COUNT.plain == 0
+    _close(out.cpu(), da.decode_attention_plain(q, k, v, ln).cpu(), "float32")
+
+
+def _domain_decode_cases():
+    """Every bk of both presets of the kernel search domain
+    (``repro_torch.kernels.bench``), at the preset's shape and length."""
+    from repro_torch.kernels.bench import PRESETS, _BLOCKS
+    for preset in ("tiny", "small"):
+        for bk in _BLOCKS[preset]["decode"]:
+            yield (*PRESETS[preset]["decode_attention"], bk)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,length,bk", list(_domain_decode_cases()))
+def test_block_size_matches_pallas_interpret(B, Hq, Hkv, S, D, length, bk):
+    """The reference's ``bk``, D = 32 included (the tiny preset)."""
+    q, k, v = _inputs(B, Hq, Hkv, S, D, "float32", seed=bk)
+    ref = jax_decode(_jax(q, "float32"), _jax(k, "float32"),
+                     _jax(v, "float32"), length, bk=bk, interpret=True)
+    da.COUNT.reset()
+    out = ops.decode_attention(_torch(q, "float32"), _torch(k, "float32"),
+                               _torch(v, "float32"), length, bk=bk)
+    assert (da.COUNT.launches, da.COUNT.plain) == (0, 1)
+    _close(out, ref, "float32")
+
+
+@pytest.mark.parametrize("bk,exc", [(96, ValueError), (0, ValueError),
+                                    (4096, None), (None, None)])
+def test_block_size_is_checked_as_the_reference_asserts(bk, exc):
+    """bk = min(bk, S) must divide S; None is the split by SM count."""
+    q, k, v = (_torch(a, "float32") for a in
+               _inputs(1, 4, 2, 256, 32, "float32"))
+    if exc is not None:
+        with pytest.raises(exc):
+            ops.decode_attention(q, k, v, 100, bk=bk)
+        return
+    _close(ops.decode_attention(q, k, v, 100, bk=bk),
+           decode_mha_ref(q, k, v, length=100), "float32")
+
+
 # ---------------------------------------------------------------------------
 # ssd_scan
 # ---------------------------------------------------------------------------
