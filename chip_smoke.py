@@ -17,9 +17,14 @@ really ran there:
 * kernel search: both rungs of the ``kernel`` fidelity ladder
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
-  block size the domain offers.  ``flash_attention`` is also held against
-  its plain version and timed through ``ops.mha`` at two full-width
-  prefill shapes (qwen1.5-4b; a gemma3-27b local layer).
+  block size the domain offers (``flash_attention`` in float32, on its
+  CUDA-core kernel);
+* bf16 prefill attention: ``ops.mha`` at two full-width shapes (qwen1.5-4b;
+  a gemma3-27b local layer) on the tensor-core ``flash_attention`` kernel,
+  whose SASS must hold ``HGMMA`` instructions and which must be the only
+  attention kernel in a profiler window around ``ops.mha``.  Its output
+  must pass a gate against ``mha_ref`` that two controls keeping p in
+  bf16 (SDPA, ``mha_p_bf16``) fail, so p.v is held to p_hi + p_lo.
 
 Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -63,11 +69,14 @@ from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
+F32_FLASH_KERNEL = "flash_fwd_kernel"
 KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 PORT_KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                      "chunk_state_kernel", "state_pass_kernel",
                      "chunk_scan_kernel",
-                     "flash_fwd_kernel")        # the __global__s of csrc/
+                     "flash_fwd_kernel",
+                     "flash_fwd_wgmma_kernel")  # the __global__s of csrc/
 
 ARCH = "qwen1.5-4b"
 BATCH, MAX_SEQ = 8, 512
@@ -88,6 +97,9 @@ SSM_SERVE_SEQ = 128
 # name, B, S (the train_4k length), Hq, Hkv, D, window
 FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
               ("gemma3-27b local layer", 1, 4096, 32, 16, 128, 1024)]
+# the split-p gate at those shapes, bf16 outputs against mha_ref: the
+# largest abs error (atol only) and the share of outputs that differ
+SPLIT_MAX_ABS, SPLIT_DIFF_SHARE = 8e-3, 0.02
 DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
 DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
               "decode_attention": TOL[torch.float32],
@@ -347,11 +359,14 @@ def _flash_compare(name, q, k, v, causal, window, bq, bk):
 
 
 def check_flash_attention():
-    """Kernel vs plain (``mha_ref``) on the card: the sweep of
+    """Kernel vs plain (``mha_ref``) on the card, in float32 (the CUDA-core
+    kernel) and in bfloat16 (the tensor-core kernel): the sweep of
     tests/test_kernels.py:17-25, every (bq, bk) of both presets of the
-    kernel search domain, rows with every key masked (Sq > Sk with a
-    window), bq = bk = 256 at D = 128, and the window = Sk == causal
-    property."""
+    kernel search domain (D = 32 and 64), D = 128 at small and at 256-row
+    tiles, q tiles that are not whole warpgroups, MQA, a window, rows
+    with every key masked (Sq > Sk with a window: the mean of v), bf16 at
+    bk outside the domain's widths and at q tiles of many passes, and the
+    window = Sk == causal property."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
         (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
@@ -359,29 +374,57 @@ def check_flash_attention():
         (2, 4, 2, 512, 128, True, 128, f32),
         (1, 4, 1, 256, 64, True, 0, f32),      # MQA
         (1, 4, 4, 256, 64, False, 0, f32),     # bidirectional
-        (1, 2, 2, 384, 64, True, 0, f32)]      # non-pow2 seq
+        (1, 2, 2, 384, 64, True, 0, f32),      # non-pow2 seq
+        (2, 4, 2, 512, 128, True, 128, bf16),  # window
+        (1, 4, 1, 256, 64, True, 0, bf16),     # MQA
+        (1, 4, 4, 256, 64, False, 0, bf16),    # bidirectional
+        (1, 2, 2, 384, 64, True, 0, bf16)]     # non-pow2 seq
     for i, (B, Hq, Hkv, S, D, causal, window, dt) in enumerate(sweep):
         q, k, v = flash_inputs(B, Hq, Hkv, S, D, dt, seed=60 + i)
         _flash_compare(f"test_kernels {i + 1}", q, k, v, causal, window,
                        128, 128)
-    for preset in ("tiny", "small"):
-        B, Hq, Hkv, S, D = bench.PRESETS[preset]["flash_attention"]
-        q, k, v = flash_inputs(B, Hq, Hkv, S, D, f32, seed=70)
-        for bq in bench._BLOCKS[preset]["flash"]:
-            for bk in bench._BLOCKS[preset]["flash"]:
-                _flash_compare(f"{preset} preset", q, k, v, True, 0, bq, bk)
-    q, k, v = flash_inputs(1, 4, 2, 256, 32, f32, seed=71, Sk=64)
-    for causal in (True, False):
-        out = _flash_compare("Sq > Sk, rows 95.. keep no key", q, k, v,
-                             causal, 32, 64, 32)
-        mean = v.mean(dim=2).repeat_interleave(2, dim=1)[:, :, None]
-        if not torch.allclose(out[:, :, 95:], mean.expand_as(out[:, :, 95:]),
-                              atol=1e-5):
-            raise AssertionError("a row with every key masked is not the "
-                                 "mean of v")
+    for dt in (f32, bf16):
+        for preset in ("tiny", "small"):
+            B, Hq, Hkv, S, D = bench.PRESETS[preset]["flash_attention"]
+            q, k, v = flash_inputs(B, Hq, Hkv, S, D, dt, seed=70)
+            for bq in bench._BLOCKS[preset]["flash"]:
+                for bk in bench._BLOCKS[preset]["flash"]:
+                    _flash_compare(f"{preset} preset", q, k, v, True, 0, bq,
+                                   bk)
+    for dt in (f32, bf16):
+        q, k, v = flash_inputs(1, 4, 2, 256, 32, dt, seed=71, Sk=64)
+        for causal in (True, False):
+            out = _flash_compare("Sq > Sk, rows 95.. keep no key", q, k, v,
+                                 causal, 32, 64, 32)
+            mean = v.float().mean(dim=2).repeat_interleave(2, dim=1)
+            mean = mean[:, :, None].expand_as(out[:, :, 95:])
+            tol = 1e-5 if dt == f32 else TOL[bf16]   # bf16: one rounding
+            if not torch.allclose(out[:, :, 95:].float(), mean, atol=tol):
+                raise AssertionError("a row with every key masked is not the "
+                                     "mean of v")
     q, k, v = flash_inputs(1, 4, 2, 512, 128, bf16, seed=72)
-    _flash_compare("D=128, bq=bk=256 in sub-tiles", q, k, v, True, 0, 256,
-                   256)
+    for bq, bk in ((256, 256), (64, 64), (32, 128), (128, 32)):
+        _flash_compare("D=128", q, k, v, True, 0, bq, bk)
+    q, k, v = flash_inputs(1, 4, 2, 384, 64, bf16, seed=75)
+    for bq, bk in ((96, 128), (48, 64), (192, 32)):
+        _flash_compare("bq not a multiple of 64", q, k, v, True, 0, bq, bk)
+    # bf16 at any bk = min(bk, Sk) (a piece padded past its tile, a tile
+    # walked in pieces) and a q tile of many passes (q loaded per pass)
+    for i, (Hq, Hkv, Sq, Sk, D, window, bq, bk) in enumerate((
+            (2, 1, 48, 48, 64, 0, 128, 128), (2, 1, 16, 16, 32, 0, 128, 128),
+            (4, 2, 96, 96, 128, 0, 32, 48), (4, 2, 200, 100, 64, 40, 40, 100),
+            (2, 1, 1024, 1024, 128, 0, 128, 512),
+            (2, 1, 4096, 4096, 128, 0, 1024, 128))):
+        q, k, v = flash_inputs(1, Hq, Hkv, Sq, D, bf16, seed=76 + i, Sk=Sk)
+        out = _flash_compare("any bk, any bq", q, k, v, True, window, bq, bk)
+        if Sq > Sk:     # rows Sk + window - 1 .. keep no key: the mean of v
+            dead = Sk + window - 1
+            mean = v.float().mean(dim=2).repeat_interleave(Hq // Hkv, dim=1)
+            if not torch.allclose(out[:, :, dead:].float(), mean[:, :, None]
+                                  .expand_as(out[:, :, dead:]),
+                                  atol=TOL[bf16]):
+                raise AssertionError("a row with every key masked is not "
+                                     "the mean of v over Sk keys")
     q, k, v = flash_inputs(2, 4, 2, 256, 64, f32, seed=73)
     a = fa.flash_attention(q, k, v, causal=True, window=0)
     b = fa.flash_attention(q, k, v, causal=True, window=256)
@@ -392,36 +435,102 @@ def check_flash_attention():
         raise AssertionError("window = Sk differs from causal")
 
 
+def check_wgmma_sass():
+    """The bf16 kernel's SASS, from ``cuobjdump -sass`` of the built
+    library: every instance of it must hold HGMMA (wgmma) instructions."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "flash_attention"))], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    wg = {n: c for n, c in counts.items() if WGMMA_KERNEL in n}
+    log(f"SASS of flash_attention: {len(wg)} instances of {WGMMA_KERNEL}, "
+        f"HGMMA instructions {min(wg.values(), default=0)}-"
+        f"{max(wg.values(), default=0)} each; {F32_FLASH_KERNEL}: "
+        f"{sum(c for n, c in counts.items() if F32_FLASH_KERNEL in n)}")
+    if not wg or min(wg.values()) == 0:
+        raise AssertionError(f"{WGMMA_KERNEL} has no HGMMA instruction")
+
+
 def _pairs(S, window):
     """(q, k) pairs a causal mask with this window keeps, per head."""
     qpos = np.arange(S)
     return int((np.minimum(qpos + 1, window) if window else qpos + 1).sum())
 
 
+def flash_full_inputs(B, S, Hq, Hkv, D):
+    g = torch.Generator("cuda").manual_seed(80)
+    return tuple(torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+                 for H in (Hq, Hkv, Hkv))
+
+
+def mha_p_bf16(q, k, v, *, causal, window):
+    """``mha_ref``'s function with p rounded to bf16 for p.v (p = exp(s -
+    m) unnormalised, divided by its f32 sum at the end, as SDPA's flash
+    path does): the design that the split-p gate must tell apart."""
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    G = q.shape[1] // k.shape[1]
+    kq, vq = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
+    s = torch.einsum("bhqd,bhsd->bhqs", q.float(), kq) / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    keep = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
+    if window:
+        keep = keep & (kpos > qpos - window)
+    s = torch.where(keep, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p.bfloat16().float()
+    return (torch.einsum("bhqs,bhsd->bhqd", p, vq) / l).to(q.dtype)
+
+
+def split_p_gate(out, ref):
+    """Max abs error and the share of bf16 outputs that differ from ``ref``
+    (``mha_ref``, rounded to bf16), and whether both are within the split-p
+    limits: p kept to about 16 bits leaves the f32 output within ~3e-6 of
+    the exact one, so few outputs round otherwise; bf16 p (~8 bits) moves
+    it by ~2e-3 and flips a large share."""
+    d = (out.float() - ref.float()).abs()
+    err, share = d.max().item(), (d > 0).float().mean().item()
+    return err, share, err <= SPLIT_MAX_ABS and share <= SPLIT_DIFF_SHARE
+
+
 def measure_flash_attention():
-    """``ops.mha`` at the full-width shapes, (B,S,H,D) bf16: kernel vs
-    plain, then the times of the kernel, the plain version and SDPA (the
-    library yardstick; the port never calls it).  Returns the error and
-    times of the first shape."""
+    """``ops.mha`` at the full-width shapes, (B,S,H,D) bf16, each call with
+    the counts set to 0 just before and read just after (the main path:
+    one tensor-core launch, no plain call); kernel vs plain at the bf16
+    tolerance and at the split-p gate, which two bf16-p controls (SDPA,
+    ``mha_p_bf16``) must fail; the kernels in a profiler window; then the
+    times of the kernel, the plain version and SDPA (the library
+    yardstick; the port never calls it).  Returns the error and times of
+    the first shape and the launches of all."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = []
+    out, launches = [], 0
     for name, B, S, Hq, Hkv, D, window in FLASH_FULL:
-        g = torch.Generator("cuda").manual_seed(80)
-        q = torch.randn(B, S, Hq, D, generator=g, device="cuda").bfloat16()
-        k = torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
-        v = torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16()
+        q, k, v = flash_full_inputs(B, S, Hq, Hkv, D)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fa.COUNT.reset()
         o = ops.mha(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
-        if (fa.COUNT.launches, fa.COUNT.plain) != (1, 0):
-            raise AssertionError("ops.mha did not launch the kernel once")
+        counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.plain)
+        if counts != (1, 1, 0):
+            raise AssertionError(f"ops.mha at {name}: (launches, wgmma, "
+                                 f"plain) = {counts}, not one tensor-core "
+                                 "launch")
+        launches += counts[1]
         ref = mha_ref(qt, kt, vt, causal=True, window=window).transpose(1, 2)
-        err = (o.float() - ref.float()).abs().max().item()
         if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
                 not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
                                    rtol=TOL[q.dtype]):
             raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
+        err, share, ok = split_p_gate(o, ref)
         if window:
             pos = torch.arange(S, device="cuda")
             mask = (pos[None, :] <= pos[:, None]) & \
@@ -430,11 +539,35 @@ def measure_flash_attention():
                                   enable_gqa=True)
         else:
             lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
-        # SDPA rounds p to bf16 for p.v, so it is held four times looser
-        lib_err = (lib_fn().transpose(1, 2).float() - ref.float()).abs().max()
-        if lib_err.item() > 4 * TOL[q.dtype]:
+        controls = {
+            "sdpa": lib_fn().transpose(1, 2),
+            "mha_p_bf16": mha_p_bf16(qt, kt, vt, causal=True,
+                                     window=window).transpose(1, 2)}
+        # SDPA rounds p to bf16 for p.v: the same function at 4x the tolerance
+        lib_err = (controls["sdpa"].float() - ref.float()).abs().max().item()
+        if lib_err > 4 * TOL[q.dtype]:
             raise AssertionError("SDPA yardstick computes another function")
-        del o, ref
+        gate = [f"{WGMMA_KERNEL} {err:.3e} / {share:.4%}"]
+        for cname, c in controls.items():
+            c_err, c_share, c_ok = split_p_gate(c, ref)
+            gate.append(f"{cname} {c_err:.3e} / {c_share:.4%}")
+            if c_ok:
+                raise AssertionError(f"the split-p gate passes {cname}, "
+                                     "which keeps p in bf16")
+        log(f"flash_attention {name}: split-p gate (max abs err <= "
+            f"{SPLIT_MAX_ABS:g}, outputs that differ from mha_ref <= "
+            f"{SPLIT_DIFF_SHARE:.0%}): {'; '.join(gate)}")
+        if not ok:
+            raise AssertionError(f"ops.mha at {name} fails the split-p gate: "
+                                 "p.v is not kept to p_hi + p_lo")
+        del o, ref, controls
+        rows = profile_window(lambda: ops.mha(q, k, v, causal=True,
+                                              window=window), 3, "call")
+        names = [r[1] for r in rows]
+        if not any(WGMMA_KERNEL in n for n in names) or any(
+                F32_FLASH_KERNEL in n for n in names):
+            raise AssertionError(f"the profiler window around ops.mha shows "
+                                 f"{names}, not {WGMMA_KERNEL} alone")
         ms = time_ms(lambda: ops.mha(q, k, v, causal=True, window=window))
         plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True,
                                            window=window), reps=10)
@@ -443,26 +576,65 @@ def measure_flash_attention():
         flops = 2 * D * pairs                  # each of q.k and p.v
         nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q,o,k,v
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # q.k: bf16 operands with f32 sums, the bf16 rate; p.v: p is f32
-        ops_ms = (flops / PEAK_OPS[torch.bfloat16]
-                  + flops / PEAK_OPS[torch.float32]) * 1e3
+        # q.k once and p.v twice (p_hi.v + p_lo.v, held by the gate), all
+        # bf16 operands with f32 sums, at the bf16 rate
+        ops_ms = 3 * flops / PEAK_OPS[torch.bfloat16] * 1e3
+        f32_rate_ms = (flops / PEAK_OPS[torch.bfloat16]
+                       + flops / PEAK_OPS[torch.float32]) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-            f"window={window}, ops.mha bf16): max_abs_err={err:.3e} (tol "
-            f"{TOL[q.dtype]:g} abs+rel), sdpa vs plain {lib_err.item():.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({pairs} kept "
-            f"pairs: {flops} flops of q.k at 989 TFLOP/s and {flops} of p.v "
-            f"at 67 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s "
-            f"= {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
-            f"kernel/sdpa {ms / library_ms:.2f}")
+            f"window={window}, ops.mha bf16, {WGMMA_KERNEL}): max_abs_err="
+            f"{err:.3e} (tol {TOL[q.dtype]:g} abs+rel; split-p gate "
+            f"{SPLIT_MAX_ABS:g}), sdpa vs plain {lib_err:.3e}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms,"
+            f" bound {bound_ms:.5f} ms ({pairs} kept pairs: {flops} flops of "
+            f"q.k and 2 x {flops} of p.v at 989 TFLOP/s = {ops_ms:.5f} ms; "
+            f"{nbytes} bytes at 3.35 TB/s = {bytes_ms:.5f} ms); kernel/bound "
+            f"{ms / bound_ms:.2f}, kernel/sdpa {ms / library_ms:.2f}, "
+            f"{3 * flops / ms / 1e9:.1f} TFLOP/s; the old count, p.v at the "
+            f"f32 rate of 67 TFLOP/s: {f32_rate_ms:.5f} ms")
         out.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=bound_ms,
                         bound_by="bytes" if bytes_ms >= ops_ms
                         else "operations"))
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return out[0]
+    return out[0], launches
+
+
+def measure_flash_f32():
+    """The float32 kernel at the shape and blocks the kernel search runs
+    most (the small preset, its incumbent bq = bk = 128, causal): kernel,
+    plain version and SDPA in float32."""
+    B, Hq, Hkv, S, D = bench.PRESETS["small"]["flash_attention"]
+    bq = bk = bench._BLOCKS["small"]["flash"][0]
+    q, k, v = flash_inputs(B, Hq, Hkv, S, D, torch.float32, seed=81)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ref = mha_ref(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=True, bq=bq, bk=bk)
+    err = (out - ref).abs().max().item()
+    lib_err = (sdpa(q, k, v, is_causal=True, enable_gqa=True) - ref).abs()
+    if lib_err.max().item() > 4 * TOL[torch.float32]:
+        raise AssertionError("SDPA yardstick computes another function")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, bq=bq,
+                                            bk=bk))
+    plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=True))
+    library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True))
+    pairs = B * Hq * _pairs(S, 0)
+    flops = 2 * D * pairs
+    nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"flash_attention float32 (small preset B={B} S={S} Hq={Hq} "
+        f"Hkv={Hkv} D={D}, bq=bk={bq}, {F32_FLASH_KERNEL}): max_abs_err="
+        f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({2 * flops} flops "
+        f"at 67 TFLOP/s; {nbytes} bytes at 3.35 TB/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +764,9 @@ def profile_steps(model, server, n=3):
 
 def profile_window(fn, n, unit):
     """Device time by kernel over ``n`` calls of ``fn`` after one warm-up
-    call: device busy and idle share of the window's wall time."""
+    call: device busy and idle share of the window's wall time.  Returns
+    the rows (ms, kernel name, count), longest first; none where the trace
+    has no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -611,7 +785,7 @@ def profile_window(fn, n, unit):
         reverse=True)
     if not rows:
         log("profile: no device time in the trace (not measured)")
-        return
+        return rows
     busy = sum(r[0] for r in rows)
     log(f"profile over {n} {unit}s (profiler on): wall {wall_ms / n:.3f} "
         f"ms/{unit}, {sum(r[2] for r in rows) // n} kernels/{unit}, device "
@@ -629,6 +803,7 @@ def profile_window(fn, n, unit):
                                   for k, v in groups.items()))
     for ms, key, count in rows[:10]:
         log(f"  {ms / n:9.4f} ms/{unit}  x{count // n:<5d} {key[:90]}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -895,6 +1070,9 @@ def main() -> None:
         log(f"  {name}: {len(regs)} kernels, registers "
             f"{min(regs)}-{max(regs)}"
             + (f"; {'; '.join(spills)}" if spills else "; no spills"))
+        for line in text.splitlines():    # wgmma serialised, setmaxnreg
+            if "Performance Loss" in line or "setmaxnreg" in line:
+                log(f"    {line.strip()[:160]}")
 
     # lengths of the served run: prompt 8-64 plus up to 32 new tokens
     main_lengths = np.random.default_rng(3).integers(
@@ -905,8 +1083,10 @@ def main() -> None:
     ssd_err = check_ssd_scan()
     ssd_timing = measure_ssd_scan()
 
+    check_wgmma_sass()
     check_flash_attention()
-    flash_timing = measure_flash_attention()
+    flash_timing, flash_launches = measure_flash_attention()
+    flash_f32_timing = measure_flash_f32()
 
     model, server, launches, run = serve_full_width()
     profile_steps(model, server)
@@ -920,6 +1100,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     domain_launches = kernel_domain_phase()
+    if fa.COUNT.wgmma:
+        raise AssertionError("the float32 kernel search launched the bf16 "
+                             "kernel")
 
     kernels = [dict(
         name="decode_attention", route="cuda",
@@ -930,10 +1113,14 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",
         launches=ssd_launches, max_abs_err=ssd_err, **ssd_timing), dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
-        launches=domain_launches["flash_attention"], **flash_timing)]
+        launches=flash_launches, **flash_timing), dict(
+        name="flash_attention_f32", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75",
+        launches=domain_launches["flash_attention"], **flash_f32_timing)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

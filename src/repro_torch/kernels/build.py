@@ -3,9 +3,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/<name>-<hash>.so`` at the root of the checkout; the hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built when a module is imported:
-the first launch, or :func:`build_all`, builds.
+covers the source, every header ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: the first launch, or
+:func:`build_all`, builds.
 """
 from __future__ import annotations
 
@@ -36,9 +37,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:

@@ -5,42 +5,91 @@
 // k and v with an f32 online softmax over KV tiles of `bk` keys, one
 // q tile of `bq` rows at a time; GQA maps query head h to KV head h / G.
 //
+// Two kernels, chosen by dtype alone:
+//  * bfloat16: flash_fwd_wgmma_kernel, on the tensor cores (below);
+//  * float32: flash_fwd_kernel, f32 FMAs on CUDA cores (the kernel search
+//    domain's presets run it).
+//
+// Semantics kept from the reference by both: scores are f32 sums times
+// the scale; masked scores are the finite -1e30; the softmax state (m, l)
+// and the rescale of acc are updated once per bk tile; l is the f32 sum
+// of f32 p; the output is acc / max(l, 1e-30) in q's dtype.  KV tiles
+// that the causal or window mask removes entirely are not visited (the
+// Pallas kernel computes them).  Skipping is exact: such a tile leaves
+// (m, l, acc) unchanged in the reference.  The one case where it would
+// not is a row whose every key is masked (Sq > Sk with a window): the
+// reference then returns the mean of v over all Sk, because the finite
+// -1e30 makes p = 1 everywhere.  A pass holding such a row visits every
+// tile, as the reference does.  q, k, v and o are read and written
+// through strides with only the last dimension contiguous: `mha` passes
+// (B,S,H,D) tensors as views.  The causal q tiles with the most keys are
+// launched first.
+//
 // What bounds it: the operations.  At a prefill shape (S = 4096, D = 128)
 // each (q, k) pair that the mask keeps costs 2D flops for q.k and 2D for
 // p.v against a few bytes of q, k, v and o per row, so the work is far
-// above the H100's balance point.  The reference keeps p in f32 for p.v,
-// so that product's least time is at the f32 rate (67 TFLOP/s); q.k of
-// bf16 inputs with f32 sums could run at the bf16 tensor-core rate.
+// above the H100's balance point.
 //
-// What this first design does about it (a simple kernel that is right;
-// tensor cores, wgmma and TMA are for a later one):
+// --- bfloat16: flash_fwd_wgmma_kernel -------------------------------------
+// The reference casts q, k, v to f32, so q.k is a product of exact bf16
+// values with f32 sums: wgmma with bf16 operands and f32 accumulators
+// computes it as it is.  p stays f32 in the reference's p.v; here p is
+// split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), and acc += p_hi.V
+// + p_lo.V are two bf16 wgmmas into one f32 accumulator, which keeps p to
+// about 16 significant bits (bf16-only p, SDPA's choice, changes the
+// function).  Least time: q.k once and p.v twice at the bf16 rate.
+//  * One block per (b, h, q tile): one or two consumer warpgroups of 64
+//    q rows each and one producer warp (with two consumer warpgroups it
+//    sits in a warpgroup of its own, and setmaxnreg hands its registers
+//    to the consumers: 240 a thread).  A q tile taller than the
+//    warpgroups is walked in passes; a q tile under 64 rows is padded to
+//    64 (the padded rows are computed, never stored, and cannot reach a
+//    real row: rows of a product are independent).
+//  * bk of 32, 64, 128 or 256 (the search domain's, and ops.mha's 128)
+//    has instances of its own, with the tile known to the compiler.  Any
+//    other bk is walked in pieces of 64 keys, each one softmax update (as
+//    the f32 kernel does per 256 keys).  Keys of a piece past the end of
+//    its tile are padding with the score -inf, so p = 0 and they change
+//    neither m, l nor acc, whatever they hold (the next tile's keys, or
+//    TMA's zero fill past Sk); a row that keeps no key still averages v
+//    over its Sk keys only.
+//  * The producer warp loads a pass's q rows by TMA (a q_empty barrier
+//    frees the buffer for the next pass), then keeps K and V sub-tiles of
+//    N = min(piece, 64) keys in flight through a ring of `stages`
+//    shared-memory slots (TMA with mbarriers: K and V of a slot each on a
+//    "full" barrier, the slot freed by an "empty" barrier that every
+//    consumer warp arrives on).  Tiles are stored as the TMA swizzle
+//    writes them (128B rows for D >= 64, 64B rows for D = 32).  Shared
+//    memory does not grow with bq.
+//  * Per piece a consumer warpgroup issues S = Q.K^T as wgmma m64nNk16
+//    (Q and K K-major in shared memory), then the online softmax runs in
+//    registers on the accumulator layout: a row is held by 4 threads and
+//    reduced with two shuffles.  p_hi and p_lo go from the S accumulator
+//    straight into register A fragments (the accumulator's layout is the
+//    A fragment's), and acc += p.V is wgmma m64nDk16 with A in registers
+//    and V as the B operand, MN-major (transposed) in shared memory.
+//  * The output is divided by l in registers and stored through strides.
+// The wgmma, TMA and mbarrier helpers are in hopper.cuh.
+//
+// --- float32: flash_fwd_kernel (first design, CUDA cores) -----------------
 //  * One block per (b, h, q tile); 256 threads as a 16 x 16 grid, each
 //    holding a register tile of 2 or 4 query rows (the block walks its
 //    q tile in passes of 32 or 64 rows) by D/16 output columns and by
 //    4 score columns: f32 FMAs on CUDA cores, operands from shared
 //    memory with rows padded to an odd stride, so no bank conflicts.
-//  * KV tiles that the causal or window mask removes entirely are not
-//    visited (the Pallas kernel computes them).  Skipping is exact: such
-//    a tile leaves (m, l, acc) unchanged in the reference.  The one case
-//    where it would not is a row whose every key is masked (Sq > Sk with
-//    a window): the reference then returns the mean of v over all Sk,
-//    because the finite -1e30 makes p = 1 everywhere.  A pass holding
-//    such a row visits every tile, as the reference does.
 //  * The softmax state is updated once per bk tile, as in the reference
 //    (a tile wider than 256 keys is updated per 256-key piece); K and V
 //    enter shared memory in sub-tiles of 64 keys, so every (bq, bk) of
 //    the search domain fits a block's 227 KB (at most 133 KB, at D=128).
-//  * q, k, v and o are read and written through strides with only the
-//    last dimension contiguous: `mha` passes (B,S,H,D) tensors as views.
-//  * The causal q tiles with the most keys are launched first.
-//
-// Semantics kept from the reference: scores are f32 dots times the scale;
-// masked scores are the finite -1e30; p stays f32 for p.v (never
-// rounded); the output is acc / max(l, 1e-30) in q's dtype.
+//  * p stays f32 for p.v, as in the reference; its least time is at the
+//    f32 rate (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,13 +100,7 @@ constexpr int kMaxPiece = 256;   // keys per softmax update at most
 constexpr int kSubKeys = 64;     // keys per K or V sub-tile in shared memory
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __host__ __device__ inline int piece_keys(int bk) {
   return bk < kMaxPiece ? bk : kMaxPiece;
@@ -298,22 +341,475 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 #undef REPRO_FLASH_CASE
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: flash_fwd_wgmma_kernel
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using hopper::Wgmma;
+
+constexpr int kRows = 64;                     // q rows of one warpgroup
+constexpr size_t kMaxSmem = 232448;           // bytes a block can use
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The kernel's tile parameter BK for a bk (see the header): bk itself
+// where it is 32, 64, 128 or 256, else 0 (any bk, in 64-key pieces); the
+// keys of a piece; keys per K/V sub-tile of a piece; bytes of a swizzled
+// row of q, k or v
+__host__ __device__ constexpr int kernel_bk(int bk) {
+  return bk == 32 || bk == 64 || bk == 128 || bk == 256 ? bk : 0;
+}
+__host__ __device__ constexpr int piece_width(int BK) { return BK ? BK : 64; }
+__host__ __device__ constexpr int sub_keys(int bkc) { return bkc < 64 ? bkc : 64; }
+__host__ __device__ constexpr int row_bytes(int D) {
+  return (D < 64 ? D : 64) * 2;
+}
+
+// consumer warpgroups: two for a q tile above 64 rows, except at
+// BKC = 256, whose score tile and p fragments (BKC/2 registers a thread
+// each) beside the accumulator (D/2) need the 255 registers a thread of
+// a lone warpgroup may hold
+__host__ __device__ constexpr int warpgroups(int bq, int bkc) {
+  return bq > kRows && bkc <= 128 ? 2 : 1;
+}
+
+// Threads of a block.  One consumer warpgroup: 160, the producer warp
+// beside it, and every thread may hold 255 registers.  Two: 384, the
+// producer warp in a warpgroup of its own, so that setmaxnreg can move
+// registers from it (24 a thread) to the consumers (240 a thread); with
+// nine warps the compiler would hold every thread to 168, and it then
+// serialises the wgmmas.
+__host__ __device__ constexpr int block_threads(int nwg) {
+  return nwg == 2 ? 384 : 160;
+}
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+struct Plan {
+  int nwg, stages;
+  size_t smem;
+};
+
+// Shared memory: 1024 bytes of alignment slack, one pass of q rows,
+// `stages` slots of one K and one V sub-tile, and the barriers.  As many
+// slots as fit, up to two pieces' worth; at least one piece's worth (nsub
+// slots), or the plan does not fit (smem > kMaxSmem).
+__host__ inline Plan plan(int D, int bq, int bkc) {
+  Plan p;
+  p.nwg = warpgroups(bq, bkc);
+  const int n = sub_keys(bkc), nsub = bkc / n;
+  const size_t q_bytes = (size_t)kRows * p.nwg * D * 2;
+  const size_t kv_bytes = (size_t)n * D * 2;   // one K (or V) sub-tile
+  for (p.stages = 2 * nsub > 2 ? 2 * nsub : 2; ; --p.stages) {
+    p.smem = 1024 + q_bytes + 2 * kv_bytes * p.stages + 8 * (2 + 3 * p.stages);
+    if (p.smem <= kMaxSmem || p.stages == nsub) break;
+  }
+  return p;
+}
+
+// KV tiles [lo, hi) that hold a key some row in [p0, last] keeps; all of
+// them if a row keeps no key at all
+__device__ __forceinline__ void tile_range(int p0, int last, int Sk, int bk,
+                                           int causal, int window, int& lo,
+                                           int& hi) {
+  const int n_kt = Sk / bk;
+  lo = 0;
+  hi = n_kt;
+  const bool empty_row = window > 0 && last - window + 1 > Sk - 1;
+  if (!empty_row) {
+    if (window > 0) lo = max(0, p0 - window + 1) / bk;
+    if (causal) hi = min(n_kt, last / bk + 1);
+  }
+}
+
+// p = hi + lo with hi = bf16(p), lo = bf16(p - hi), for two columns
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                 x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// grid (Sq / bq, Hq, B); block block_threads(NWG).  Maps: q (D, Sq,
+// Hq, B) in boxes of (SW/2, 64); k and v (D, Sk, Hkv, B) in boxes of
+// (SW/2, N), SW = row_bytes(D).  BK > 0: tiles of BK keys, each one
+// piece, all known to the compiler (with the tile's size known only at
+// run time the kernel measured slower at the prefill shapes: PERF.md);
+// BK = 0: tiles of bk keys in 64-key pieces.
+template <int D, int BK, int NWG>
+__global__ void __launch_bounds__(block_threads(NWG), 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+    int Sk, int G, int bq, int bk, int causal, int window, int stages,
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2) {
+  constexpr int BKC = piece_width(BK);
+  constexpr int N = sub_keys(BKC);
+  constexpr int NSUB = BKC / N;
+  constexpr int SW = row_bytes(D);
+  constexpr int SWZ = hopper::desc_swizzle(SW);
+  constexpr int KPA = SW / 32;               // k16 steps across one row
+  constexpr int HALVES = D * 2 / SW;         // 128-byte column blocks
+  constexpr int PASS = kRows * NWG;          // q rows per pass
+  constexpr uint32_t Q_BYTES = PASS * D * 2;
+  constexpr uint32_t KV_BYTES = N * D * 2;
+  constexpr uint32_t BOX_Q = kRows * SW;     // one (SW/2, 64) q box
+  constexpr uint32_t BOX_KV = N * SW;        // one (SW/2, N) k or v box
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* kv_s = q_s + Q_BYTES;             // slot s: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv_s + 2 * KV_BYTES * stages);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + stages;
+  uint64_t* empty = v_full + stages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // most keys first
+  const int h = blockIdx.y, b = blockIdx.z, hkv = h / G;
+  const int q0 = qt * bq, q_end = q0 + bq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tile = BK ? BK : bk;               // keys of a KV tile
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 4 * NWG);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 4 * NWG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // ---- producer: per pass its q rows, then K and V sub-tiles in order
+    if constexpr (NWG == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != 4 * NWG || lane != 0) return;
+    int it = 0, pass = 0;
+    for (int p0 = q0; p0 < q_end; p0 += PASS, ++pass) {
+      if (pass > 0) hopper::mbar_wait(q_empty, (pass - 1) & 1);
+      hopper::mbar_expect_tx(q_full, Q_BYTES);
+      for (int r = 0; r < NWG; ++r)
+        for (int hf = 0; hf < HALVES; ++hf)
+          hopper::tma_load_4d(q_s + (r * HALVES + hf) * BOX_Q, &qmap, q_full,
+                              hf * (SW / 2), p0 + r * kRows, h, b);
+      int lo, hi;
+      tile_range(p0, min(p0 + PASS, q_end) - 1, Sk, tile, causal, window,
+                 lo, hi);
+      for (int t = lo; t < hi; ++t)
+        for (int c0 = t * tile; c0 < (t + 1) * tile; c0 += BKC)
+          for (int j = 0; j < NSUB; ++j, ++it) {
+            const int s = it % stages, use = it / stages;
+            if (use > 0) hopper::mbar_wait(empty + s, (use - 1) & 1);
+            uint8_t* ks = kv_s + s * 2 * KV_BYTES;
+            const int key0 = c0 + j * N;
+            hopper::mbar_expect_tx(k_full + s, KV_BYTES);
+            for (int hf = 0; hf < HALVES; ++hf)
+              hopper::tma_load_4d(ks + hf * BOX_KV, &kmap, k_full + s,
+                                  hf * (SW / 2), key0, hkv, b);
+            hopper::mbar_expect_tx(v_full + s, KV_BYTES);
+            for (int hf = 0; hf < HALVES; ++hf)
+              hopper::tma_load_4d(ks + KV_BYTES + hf * BOX_KV, &vmap,
+                                  v_full + s, hf * (SW / 2), key0, hkv, b);
+          }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wgi holds q rows [64 wgi, 64 wgi + 64) of
+  // each pass; this thread rows r_in and r_in + 8 of them ----
+  if constexpr (NWG == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int wgi = warp / 4;
+  const int r_in = (warp % 4) * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;       // first of its 2 columns per 8
+  const uint32_t q_addr = hopper::smem_u32(q_s) + wgi * HALVES * BOX_Q;
+
+  int it = 0, pass = 0;
+  for (int p0 = q0; p0 < q_end; p0 += PASS, ++pass) {
+    int lo, hi;
+    tile_range(p0, min(p0 + PASS, q_end) - 1, Sk, tile, causal, window, lo,
+               hi);
+    const int w0 = p0 + wgi * kRows;          // first q row of the tile
+    const int qpos[2] = {w0 + r_in, w0 + r_in + 8};
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    hopper::mbar_wait(q_full, pass & 1);
+
+    // the pieces of each tile in [lo, hi): BKC keys loaded from c0, the
+    // first `valid` of them in the tile
+    for (int t = lo; t < hi; ++t) {
+      const int t_end = (t + 1) * tile;
+      for (int c0 = t * tile; c0 < t_end; c0 += BKC) {
+        const int valid = min(BKC, t_end - c0);
+        // S = Q . K^T for the piece's NSUB sub-tiles
+        float s[NSUB][N / 2];
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          hopper::mbar_wait(k_full + (it + j) % stages,
+                            ((it + j) / stages) & 1);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) hopper::fence_regs(s[j]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) {
+          const uint32_t k_addr =
+              hopper::smem_u32(kv_s + ((it + j) % stages) * 2 * KV_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            Wgmma<N>::ss(
+                s[j],
+                hopper::make_desc(
+                    q_addr + (kk / KPA) * BOX_Q + (kk % KPA) * 32, 16,
+                    8 * SW, SWZ),
+                hopper::make_desc(
+                    k_addr + (kk / KPA) * BOX_KV + (kk % KPA) * 32, 16,
+                    8 * SW, SWZ),
+                kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) hopper::fence_regs(s[j]);
+
+        // scale, mask, and the online softmax over the whole piece
+        const bool kept_all = (!causal || c0 + BKC - 1 <= w0) &&
+                              (!window || c0 > w0 + kRows - 1 - window);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e) {
+            const int i = (e / 2) % 2;
+            float x = s[j][e] * scale_log2;
+            if (!kept_all) {
+              const int key = c0 + j * N + (e / 4) * 8 + cq + e % 2;
+              bool keep = true;
+              if (causal) keep = key <= qpos[i];
+              if (window) keep = keep && key > qpos[i] - window;
+              if (!keep) x = kNegInf;
+            }
+            s[j][e] = x;
+          }
+        if (valid < BKC) {   // keys past the tile: -inf, so p = 0
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+            for (int e = 0; e < N / 2; ++e)
+              if (j * N + (e / 4) * 8 + cq + e % 2 >= valid)
+                s[j][e] = -CUDART_INF_F;
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e)
+            mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[j][e]);
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          alpha[i] = exp2f(m[i] - mx[i]);
+          m[i] = mx[i];
+        }
+        float sum[2] = {0.f, 0.f};
+        uint32_t p_hi[NSUB][N / 16][4], p_lo[NSUB][N / 16][4];
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) {
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e) {
+            const int i = (e / 2) % 2;
+            s[j][e] = exp2f(s[j][e] - m[i]);
+            sum[i] += s[j][e];
+          }
+          // keys [16 ks, 16 ks + 16) of the sub-tile: accumulator columns
+          // 8-blocks 2 ks and 2 ks + 1, i.e. s[j][8 ks .. 8 ks + 8)
+#pragma unroll
+          for (int ks = 0; ks < N / 16; ++ks)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              split2(s[j][8 * ks + 2 * r], s[j][8 * ks + 2 * r + 1],
+                     p_hi[j][ks][r], p_lo[j][ks][r]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e / 2) % 2];
+
+        // acc += p_hi . V + p_lo . V
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          hopper::mbar_wait(v_full + (it + j) % stages,
+                            ((it + j) / stages) & 1);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) {
+          const uint32_t v_addr = hopper::smem_u32(
+              kv_s + ((it + j) % stages) * 2 * KV_BYTES + KV_BYTES);
+#pragma unroll
+          for (int ks = 0; ks < N / 16; ++ks) {
+            const uint64_t vd = hopper::make_desc(v_addr + ks * 16 * SW,
+                                                  BOX_KV, 8 * SW, SWZ);
+            Wgmma<D>::rs_tb(acc, p_hi[j][ks], vd);
+            Wgmma<D>::rs_tb(acc, p_lo[j][ks], vd);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int ks = 0; ks < N / 16; ++ks) {
+            hopper::fence_regs(p_hi[j][ks]);
+            hopper::fence_regs(p_lo[j][ks]);
+          }
+        if (lane == 0)
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j)
+            hopper::mbar_arrive(empty + (it + j) % stages);
+        it += NSUB;
+      }
+    }
+    if (lane == 0) hopper::mbar_arrive(q_empty);   // q read for the pass
+
+    // o = acc / max(l, 1e-30); l summed over the row's 4 threads
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (qpos[i] >= q_end) continue;
+      const float li = fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = o + b * o_sb + h * o_sh + (int64_t)qpos[i] * o_ss;
+#pragma unroll
+      for (int cb = 0; cb < D / 8; ++cb)
+        *reinterpret_cast<__nv_bfloat162*>(orow + cb * 8 + cq) =
+            __floats2bfloat162_rn(acc[cb * 4 + 2 * i] / li,
+                                  acc[cb * 4 + 2 * i + 1] / li);
+    }
+  }
+}
+
+template <int D, int BK, int NWG>
+int launch(const CUtensorMap maps[3], void* o, int B, int Hq, int G, int Sq,
+           int Sk, int bq, int bk, int causal, int window, const int64_t* st,
+           float scale, const Plan& p, cudaStream_t stream) {
+  auto kernel = flash_fwd_wgmma_kernel<D, BK, NWG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Sq / bq, Hq, B);
+  kernel<<<grid, block_threads(NWG), p.smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), Sk, G, bq,
+      bk, causal, window, p.stages, st[9], st[10], st[11], scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BK>
+int dispatch_nwg(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
+                 int Sq, int Sk, int bq, int bk, int causal, int window,
+                 const int64_t* st, float scale, const Plan& p,
+                 cudaStream_t stream) {
+  if constexpr (warpgroups(2 * kRows, piece_width(BK)) == 2) {
+    if (p.nwg == 2)
+      return launch<D, BK, 2>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                              window, st, scale, p, stream);
+  }
+  return launch<D, BK, 1>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
+                          st, scale, p, stream);
+}
+
+template <int D>
+int dispatch_bk(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
+                int Sq, int Sk, int bq, int bk, int causal, int window,
+                const int64_t* st, float scale, const Plan& p,
+                cudaStream_t stream) {
+  switch (kernel_bk(bk)) {
+#define REPRO_WG_BK(BB)                                                      \
+  case BB:                                                                   \
+    return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,    \
+                               window, st, scale, p, stream);
+    REPRO_WG_BK(32)
+    REPRO_WG_BK(64)
+    REPRO_WG_BK(128)
+    REPRO_WG_BK(256)
+    REPRO_WG_BK(0)
+#undef REPRO_WG_BK
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool supported(int D, int bq, int bk) {
+  return (D == 32 || D == 64 || D == 128) && bq >= 1 && bk >= 1;
+}
+
+int run(int D, const void* q, const void* k, const void* v, void* o, int B,
+        int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
+        int window, const int64_t* st, float scale, cudaStream_t stream) {
+  if (!supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
+  const int bkc = piece_width(kernel_bk(bk));
+  const Plan p = plan(D, bq, bkc);
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int box = row_bytes(D) / 2;
+  const int64_t qdims[4] = {D, Sq, Hq, B}, kdims[4] = {D, Sk, Hq / G, B};
+  const int64_t qs[3] = {st[2], st[1], st[0]}, ks[3] = {st[5], st[4], st[3]},
+                vs[3] = {st[8], st[7], st[6]};
+  CUtensorMap maps[3];
+  int rc = hopper::make_map_bf16_4d(&maps[0], q, qdims, qs, box, kRows);
+  if (!rc) rc = hopper::make_map_bf16_4d(&maps[1], k, kdims, ks, box,
+                                         sub_keys(bkc));
+  if (!rc) rc = hopper::make_map_bf16_4d(&maps[2], v, kdims, vs, box,
+                                         sub_keys(bkc));
+  if (rc) return rc;
+  switch (D) {
+    case 32:
+      return dispatch_bk<32>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                              window, st, scale, p, stream);
+    case 64:
+      return dispatch_bk<64>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                              window, st, scale, p, stream);
+    default:
+      return dispatch_bk<128>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, p, stream);
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block takes, or -1 for an
-// unsupported head dim.
-long long flash_attention_smem_bytes(int D, int bq, int bk) {
+// Bytes of dynamic shared memory one block of the dtype's kernel takes
+// (dtype: 0 = float32, 1 = bfloat16), or -1 for what that kernel does not
+// take (a head dim other than 32, 64, 128; a block under one row).
+long long flash_attention_smem_bytes(int dtype, int D, int bq, int bk) {
   if (D != 32 && D != 64 && D != 128) return -1;
+  if (dtype == 1) {
+    if (!wg::supported(D, bq, bk)) return -1;
+    return (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(bk)))
+        .smem;
+  }
   return (long long)(smem_floats(D, bq, bk) * sizeof(float));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
+// dtype: 0 = float32 (flash_fwd_kernel), 1 = bfloat16
+// (flash_fwd_wgmma_kernel); q, k, v and o share it.
 // q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D), each with
 // any strides whose last is 1; strides holds (sb, sh, ss) of q, k, v, o in
-// that order.  Needs Hq = Hkv * G, Sq % bq == 0, Sk % bk == 0.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// that order.  Needs Hq = Hkv * G, Sq % bq == 0, Sk % bk == 0; bfloat16
+// needs 16-byte aligned base addresses and strides of q, k, v (TMA).
+// Returns cudaGetLastError() after the launch (0 on success), or 10000 +
+// the CUresult of cuTensorMapEncodeTiled where a TMA tensor map cannot be
+// encoded.
 int flash_attention_launch(int dtype, int D, const void* q, const void* k,
                            const void* v, void* o, int B, int Hq, int G,
                            int Sq, int Sk, int bq, int bk, int causal,
@@ -324,8 +820,8 @@ int flash_attention_launch(int dtype, int D, const void* q, const void* k,
     return dispatch<float>(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                            window, strides, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,
-                                   causal, window, strides, scale, st);
+    return wg::run(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
+                   strides, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,13 @@
 """Flash-attention forward: q tiles against KV tiles with an online softmax.
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py:75``
-(``flash_attention``; body ``_kernel`` at ``:28``).  The kernel is
+(``flash_attention``; body ``_kernel`` at ``:28``).  The kernels are
 hand-written CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``,
-built with ``nvcc`` at first use and bound with ``ctypes``.
+built with ``nvcc`` at first use and bound with ``ctypes``.  The dtype
+alone picks one: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the tensor
+cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p)) in f32),
+float32 runs ``flash_fwd_kernel`` on CUDA cores.  A bfloat16 call that the
+tensor-core kernel cannot take raises; it never falls back.
 
 :func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
 k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
@@ -16,7 +20,8 @@ v may be any strided views whose last dimension is contiguous, so
 
 The plain version is ``kernels.ref.mha_ref``, the same function.  On CPU
 tensors the wrapper runs it and counts ``COUNT.plain``; on CUDA tensors it
-launches the kernel (``COUNT.launches``) or raises.  It raises when
+launches a kernel (``COUNT.launches``; ``COUNT.wgmma`` counts those of the
+bfloat16 kernel) or raises.  It raises when
 autograd would need a gradient: the reference defines none.
 """
 from __future__ import annotations
@@ -34,15 +39,18 @@ from repro_torch.kernels.ref import mha_ref
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
+_TMA_ALIGN = 16              # bytes: TMA base address and stride alignment
 
 
 @dataclasses.dataclass
 class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
+    wgmma: int = 0           # of them, bfloat16 tensor-core launches
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
         self.launches = 0
+        self.wgmma = 0
         self.plain = 0
 
 
@@ -59,7 +67,7 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = (
             [i, i] + [p] * 4 + [i] * 9 + [p, ctypes.c_float, p])
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -103,6 +111,30 @@ def _check(q, k, v, window: int, bq: int, bk: int):
     return bq, bk
 
 
+def _check_wgmma(q, k, v, out) -> None:
+    """Raise on what the bfloat16 tensor-core kernel does not take: a base
+    address or stride of q, k, v or out that is not a multiple of 16 bytes
+    (TMA reads q, k and v; out is written two columns at a time).  A
+    stride of a dimension of size 1 is never used and is not checked."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        nbytes = t.element_size()
+        if t.data_ptr() % _TMA_ALIGN or any(
+                (st * nbytes) % _TMA_ALIGN
+                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(
+                f"bfloat16 flash attention needs {name}'s base address and "
+                f"strides to be multiples of {_TMA_ALIGN} bytes; got "
+                f"strides {t.stride()} at address {t.data_ptr()}")
+
+
+def _strides(t):
+    """(sb, sh, ss) of a (B,H,S,D) tensor, a dimension of size 1 given the
+    largest extent in elements, so every stride is a valid TMA stride."""
+    far = max(st * n for st, n in zip(t.stride(), t.shape))
+    return [st if n > 1 else far for st, n in zip(t.stride()[:3],
+                                                  t.shape[:3])]
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int = 128, bk: int = 128,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,14 +155,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
 
+    tensor_core = q.dtype == torch.bfloat16
+    if tensor_core:
+        _check_wgmma(q, k, v, out)
     lib = _library()
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if lib.flash_attention_smem_bytes(D, bq, bk) > _MAX_SMEM:
+    smem = lib.flash_attention_smem_bytes(_DTYPE_CODE[q.dtype], D, bq, bk)
+    if not 0 < smem <= _MAX_SMEM:
         raise ValueError(f"bq={bq}, bk={bk} at D={D} do not fit in shared "
                          "memory")
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
-                                      for s in t.stride()[:3]))
+                                      for s in _strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
@@ -140,6 +176,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} (10000 + n: TMA tensor map encoding "
+                           f"failed with CUresult n)")
     COUNT.launches += 1
+    COUNT.wgmma += tensor_core
     return out

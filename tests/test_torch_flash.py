@@ -3,11 +3,14 @@
 On the CPU ``ops.flash_attention`` runs its plain version
 (``kernels.ref.mha_ref``); it is held here against
 ``repro.kernels.flash_attention`` in interpret mode (as
-``tests/test_kernels.py`` runs it) on the same numpy inputs.  The CUDA
-kernel itself is held against the plain version by the ``cuda`` test,
+``tests/test_kernels.py`` runs it) on the same numpy inputs, and the
+bfloat16 tensor-core kernel's numerics (bf16(p) + bf16(p - bf16(p)) for
+p.v) are emulated here and held against both.  The CUDA kernels
+themselves are held against the plain version by the ``cuda`` test,
 which skips without a card, and by ``chip_smoke.py``.
 """
 import inspect
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -184,16 +187,115 @@ def test_row_with_every_key_masked_is_mean_of_v(causal):
 
 
 def test_kernel_source_keeps_the_reference_numerics():
-    """Masked scores are the finite -1e30, the output divides by
-    max(l, 1e-30), p stays f32 for p.v, and the plain version is
-    ``mha_ref``."""
+    """Both kernels keep the reference's numerics: masked scores are the
+    finite -1e30 and the output divides by max(l, 1e-30).  The bfloat16
+    kernel adds p.v as p_hi.V + p_lo.V into one f32 accumulator, with
+    p_hi = bf16(p) and p_lo = bf16(p - p_hi); the float32 kernel keeps p
+    f32 on CUDA cores, unchanged.  The dtype alone picks the kernel, with
+    no bfloat16 instance of the float32 one to fall back to, and the plain
+    version is ``mha_ref``."""
     src = CSRC.read_text()
     assert "constexpr float kNegInf = -1e30f;" in src
+    assert "pallas_call at :93" in src
+    # bfloat16: the guarded divide, the hi + lo split, two wgmmas into acc
+    assert "const float li = fmaxf(l[i], 1e-30f);" in src
+    assert "acc[cb * 4 + 2 * i] / li" in src
+    assert "const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);" in src
+    assert ("__floats2bfloat162_rn(x0 - __low2float(h),\n"
+            "                                                 x1 - "
+            "__high2float(h));") in src
+    assert re.search(r"Wgmma<D>::rs_tb\(acc, p_hi\[j\]\[ks\], vd\);\s*"
+                     r"Wgmma<D>::rs_tb\(acc, p_lo\[j\]\[ks\], vd\);", src)
+    # float32: the CUDA-core kernel as it was
     assert "l = fmaxf(l_s[row], 1e-30f)" in src and "acc[r][c] / l" in src
     assert "fmaf(pv[r], vv[c], acc[r][c])" in src
-    assert "pallas_call at :93" in src
+    assert "if (dtype == 0)\n    return dispatch<float>(" in src
+    assert "if (dtype == 1)\n    return wg::run(" in src
+    assert "dispatch<__nv_bfloat16>" not in src
     assert "mha_ref(q, k, v, causal=causal, window=window)" in \
         inspect.getsource(fa.flash_attention)
+
+
+def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True):
+    """The bfloat16 kernel's numerics, emulated in float32 on the CPU:
+    q.k of bf16 values with f32 sums, the reference's online softmax per
+    (bq, bk) tile with the finite -1e30 mask, and p.v as bf16(p).v +
+    bf16(p - bf16(p)).v into an f32 accumulator (``split=False``: bf16(p)
+    alone).  Returns the output before its rounding to bf16."""
+    B, Hq, Sq, D = q.shape
+    Sk, G = k.shape[2], Hq // k.shape[1]
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    out = torch.empty(B, Hq, Sq, D)
+    for q0 in range(0, Sq, bq):
+        qpos = torch.arange(q0, q0 + bq)[:, None]
+        acc = torch.zeros(B, Hq, bq, D)
+        m = torch.full((B, Hq, bq, 1), -1e30)
+        l = torch.zeros(B, Hq, bq, 1)
+        for k0 in range(0, Sk, bk):
+            kpos = torch.arange(k0, k0 + bk)[None, :]
+            s = q[:, :, q0:q0 + bq] @ k[:, :, k0:k0 + bk].transpose(2, 3)
+            s = s * (1.0 / np.sqrt(D))
+            keep = torch.ones(bq, bk, dtype=torch.bool)
+            if causal:
+                keep = kpos <= qpos
+            if window:
+                keep = keep & (kpos > qpos - window)
+            s = torch.where(keep, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            p_hi = p.bfloat16().float()
+            vt = v[:, :, k0:k0 + bk]
+            acc = acc * alpha + p_hi @ vt
+            if split:
+                acc = acc + (p - p_hi).bfloat16().float() @ vt
+            m = m_new
+        out[:, :, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+def _exact(q, k, v, *, causal, window):
+    """mha_ref's function in float64."""
+    q, k, v = (torch.from_numpy(a).double() for a in (q, k, v))
+    return mha_ref(q, k, v, causal=causal, window=window)
+
+
+SPLIT_BOUND = 1e-5   # f32 output vs float64; the split keeps ~16 bits of p
+SPLIT_DIFF_SHARE = 0.02   # bf16 outputs that differ from mha_ref's, at most
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (256, 256, True, 0), (256, 256, True, 48), (256, 256, False, 0),
+    (256, 64, True, 32)])
+def test_split_p_numerics_contract(Sq, Sk, causal, window):
+    """The design's numerics contract, on bf16 inputs: before rounding,
+    the split-p output is within SPLIT_BOUND of the exact function (bf16
+    p alone, SDPA's choice, is not: it misses by over ten times that);
+    rounded to bf16 it agrees with ``mha_ref`` and with the Pallas kernel
+    in interpret mode at the bf16 tolerance, and at most SPLIT_DIFF_SHARE
+    of its outputs differ from ``mha_ref``'s, a limit bf16 p alone
+    exceeds (``chip_smoke.py`` holds the kernel to the same share)."""
+    q, k, v = _inputs(1, 4, 2, Sq, 64, "bfloat16", seed=Sq + Sk + window,
+                      Sk=Sk)
+    kw = dict(causal=causal, window=window)
+    exact = _exact(q, k, v, **kw)
+    split = _split_p_flash(q, k, v, bq=64, bk=32, **kw)
+    err = (split.double() - exact).abs().max().item()
+    assert err < SPLIT_BOUND
+    hi_only = _split_p_flash(q, k, v, bq=64, bk=32, split=False, **kw)
+    assert (hi_only.double() - exact).abs().max().item() > 10 * SPLIT_BOUND
+    out = split.bfloat16()
+    plain = mha_ref(_torch(q, "bfloat16"), _torch(k, "bfloat16"),
+                    _torch(v, "bfloat16"), **kw).float()
+    _close(out.float(), plain, "bfloat16")
+    assert (out.float() != plain).float().mean().item() <= SPLIT_DIFF_SHARE
+    assert (hi_only.bfloat16().float() != plain).float().mean().item() > \
+        SPLIT_DIFF_SHARE
+    ref = jax_flash(_jax(q, "bfloat16"), _jax(k, "bfloat16"),
+                    _jax(v, "bfloat16"), bq=64, bk=32, interpret=True, **kw)
+    _close(out.float(), ref, "bfloat16")
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -260,6 +362,44 @@ def test_cpu_counts_plain_and_never_launches():
     assert fa.COUNT.plain == 3
 
 
+@pytest.mark.parametrize("bad", ["k address", "q address", "k stride",
+                                 "v stride", "out stride"])
+def test_wgmma_check_rejects_what_tma_does_not_take(bad):
+    """The bfloat16 kernel takes 16-byte aligned base addresses and strides
+    (TMA); anything else raises before a launch, on any device, and
+    nothing falls back to the float32 kernel."""
+    bf = torch.bfloat16
+    q, k, v = (torch.zeros(1, 4, 64, 64, dtype=bf) for _ in range(3))
+    out = torch.empty_like(q)
+    if bad == "k address":
+        k = torch.zeros(1 * 4 * 64 * 64 + 4, dtype=bf)[4:].view(1, 4, 64, 64)
+    elif bad == "q address":
+        q = torch.zeros(1, 4, 64, 72, dtype=bf)[..., 1:65]
+    elif bad == "k stride":
+        k = torch.zeros(1, 4, 64, 68, dtype=bf)[..., :64]
+    elif bad == "v stride":
+        # a (B,S,H,D) view whose rows are 260 elements (520 bytes) apart
+        v = torch.zeros(1, 64, 260, dtype=bf).as_strided(
+            (1, 4, 64, 64), (64 * 260, 64, 260, 1))
+    else:
+        out = torch.zeros(1, 4, 64, 66, dtype=bf)[..., :64]
+    with pytest.raises(ValueError):
+        fa._check_wgmma(q, k, v, out)
+
+
+def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
+    """``mha``'s (B,S,H,D) views pass; a dimension of size 1 may have any
+    stride, and is handed to TMA with the tensor's largest extent."""
+    bf = torch.bfloat16
+    q = torch.zeros(2, 64, 4, 32, dtype=bf).transpose(1, 2)
+    fa._check_wgmma(q, q, q, q)
+    odd = torch.zeros(4 * 64 * 64, dtype=bf).as_strided(
+        (1, 4, 64, 64), (3, 64 * 64, 64, 1))
+    fa._check_wgmma(odd, odd, odd, odd)
+    assert fa._strides(odd) == [4 * 64 * 64, 64 * 64, 64]
+    assert fa._strides(q) == list(q.stride()[:3])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,bq,bk,dt", [
     (2, 4, 4, 256, 256, 64, True, 0, 128, 128, "float32"),
@@ -269,6 +409,18 @@ def test_cpu_counts_plain_and_never_launches():
     (1, 2, 1, 128, 128, 32, True, 0, 32, 32, "float32"),
     (1, 4, 2, 256, 64, 32, True, 32, 64, 32, "float32"),
     (1, 4, 2, 512, 512, 128, True, 0, 256, 256, "bfloat16"),
+    (1, 2, 1, 128, 128, 32, True, 0, 32, 32, "bfloat16"),
+    (1, 4, 2, 256, 64, 32, True, 32, 64, 32, "bfloat16"),
+    (1, 4, 4, 256, 256, 64, False, 0, 32, 256, "bfloat16"),
+    (1, 4, 2, 256, 256, 64, True, 48, 128, 64, "bfloat16"),
+    (1, 2, 2, 384, 384, 64, True, 0, 96, 128, "bfloat16"),
+    # bk = min(bk, Sk) of any size: padded pieces, pieces of a wide tile
+    (1, 2, 1, 48, 48, 64, True, 0, 128, 128, "bfloat16"),
+    (1, 2, 1, 16, 16, 32, True, 0, 128, 128, "bfloat16"),
+    (1, 2, 2, 200, 100, 64, True, 40, 40, 100, "bfloat16"),
+    (1, 2, 1, 1024, 1024, 128, True, 0, 128, 512, "bfloat16"),
+    # a q tile of many passes: q is loaded per pass
+    (1, 2, 1, 2048, 2048, 128, True, 0, 1024, 128, "bfloat16"),
 ])
 def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                       bq, bk, dt):
@@ -282,5 +434,6 @@ def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
                               bk=bk)
     torch.cuda.synchronize()
     assert fa.COUNT.launches == 1 and fa.COUNT.plain == 0
+    assert fa.COUNT.wgmma == (dt == "bfloat16")
     _close(out.float().cpu(),
            mha_ref(q, k, v, causal=causal, window=window).float().cpu(), dt)

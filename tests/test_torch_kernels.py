@@ -470,3 +470,22 @@ def test_ssd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dt):
     torch.testing.assert_close(y.float(), yp.float(), atol=5 * TOL[dt],
                                rtol=5 * TOL[dt])
     torch.testing.assert_close(s, sp, atol=1e-4, rtol=1e-4)
+
+
+def test_library_path_covers_headers(tmp_path, monkeypatch):
+    """The built library's name hashes the source, every ``csrc/*.cuh`` and
+    the flags: an edited header, a new one or new flags give a new path, so
+    a stale library is never loaded; an unchanged tree gives the same."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert build.library_path("k") not in (first, second)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_path("k") not in (first, second)
