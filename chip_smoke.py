@@ -71,10 +71,13 @@ HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
 F32_FLASH_KERNEL = "flash_fwd_kernel"
+SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
+SSD_LAUNCHES = ("chunk_state_kernel", "state_pass_kernel",
+                SSD_WGMMA_KERNEL)                 # one ssd_scan call, bf16
 KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 PORT_KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                      "chunk_state_kernel", "state_pass_kernel",
-                     "chunk_scan_kernel",
+                     "chunk_scan_kernel", SSD_WGMMA_KERNEL,
                      "flash_fwd_kernel",
                      "flash_fwd_wgmma_kernel")  # the __global__s of csrc/
 
@@ -100,6 +103,10 @@ FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
 # the split-p gate at those shapes, bf16 outputs against mha_ref: the
 # largest abs error (atol only) and the share of outputs that differ
 SPLIT_MAX_ABS, SPLIT_DIFF_SHARE = 8e-3, 0.02
+# the ssd split gate: the share of bf16 y values that differ from ssd_ref's.
+# W and the state as bf16 hi + lo differ in ~0.2 % (float64 emulation at
+# the model's widths); either kept to bf16 alone, in 19-33 %.
+SSD_SPLIT_SHARE = 0.01
 DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
 DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
               "decode_attention": TOL[torch.float32],
@@ -154,6 +161,11 @@ def check_decode_attention(main_lengths):
         ("ragged S=300", 3, 8, 2, 300, 64, (0, 150, 300), torch.float32),
         ("D=16 ragged", 2, 4, 4, 77, 16, (77, 5), torch.bfloat16),
         ("D=256", 2, 8, 1, 200, 256, (200, 33), torch.bfloat16),
+        ("D=80 (hubert-xlarge)", 2, 8, 2, 300, 80, (300, 17), torch.float32),
+        ("D=80 bf16", 2, 8, 2, 300, 80, (129, 1), torch.bfloat16),
+        ("D=112 (zamba2-7b)", 2, 8, 2, 300, 112, (300, 17),
+         torch.float32),
+        ("D=112 bf16", 2, 8, 2, 300, 112, (129, 1), torch.bfloat16),
         ("main path", BATCH, 20, 20, MAX_SEQ, 128, main_lengths,
          torch.float32),
     ]
@@ -243,15 +255,23 @@ def ssd_main_inputs():
 
 
 def _ssd_compare(name, args, chunk):
+    """One ``ssd_scan`` call against ``ssd_ref``; the counts are set to 0
+    just before and read just after, so each case says which instance of
+    the third launch it ran."""
+    ssd.COUNT.reset()
     y, st = ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
+    if (ssd.COUNT.launches, ssd.COUNT.plain) != (1, 0):
+        raise AssertionError(f"ssd_scan at {name} did not launch the kernel")
+    tc = ssd.COUNT.wgmma == 1
     yp, sp = ssd_ref(*args, chunk)
     dt = args[0].dtype
     err = (y.float() - yp.float()).abs().max().item()
     serr = (st - sp).abs().max().item()
     x, _, _, Bm, _, D = args
     log(f"ssd_scan {name}: x {tuple(x.shape)} {str(dt)[6:]} N={Bm.shape[-1]} "
-        f"chunk={chunk} D {str(D.dtype)[6:]} strides {x.stride()}: "
+        f"chunk={chunk} D {str(D.dtype)[6:]} strides {x.stride()} "
+        f"[{SSD_WGMMA_KERNEL if tc else 'chunk_scan_kernel'}]: "
         f"y max_abs_err={err:.3e} (tol {5 * TOL[dt]:g} abs+rel), state "
         f"max_abs_err={serr:.3e} (tol 1e-4 abs+rel)")
     if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
@@ -261,12 +281,15 @@ def _ssd_compare(name, args, chunk):
         raise AssertionError(f"ssd_scan y disagrees at {name}")
     if not torch.allclose(st, sp, atol=1e-4, rtol=1e-4):
         raise AssertionError(f"ssd_scan state disagrees at {name}")
-    return err, y, st
+    return err, y, st, tc
 
 
 def check_ssd_scan():
     """The sweep of tests/test_kernels.py:39-43, bf16 D, the model's
-    strided layout, chunk invariance, and the main path's shape."""
+    strided layout, chunk invariance, bf16 shapes on the tensor-core
+    instance (zamba2's widths; chunks of 128), and the main path's shape,
+    each held at today's tolerances; each case must run the instance that
+    ``ssd.uses_tensor_cores`` names."""
     cases = [   # name, B, L, H, P, N, chunk, dtype, d_dtype, strided
         ("test_kernels 1", 2, 256, 3, 64, 32, 64, torch.float32,
          torch.float32, False),
@@ -282,31 +305,133 @@ def check_ssd_scan():
          torch.bfloat16, True),
         ("Q not a multiple of 64", 1, 200, 2, 64, 128, 100, torch.float32,
          torch.float32, True),
+        ("zamba2 widths P=64 N=64", 2, 1024, 4, 64, 64, 256, torch.bfloat16,
+         torch.bfloat16, True),
+        ("Q=128, 8 chunks", 2, 1024, 3, 64, 128, 128, torch.bfloat16,
+         torch.bfloat16, True),
+        ("P=16 N=32", 1, 512, 2, 16, 32, 64, torch.bfloat16, torch.float32,
+         False),
     ]
     for i, (name, B, L, H, P, N, chunk, dt, ddt, strided) in enumerate(cases):
         args = ssd_inputs(B, L, H, P, N, dt, seed=10 + i, d_dtype=ddt,
                           strided=strided)
-        _ssd_compare(name, args, chunk)
+        want = ssd.uses_tensor_cores(args[0], args[3], args[4], chunk)
+        if _ssd_compare(name, args, chunk)[3] != want:
+            raise AssertionError(f"ssd_scan at {name} ran the wrong instance")
     args = ssd_inputs(1, 256, 2, 32, 16, torch.float32, seed=30)
-    _, y64, s64 = _ssd_compare("chunk 64", args, 64)
-    _, y256, s256 = _ssd_compare("chunk 256", args, 256)
+    _, y64, s64, _ = _ssd_compare("chunk 64", args, 64)
+    _, y256, s256, _ = _ssd_compare("chunk 256", args, 256)
     if not (torch.allclose(y64, y256, atol=1e-4, rtol=1e-4)
             and torch.allclose(s64, s256, atol=1e-4, rtol=1e-4)):
         raise AssertionError("ssd_scan depends on the chunk size")
     log(f"ssd_scan chunk invariance: y 64 vs 256 max diff "
         f"{(y64 - y256).abs().max().item():.3e} (tol 1e-4 abs+rel)")
-    err, _, _ = _ssd_compare("main path", ssd_main_inputs(), SSD_MAIN[-1])
+    err, _, _, tc = _ssd_compare("main path", ssd_main_inputs(), SSD_MAIN[-1])
+    if not tc:
+        raise AssertionError("the main path's shape did not run "
+                             f"{SSD_WGMMA_KERNEL}")
     return err
 
 
+def ssd_split_ref(x, dt, A, Bm, Cm, D, chunk, *, split=True):
+    """``ssd_ref``'s function with the tensor-core instance's roundings:
+    W = (C.B^T) o L o dt and the state entering each chunk kept as bf16
+    hi + lo (``split``), or rounded to bf16 alone (the control the gate
+    must fail, as ``mha_p_bf16`` is for flash); x, Bm, Cm as given, every
+    sum f32, the chunk states themselves f32 as launches 1 and 2 keep
+    them."""
+    def rnd(t):
+        hi = t.bfloat16().float()
+        return hi + (t - hi).bfloat16().float() if split else hi
+    B_, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    n = L // Q
+    a = (dt * A.float()[None, None, :]).reshape(B_, n, Q, H)
+    dt_c = dt.reshape(B_, n, Q, H)
+    x_c = x.float().reshape(B_, n, Q, H, P)
+    B_c = Bm.float().reshape(B_, n, Q, N)
+    C_c = Cm.float().reshape(B_, n, Q, N)
+    keep = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(B_, H, P, N, device=x.device)
+    ys = []
+    for c in range(n):
+        cum = a[:, c].transpose(1, 2).cumsum(-1)                 # (B, H, Q)
+        seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, 0)
+        G = torch.einsum("bqn,bsn->bqs", C_c[:, c], B_c[:, c])
+        W = torch.where(keep, G[:, None] * torch.exp(seg)
+                        * dt_c[:, c].transpose(1, 2)[:, :, None, :], 0.0)
+        y = torch.einsum("bhqs,bshp->bqhp", rnd(W), x_c[:, c])
+        y = y + torch.einsum("bqn,bhpn->bqhp", C_c[:, c], rnd(state)) \
+            * torch.exp(cum).transpose(1, 2)[..., None]
+        ys.append(y)
+        to_end = torch.exp(cum[..., -1:] - cum)                   # (B, H, Q)
+        state = state * torch.exp(cum[..., -1])[..., None, None] + \
+            torch.einsum("bqn,bhq,bqhp->bhpn", B_c[:, c], to_end,
+                         x_c[:, c] * dt_c[:, c][..., None])
+    y = torch.stack(ys, dim=1).reshape(B_, L, H, P)
+    return (y + x.float() * D.float()[None, None, :, None]).to(x.dtype)
+
+
+def ssd_split_gate(y, ref):
+    """The share of bf16 y values that differ from ``ref`` (``ssd_ref``'s
+    y, rounded to bf16), and whether it is within SSD_SPLIT_SHARE."""
+    share = (y.float() != ref.float()).float().mean().item()
+    return share, share <= SSD_SPLIT_SHARE
+
+
+def ssd_gate_phase():
+    """The split gate at the main shape (the model's steps: cum falls to
+    about -200 in a chunk) and with slow decay (dt scaled by 0.05, so the
+    carried state reaches deep into a chunk): the kernel passes it, the
+    bf16 control fails it at both."""
+    B, L, H, P, N, chunk = SSD_MAIN
+    for name, args in (("model steps", ssd_main_inputs()),
+                       ("slow decay", ssd_inputs(
+                           B, L, H, P, N, torch.bfloat16, seed=51,
+                           d_dtype=torch.bfloat16, strided=True,
+                           dt_scale=0.05))):
+        ssd.COUNT.reset()
+        y, _ = ssd.ssd_scan(*args, chunk=chunk)
+        if ssd.COUNT.wgmma != 1:
+            raise AssertionError("the gate's input did not run "
+                                 f"{SSD_WGMMA_KERNEL}")
+        ref = ssd_ref(*args, chunk)[0]
+        share, ok = ssd_split_gate(y, ref)
+        emu_share, emu_ok = ssd_split_gate(ssd_split_ref(*args, chunk), ref)
+        c_share, c_ok = ssd_split_gate(
+            ssd_split_ref(*args, chunk, split=False), ref)
+        log(f"ssd_scan split gate, {name} (bf16 y differing from ssd_ref <= "
+            f"{SSD_SPLIT_SHARE:.0%}): {SSD_WGMMA_KERNEL} {share:.4%}; the "
+            f"split emulation {emu_share:.4%}; the bf16 control "
+            f"{c_share:.4%}")
+        if c_ok:
+            raise AssertionError("the ssd split gate passes the bf16 control")
+        if not ok:
+            raise AssertionError(f"ssd_scan fails the split gate at {name}: "
+                                 "W or the state is not kept to hi + lo")
+        del y, ref
+
+
 def measure_ssd_scan():
-    """Times at the main path's shape: kernel and plain version.  No single
-    PyTorch call computes the SSD scan, so there is no library time."""
+    """Times at the main path's shape: the kernel (the tensor-core third
+    launch), the same with the CUDA-core third launch, in turns in this
+    call, and the plain version; each launch's device time in a profiler
+    window.  No single PyTorch call computes the SSD scan, so there is no
+    library time."""
     B, L, H, P, N, chunk = SSD_MAIN
     args = ssd_main_inputs()
+
+    def instance(tc):
+        return lambda: ssd._ssd_scan_instance(*args, chunk=chunk,
+                                              tensor_core=tc)
+    tc_ms, cc_ms = [], []
+    for tc in (True, False, False, True):
+        (tc_ms if tc else cc_ms).append(time_ms(instance(tc)))
     ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
-    plain_ms = time_ms(lambda: ssd_ref(*args, chunk),
-                       reps=10)
+    plain_ms = time_ms(lambda: ssd_ref(*args, chunk), reps=10)
+    rows = profile_window(lambda: ssd.ssd_scan(*args, chunk=chunk), 5, "call")
+    per = {k: sum(r[0] for r in rows if k in r[1]) / 5 for k in SSD_LAUNCHES}
     Q, n = chunk, L // chunk
     x, dt, A, Bm, Cm, D = args
     el = x.element_size()
@@ -315,21 +440,30 @@ def measure_ssd_scan():
               + 2 * B * L * N * el                # Bm, Cm
               + B * H * P * N * 4)                # final state
     tri = Q * (Q + 1) // 2
-    # C.B^T multiplies two Bm.dtype operands with f32 sums: Bm.dtype's rate.
-    # The other products take an f32 operand (dt x, decays, the state).
+    # C.B^T multiplies two bf16 operands with f32 sums.  The other three
+    # products take an f32 operand (dt x and the decays in W, the state),
+    # each as two bf16 products (hi + lo, held by the split gate): all at
+    # the bf16 rate.
     ops_cb = B * n * tri * N * 2                  # causal, once per (b, c)
-    ops_f32 = B * H * (n * tri * P * 2            # (C.B^T o L) . dt x
+    ops_f32 = B * H * (n * tri * P * 2            # (C.B^T o L o dt) . x
                        + (n - 1) * Q * P * N * 2  # C . state; zero in chunk 0
                        + n * Q * P * N * 2)       # each chunk's new state
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (ops_cb / PEAK_OPS[Bm.dtype]
+    ops_ms = (ops_cb + 2 * ops_f32) / PEAK_OPS[torch.bfloat16] * 1e3
+    old_ms = (ops_cb / PEAK_OPS[torch.bfloat16]
               + ops_f32 / PEAK_OPS[torch.float32]) * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"ssd_scan main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"no library call; bound {bound_ms:.5f} ms ({nbytes} bytes at "
-        f"3.35 TB/s = {bytes_ms:.5f} ms; {ops_cb} flops of C.B^T at the "
-        f"{str(Bm.dtype)[6:]} rate of {PEAK_OPS[Bm.dtype] / 1e12:g} TFLOP/s "
-        f"and {ops_f32} at the f32 rate of 67 TFLOP/s = {ops_ms:.5f} ms)")
+    log(f"ssd_scan main path: kernel {ms:.4f} ms ({SSD_WGMMA_KERNEL} as "
+        f"launch 3; in turns {' / '.join(f'{t:.4f}' for t in tc_ms)}), the "
+        f"CUDA-core chunk_scan_kernel as launch 3 "
+        f"{' / '.join(f'{t:.4f}' for t in cc_ms)} ms; plain {plain_ms:.4f} "
+        f"ms, no library call; per launch in a profiler window of 5 calls: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
+        + f"; bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.5f} ms; {ops_cb} flops of C.B^T and 2 x {ops_f32} of "
+        f"hi + lo products at 989 TFLOP/s = {ops_ms:.5f} ms); the old count,"
+        f" the f32-operand products at the f32 rate of 67 TFLOP/s: "
+        f"{old_ms:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -365,8 +499,9 @@ def check_flash_attention():
     kernel search domain (D = 32 and 64), D = 128 at small and at 256-row
     tiles, q tiles that are not whole warpgroups, MQA, a window, rows
     with every key masked (Sq > Sk with a window: the mean of v), bf16 at
-    bk outside the domain's widths and at q tiles of many passes, and the
-    window = Sk == causal property."""
+    bk outside the domain's widths and at q tiles of many passes, head
+    dims padded to an instance (48, 80, 112) and the D = 256 instance,
+    and the window = Sk == causal property."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
         (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
@@ -425,6 +560,22 @@ def check_flash_attention():
                                   atol=TOL[bf16]):
                 raise AssertionError("a row with every key masked is not "
                                      "the mean of v over Sk keys")
+    # head dims outside the instances: zero-padded to the next one (48 ->
+    # 64, 80 and 112 -> 128: bf16 on the tensor cores), and the D = 256
+    # instance (CUDA cores in both dtypes); each one launch
+    for i, (D, dt) in enumerate((
+            (48, f32), (48, bf16), (80, f32), (80, bf16), (112, f32),
+            (112, bf16), (256, f32), (256, bf16))):
+        q, k, v = flash_inputs(1, 4, 2, 256, D, dt, seed=90 + i)
+        for bq, bk in ((128, 128), (64, 32)):
+            fa.COUNT.reset()
+            _flash_compare(f"D={D} (instance {fa.instance_dim(D)})", q, k, v,
+                           True, 0, bq, bk)
+            want = (1, int(dt == bf16 and D <= 128))
+            if (fa.COUNT.launches, fa.COUNT.wgmma) != want:
+                raise AssertionError(f"flash_attention at D={D}: (launches, "
+                                     f"wgmma) {fa.COUNT.launches, fa.COUNT.wgmma}"
+                                     f", not {want}")
     q, k, v = flash_inputs(2, 4, 2, 256, 64, f32, seed=73)
     a = fa.flash_attention(q, k, v, causal=True, window=0)
     b = fa.flash_attention(q, k, v, causal=True, window=256)
@@ -435,13 +586,15 @@ def check_flash_attention():
         raise AssertionError("window = Sk differs from causal")
 
 
-def check_wgmma_sass():
-    """The bf16 kernel's SASS, from ``cuobjdump -sass`` of the built
-    library: every instance of it must hold HGMMA (wgmma) instructions."""
+def check_wgmma_sass(source, kernel, other):
+    """The tensor-core kernel's SASS, from ``cuobjdump -sass`` of the built
+    library of ``source``: every instance of ``kernel`` must hold HGMMA
+    (wgmma) instructions.  ``other`` names its CUDA-core sibling, whose
+    count is printed beside."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build.library_path(
-        "flash_attention"))], capture_output=True, text=True, check=True,
-        timeout=300).stdout
+    sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -450,13 +603,13 @@ def check_wgmma_sass():
             counts[name] = 0
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
-    wg = {n: c for n, c in counts.items() if WGMMA_KERNEL in n}
-    log(f"SASS of flash_attention: {len(wg)} instances of {WGMMA_KERNEL}, "
-        f"HGMMA instructions {min(wg.values(), default=0)}-"
-        f"{max(wg.values(), default=0)} each; {F32_FLASH_KERNEL}: "
-        f"{sum(c for n, c in counts.items() if F32_FLASH_KERNEL in n)}")
+    wg = {n: c for n, c in counts.items() if kernel in n}
+    log(f"SASS of {source}: {len(wg)} instances of {kernel}, HGMMA "
+        f"instructions {min(wg.values(), default=0)}-"
+        f"{max(wg.values(), default=0)} each; {other}: "
+        f"{sum(c for n, c in counts.items() if other in n and kernel not in n)}")
     if not wg or min(wg.values()) == 0:
-        raise AssertionError(f"{WGMMA_KERNEL} has no HGMMA instruction")
+        raise AssertionError(f"{kernel} has no HGMMA instruction")
 
 
 def _pairs(S, window):
@@ -855,21 +1008,28 @@ def ssm_forward_full_width():
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / SSM_FORWARDS
         launches, plain = ssd.COUNT.launches, ssd.COUNT.plain
+        wgmma = ssd.COUNT.wgmma
         log(f"Model.loss with the kernel: {SSM_BATCH} x {SSM_LEN} tokens, "
             f"{wall * 1e3:.3f} ms/forward, {tokens / wall:.0f} tokens/s; "
             f"ssd_scan launches {launches} = {cfg.n_layers} x "
-            f"{SSM_FORWARDS} forwards; plain-version calls {plain}")
-        if launches != cfg.n_layers * SSM_FORWARDS or plain != 0:
+            f"{SSM_FORWARDS} forwards, {wgmma} of them with "
+            f"{SSD_WGMMA_KERNEL}; plain-version calls {plain}")
+        if not launches == wgmma == cfg.n_layers * SSM_FORWARDS or plain:
             raise AssertionError("the ssm forward did not go through the "
-                                 "kernel")
+                                 "tensor-core kernel on every layer")
         t0 = time.perf_counter()
         loss_p = model.loss(params, batch, opts=popts)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
         log(f"Model.loss on the plain path: {plain_wall * 1e3:.3f} "
             f"ms/forward, {tokens / plain_wall:.0f} tokens/s")
-        profile_window(lambda: model.loss(params, batch, opts=kopts), 1,
-                       "forward")
+        rows = profile_window(lambda: model.loss(params, batch, opts=kopts),
+                              1, "forward")
+        busy = sum(r[0] for r in rows) or float("nan")
+        log("  ssd_scan's launches in the forward: " + ", ".join(
+            f"{k} {sum(r[0] for r in rows if k in r[1]):.3f} ms "
+            f"({sum(r[0] for r in rows if k in r[1]) / busy:.1%} of device "
+            f"busy)" for k in SSD_LAUNCHES))
 
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32 = build_model(cfg32)
@@ -1080,10 +1240,12 @@ def main() -> None:
     err = check_decode_attention(main_lengths)
     timing = measure_decode_attention(main_lengths)
 
+    check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel")
     ssd_err = check_ssd_scan()
+    ssd_gate_phase()
     ssd_timing = measure_ssd_scan()
 
-    check_wgmma_sass()
+    check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL)
     check_flash_attention()
     flash_timing, flash_launches = measure_flash_attention()
     flash_f32_timing = measure_flash_f32()

@@ -27,6 +27,9 @@
 //    the first kernel writes the output itself.  The wrapper picks the
 //    chunk from the SM count, or takes the reference's block size `bk`
 //    as the chunk when the caller gives one (the kernel search domain).
+//  * Head dims 16, 32, 64, 80, 112, 128 and 256 have instances (80 and 112
+//    for hubert-xlarge and zamba2-7b); a thread strides over D, so any
+//    multiple of 16 would do.
 //  * The ragged last tile is masked here, so S need not be a multiple of
 //    the tile (the Pallas wrapper asserts S % bk == 0).
 //
@@ -248,6 +251,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(80)
+    REPRO_DECODE_CASE(112)
     REPRO_DECODE_CASE(128)
     REPRO_DECODE_CASE(256)
     default:
@@ -266,6 +271,8 @@ int decode_attention_tile_keys(int D) {
     case 16: return Tile<16>::kKeys;
     case 32: return Tile<32>::kKeys;
     case 64: return Tile<64>::kKeys;
+    case 80: return Tile<80>::kKeys;
+    case 112: return Tile<112>::kKeys;
     case 128: return Tile<128>::kKeys;
     case 256: return Tile<256>::kKeys;
     default: return 0;

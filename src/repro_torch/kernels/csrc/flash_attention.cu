@@ -5,10 +5,13 @@
 // k and v with an f32 online softmax over KV tiles of `bk` keys, one
 // q tile of `bq` rows at a time; GQA maps query head h to KV head h / G.
 //
-// Two kernels, chosen by dtype alone:
-//  * bfloat16: flash_fwd_wgmma_kernel, on the tensor cores (below);
-//  * float32: flash_fwd_kernel, f32 FMAs on CUDA cores (the kernel search
-//    domain's presets run it).
+// Two kernels, chosen by dtype and head dim D (32, 64, 128 or 256; the
+// wrapper pads any other D up to 256 with zero columns):
+//  * bfloat16 at D <= 128: flash_fwd_wgmma_kernel, on the tensor cores
+//    (below);
+//  * float32, and bfloat16 at D = 256: flash_fwd_kernel, f32 FMAs on CUDA
+//    cores (the kernel search domain's presets run it; at D = 256 every
+//    (bq, bk) fits a block's shared memory, at most 198 KB).
 //
 // Semantics kept from the reference by both: scores are f32 sums times
 // the scale; masked scores are the finite -1e30; the softmax state (m, l)
@@ -100,7 +103,13 @@ constexpr int kMaxPiece = 256;   // keys per softmax update at most
 constexpr int kSubKeys = 64;     // keys per K or V sub-tile in shared memory
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 __host__ __device__ inline int piece_keys(int bk) {
   return bk < kMaxPiece ? bk : kMaxPiece;
@@ -319,6 +328,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// the instance for D, by the q rows a thread holds
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+             int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
+             int window, const int64_t* st, float scale,
+             cudaStream_t stream) {
+  return rows_per_thread(bq) == 2
+             ? launch<T, D, 2>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, stream)
+             : launch<T, D, 4>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, stream);
+}
+
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o,
              int B, int Hq, int G, int Sq, int Sk, int bq, int bk,
@@ -326,15 +348,13 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
              cudaStream_t stream) {
 #define REPRO_FLASH_CASE(DD)                                                 \
   case DD:                                                                   \
-    return rows_per_thread(bq) == 2                                          \
-               ? launch<T, DD, 2>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,      \
-                                  causal, window, st, scale, stream)         \
-               : launch<T, DD, 4>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,      \
-                                  causal, window, st, scale, stream);
+    return launch_d<T, DD>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,     \
+                           window, st, scale, stream);
   switch (D) {
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
     REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -788,12 +808,13 @@ int run(int D, const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the dtype's kernel takes
-// (dtype: 0 = float32, 1 = bfloat16), or -1 for what that kernel does not
-// take (a head dim other than 32, 64, 128; a block under one row).
+// Bytes of dynamic shared memory one block of the kernel for (dtype, D)
+// takes (dtype: 0 = float32, 1 = bfloat16), or -1 for what that kernel
+// does not take (a head dim other than 32, 64, 128, 256; a block under
+// one row).
 long long flash_attention_smem_bytes(int dtype, int D, int bq, int bk) {
-  if (D != 32 && D != 64 && D != 128) return -1;
-  if (dtype == 1) {
+  if (D != 32 && D != 64 && D != 128 && D != 256) return -1;
+  if (dtype == 1 && D != 256) {
     if (!wg::supported(D, bq, bk)) return -1;
     return (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(bk)))
         .smem;
@@ -802,7 +823,8 @@ long long flash_attention_smem_bytes(int dtype, int D, int bq, int bk) {
 }
 
 // dtype: 0 = float32 (flash_fwd_kernel), 1 = bfloat16
-// (flash_fwd_wgmma_kernel); q, k, v and o share it.
+// (flash_fwd_wgmma_kernel at D = 32, 64, 128; flash_fwd_kernel at
+// D = 256, which has no tensor-core instance); q, k, v and o share it.
 // q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D), each with
 // any strides whose last is 1; strides holds (sb, sh, ss) of q, k, v, o in
 // that order.  Needs Hq = Hkv * G, Sq % bq == 0, Sk % bk == 0; bfloat16
@@ -819,6 +841,9 @@ int flash_attention_launch(int dtype, int D, const void* q, const void* k,
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                            window, strides, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch_d<__nv_bfloat16, 256>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,
+                                        causal, window, strides, scale, st);
   if (dtype == 1)
     return wg::run(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
                    strides, scale, st);

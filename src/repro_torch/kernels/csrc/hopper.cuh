@@ -5,14 +5,17 @@
 // no kernel of its own.
 //
 // Shared-memory layouts follow the TMA swizzle modes: a tile whose rows are
-// SW bytes (SW = 128 or 64) is stored as SW-byte rows, 8 rows to a
-// swizzle atom of 8 * SW bytes, every atom 1024-byte aligned.  A tile
+// SW bytes (SW = 128, 64 or 32) is stored as SW-byte rows, 8 rows to a
+// swizzle atom of 8 * SW bytes, every atom 1024-byte aligned (an atom's
+// own size suffices: the pattern repeats every 8 * SW bytes).  Inside
+// the atom the 16-byte piece of a row moves as `swizzle` says, which is
+// how TMA writes a tile and wgmma reads it.  A tile
 // wider than 128 bytes is stored as column blocks of 128 bytes, one after
 // the other (each rows * 128 bytes).
 //
 // wgmma descriptors (PTX ISA, "Matrix Descriptor Format"): the start
 // address, the leading and stride byte offsets (LBO, SBO) in 16-byte
-// units, and the swizzle mode in bits 62-63 (1 = 128B, 2 = 64B).
+// units, and the swizzle mode in bits 62-63 (1 = 128B, 2 = 64B, 3 = 32B).
 //  * K-major operand (the reduction dimension contiguous, as Q and K in
 //    q.k): SBO = 8 * SW (from one 8-row group to the next), LBO unused
 //    (16); a k16 step inside an atom advances the start address by 32 B.
@@ -88,6 +91,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 34)) __trap();
 }
 
+// Orders this thread's ordinary stores to shared memory before later
+// reads of it by the async proxy (wgmma, TMA); a barrier between the
+// threads follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The byte offset, from an atom-aligned base, at which the SW-byte
+// swizzle stores the byte at plain offset `off` of a tile of SW-byte rows:
+// the 16-byte piece index inside the row is XORed with bits of the row.
+__host__ __device__ constexpr uint32_t swizzle(uint32_t off, int sw) {
+  return off ^ (((off >> 7) & (uint32_t)(sw / 16 - 1)) << 4);
+}
+
 // a 4-D box of `map` at coordinates (c0, c1, c2, c3), innermost first,
 // into shared memory at dst; completes `bytes` on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -104,9 +121,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
-// swizzle mode field of a descriptor for SW-byte rows (128 or 64)
+// swizzle mode field of a descriptor for SW-byte rows (128, 64 or 32)
 __host__ __device__ constexpr int desc_swizzle(int sw) {
-  return sw == 128 ? 1 : 2;
+  return sw == 128 ? 1 : sw == 64 ? 2 : 3;
 }
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -162,6 +179,36 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
 // lower column in the low half.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d (+)= A . B, A and B K-major in shared memory (descriptors a, b);
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d += A . B, A in registers (fragment a), B MN-major in shared memory
+  static __device__ __forceinline__ void rs_tb(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<32> {
@@ -296,7 +343,7 @@ inline EncodeTiledFn encode_tiled() {
 
 // A bf16 tensor (d0, d1, d2, d3), d0 contiguous, the other strides in
 // elements, read in boxes of (box0, box1, 1, 1) with the swizzle of
-// box0 * 2-byte rows (box0 = 64 or 32).  Returns 0 or a nonzero error.
+// box0 * 2-byte rows (box0 = 64, 32 or 16).  Returns 0 or a nonzero error.
 inline int make_map_bf16_4d(CUtensorMap* map, const void* ptr,
                             const int64_t dims[4], const int64_t strides[3],
                             int box0, int box1) {
@@ -308,7 +355,8 @@ inline int make_map_bf16_4d(CUtensorMap* map, const void* ptr,
   const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = box0 * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                                : CU_TENSOR_MAP_SWIZZLE_64B;
+                                 : box0 * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), gdim, gstride, box, estride,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz,

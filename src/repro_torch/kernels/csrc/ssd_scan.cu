@@ -17,44 +17,65 @@
 // SMs):
 //   1. chunk_state_kernel, grid (chunks, H, B): cum of the chunk (a warp
 //      scan), written out, and the chunk's own (P,N) contribution to the
-//      state at its end.
+//      state at its end.  CUDA cores, f32 sums, every dtype.
 //   2. state_pass_kernel, grid (P*N/256, H, B): one thread per state
 //      element walks the chunks in order, replacing each contribution by
 //      the state entering that chunk, and writes the final state.
-//   3. chunk_scan_kernel, grid (chunks * Q/64, H, B): 64 query rows of one
+//   3. each chunk's output, grid (chunks * Q/64, H, B): 64 query rows of one
 //      chunk and head.  The carried-state term, then the intra-chunk term
 //      over 64-row key tiles up to the diagonal (tiles above it are
-//      skipped), then D x.  The (Q,Q) matrix is never whole: at Q = 256 it
-//      would take 256 KB in f32, above a block's 227 KB of shared memory;
-//      one (64,64) tile of it lives in shared memory at a time.
+//      skipped), then D x.  The (Q,Q) matrix is never whole: one (64,64)
+//      tile of it at a time.  Two instances, chosen by the wrapper from
+//      shape and alignment before the launch:
+//       * chunk_scan_wgmma_kernel (bf16 x, Bm, Cm; P in {16, 32, 64}, N in
+//         {16, 32, 64, 128}, Q % 64 == 0, 16-byte aligned bases and
+//         strides): one warpgroup per block.  C's 64 rows, and per key
+//         tile B and x, arrive by TMA (4-D maps over the strided views,
+//         the swizzle of their rows, B and x in a ring of two slots on
+//         mbarriers).  The state entering the chunk is split in the block
+//         into bf16 S_hi = bf16(S) and S_lo = bf16(S - S_hi), K-major, and
+//         acc = C.S_hi^T + C.S_lo^T (wgmma m64nPk16, both operands K-major)
+//         is scaled per row by exp(cum[q]) (chunk 0 has no incoming state
+//         and skips it).  Per key tile G = C.B^T (wgmma m64n64k16), then in
+//         registers W = (s <= q) ? G exp(cum[q]-cum[s]) dt[s] : 0, split
+//         into hi and lo A fragments as flash attention splits p, and
+//         acc += W_hi.x + W_lo.x (x MN-major, the transpose bit).  The
+//         model passes every operand in bf16 but dt, the decays and the
+//         state: C.B^T of exact bf16 values has no error, folding dt into W
+//         keeps x exact, and hi + lo keeps W and the state to about 16
+//         significant bits (chip_smoke.py's ssd_split_gate holds it there).
+//       * chunk_scan_kernel (f32, and every other bf16 shape): CUDA cores,
+//         plain loads, 4x4 register tiles, f32 FMAs.
 // exp(cum[q]-cum[s]) above the diagonal overflows (cum reaches about -500
 // across a 256-chunk in the model), so it is selected away, never
 // multiplied by a 0/1 mask (inf * 0 = NaN).
 // x, Bm and Cm are read through their strides (the model passes slices of
-// its conv output, row stride d_inner + 2N); every sum is f32 on CUDA cores.
+// its conv output, row stride d_inner + 2N); dt and A are f32.
 //
 // What bounds it, at the model's shape (B=8, L=4096, H=24, P=64, N=128,
 // Q=256, bf16 x/B/C, on an H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 with
 // f32 sums, 67 TFLOP/s f32 without tensor cores): the bytes are x and y
 // 100.7 MB each, dt 3.1 MB, B and C 8.4 MB each, the state 6.3 MB: about
-// 228 MB, 68 us.  The least work is C.B^T's lower triangle once per
-// (b, chunk), 1.08 GFLOP of bf16 x bf16 products (1.1 us at the bf16
-// rate), and 37.9 GFLOP of products with an f32 operand: the intra-chunk
-// term's lower triangle per head (12.9), the carried-state term over the
-// 15 chunks whose incoming state is not zero (12.1) and each chunk's own
-// state (12.9), 0.566 ms at the f32 rate.  So the function is bound by
-// operations, at 0.567 ms, some eight times above the bytes bound.  The
-// Pallas kernel computes about 103 GFLOP (full (Q,Q) tiles, C.B^T per
-// head), this kernel about 74 GFLOP (C.B^T per head, lower-triangle tiles
-// only).  A later redesign would move the three products onto the tensor
-// cores (wgmma in bf16 with f32 sums, or TF32, at a tolerance that allows
-// it), compute C.B^T once per (b, chunk) for all heads, and feed the tiles
-// by TMA; it would then near the bytes bound.  This first kernel uses plain loads, 4x4 or 4x8
-// register tiles per thread, and CUDA-core FMAs.
+// 228 MB, 68 us.  The least work at this precision is C.B^T's lower
+// triangle once per (b, chunk), 1.08 GFLOP of bf16 products, and the three
+// products with an f32 operand, 37.9 GFLOP (the intra-chunk term's lower
+// triangle per head 12.9, the carried-state term over the 15 chunks whose
+// incoming state is not zero 12.1, each chunk's own state 12.9), each
+// twice as bf16 hi + lo: 76.9 GFLOP, 78 us at the bf16 rate.  So the
+// function is bound by operations, at 78 us, near its bytes.  (Counted at
+// the f32 rate, as before the tensor-core instance, the products with an
+// f32 operand would take 0.566 ms.)  Launch 1 still runs its product on
+// CUDA cores, and the chunk states (B,H,n,P,N) f32, 100.7 MB, go through
+// device memory between the launches.
+// The tensor-core instance computes C.B^T per head and visits the
+// diagonal tiles whole (10 of 16 tile pairs per (b, chunk, head) at
+// Q = 256): about 90 GFLOP.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -354,13 +375,349 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 3, bfloat16 on the tensor cores: chunk_scan_wgmma_kernel
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using hopper::Wgmma;
+
+constexpr int kRows = 64;      // query rows of a block; keys of a key tile
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;     // key tiles (B and x) in flight
+
+// bytes of a swizzled row for a width of n bf16 values (128 at most: a
+// wider tile is stored as 128-byte column blocks)
+__host__ __device__ constexpr int row_bytes(int n) {
+  return n * 2 < 128 ? n * 2 : 128;
+}
+__host__ __device__ constexpr uint32_t align1024(uint32_t b) {
+  return (b + 1023u) & ~1023u;
+}
+
+// Shared memory of one block: 1024 bytes of alignment slack; C's 64 query
+// rows; the carried state's bf16 hi and lo (P rows, N contiguous); a ring
+// of kStages slots of one B key tile and one x key tile; cum and dt of
+// the chunk; the barriers.
+template <int P, int N>
+struct Smem {
+  static constexpr uint32_t C = kRows * N * 2;
+  static constexpr uint32_t S = align1024(P * N * 2);
+  static constexpr uint32_t X = kRows * P * 2;
+  static constexpr uint32_t SLOT = C + X;
+  static __host__ __device__ constexpr size_t bytes(int Q) {
+    return 1024 + C + 2 * S + kStages * SLOT + (size_t)8 * Q +
+           8 * (1 + kStages);
+  }
+};
+
+// v = hi + lo with hi = bf16(v), lo = bf16(v - hi), for two values
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                 x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// grid (n_chunks * Q/64, H, B); block 128 threads, one warpgroup.  Maps:
+// x (P, L, H, B) in boxes of (P, 64); Bm and Cm (N, L, B, 1) in boxes of
+// (row_bytes(N)/2, 64).  cum (B,H,n_chunks,Q) and states
+// (B,H,n_chunks,P,N), the state entering each chunk, from kernels 1 and 2.
+template <int P, int N>
+__global__ void __launch_bounds__(kWgThreads) chunk_scan_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap cmap,
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+    const void* __restrict__ D, int d_bf16, const float* __restrict__ cum,
+    const float* __restrict__ states, __nv_bfloat16* __restrict__ y, int L,
+    int Q, int n_qtiles, int64_t x_sb, int64_t x_sl, int64_t x_sh,
+    int64_t dt_sb, int64_t dt_sl, int64_t dt_sh) {
+  using SM = Smem<P, N>;
+  constexpr int SWN = row_bytes(N), SWP = row_bytes(P);
+  constexpr int SWZN = hopper::desc_swizzle(SWN);
+  constexpr int SWZP = hopper::desc_swizzle(SWP);
+  constexpr int NBN = N * 2 / SWN;         // 128-byte column blocks of N
+  constexpr int KPA = SWN / 32;            // k16 steps in one column block
+  constexpr uint32_t BOX_N = kRows * SWN;  // one box of C or B
+  constexpr uint32_t S_BLOCK = P * SWN;    // one column block of the state
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* c_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* hi_s = c_s + SM::C;
+  uint8_t* lo_s = hi_s + SM::S;
+  uint8_t* ring = lo_s + SM::S;             // slot s: B, then x
+  float* cum_s = reinterpret_cast<float*>(ring + kStages * SM::SLOT);
+  float* dt_s = cum_s + Q;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(dt_s + Q);
+  uint64_t* full = c_full + 1;
+
+  const int c = blockIdx.x / n_qtiles;
+  const int qt = n_qtiles - 1 - blockIdx.x % n_qtiles;  // most tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x / n_qtiles, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = qt * kRows, n_kt = qt + 1;   // key tiles to the diagonal
+  const int l0 = c * Q;
+  const int64_t bhc = ((int64_t)b * H + h) * n_chunks + c;
+
+  // key tile j of B and x into slot j % kStages
+  const CUtensorMap* bm = &bmap;
+  const CUtensorMap* xm = &xmap;
+  auto load_tile = [=](int j) {
+    uint8_t* bs = ring + (j % kStages) * SM::SLOT;
+    uint64_t* bar = full + j % kStages;
+    hopper::mbar_expect_tx(bar, SM::SLOT);
+    for (int cb = 0; cb < NBN; ++cb)
+      hopper::tma_load_4d(bs + cb * BOX_N, bm, bar, cb * (SWN / 2),
+                          l0 + j * kRows, b, 0);
+    hopper::tma_load_4d(bs + SM::C, xm, bar, 0, l0 + j * kRows, h, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(c_full, 1);
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(full + s, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(c_full, SM::C);
+    for (int cb = 0; cb < NBN; ++cb)
+      hopper::tma_load_4d(c_s + cb * BOX_N, &cmap, c_full, cb * (SWN / 2),
+                          l0 + q0, b, 0);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_tile(j);
+  }
+
+  for (int i = tid; i < Q; i += kWgThreads) cum_s[i] = cum[bhc * Q + i];
+  const float* dtb = dt + b * dt_sb + h * dt_sh;
+  for (int i = tid; i < q0 + kRows; i += kWgThreads)
+    dt_s[i] = dtb[(int64_t)(l0 + i) * dt_sl];
+  // the state entering the chunk (zero in chunk 0), as bf16 hi and lo,
+  // K-major in the swizzled layout of B's rows
+  if (c > 0) {
+    const float4* st = reinterpret_cast<const float4*>(states + bhc * P * N);
+    for (int i = tid; i < P * N / 4; i += kWgThreads) {
+      const float4 v = st[i];
+      const int p = 4 * i / N, n = 4 * i % N;
+      const uint32_t off = (n * 2 / SWN) * S_BLOCK +
+                           hopper::swizzle(p * SWN + n * 2 % SWN, SWN);
+      uint2 hi, lo;
+      split2(v.x, v.y, hi.x, lo.x);
+      split2(v.z, v.w, hi.y, lo.y);
+      *reinterpret_cast<uint2*>(hi_s + off) = hi;
+      *reinterpret_cast<uint2*>(lo_s + off) = lo;
+    }
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  // this thread holds rows r_in and r_in + 8 of the tile, columns
+  // 8 j + cq and 8 j + cq + 1 of each 8
+  const int r_in = warp * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;
+  const uint32_t c_addr = hopper::smem_u32(c_s);
+  auto c_desc = [&](int kk) {
+    return hopper::make_desc(c_addr + (kk / KPA) * BOX_N + (kk % KPA) * 32,
+                             16, 8 * SWN, SWZN);
+  };
+  const float cum_q[2] = {cum_s[q0 + r_in], cum_s[q0 + r_in + 8]};
+
+  float acc[P / 2];
+#pragma unroll
+  for (int e = 0; e < P / 2; ++e) acc[e] = 0.f;
+  hopper::mbar_wait(c_full, 0);
+
+  // carried state: exp(cum[q]) * (C[q] . S_hi[p] + C[q] . S_lo[p])
+  if (c > 0) {
+    const uint32_t hi_addr = hopper::smem_u32(hi_s);
+    const uint32_t lo_addr = hopper::smem_u32(lo_s);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t so = (kk / KPA) * S_BLOCK + (kk % KPA) * 32;
+      Wgmma<P>::ss(acc, c_desc(kk),
+                   hopper::make_desc(hi_addr + so, 16, 8 * SWN, SWZN), 1);
+      Wgmma<P>::ss(acc, c_desc(kk),
+                   hopper::make_desc(lo_addr + so, 16, 8 * SWN, SWZN), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    const float e[2] = {expf(cum_q[0]), expf(cum_q[1])};
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) acc[i] *= e[(i / 2) % 2];
+  }
+
+  // intra-chunk, per key tile up to the diagonal
+  for (int j = 0; j < n_kt; ++j) {
+    const uint32_t b_addr =
+        hopper::smem_u32(ring + (j % kStages) * SM::SLOT);
+    const uint32_t x_addr = b_addr + SM::C;
+    hopper::mbar_wait(full + j % kStages, (j / kStages) & 1);
+
+    // G = C . B^T, both K-major
+    float g[kRows / 2];
+    hopper::fence_regs(g);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      Wgmma<kRows>::ss(
+          g, c_desc(kk),
+          hopper::make_desc(b_addr + (kk / KPA) * BOX_N + (kk % KPA) * 32, 16,
+                            8 * SWN, SWZN),
+          kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(g);
+
+    // W[q, s] = G exp(cum[q] - cum[s]) dt[s] where s <= q, else 0 (a
+    // select: above the diagonal the exp overflows, and inf * 0 is NaN),
+    // as bf16 hi and lo A fragments; keys [16 ks, 16 ks + 16) of the
+    // tile are g[8 ks .. 8 ks + 8)
+    const int s0 = j * kRows;
+    uint32_t w_hi[kRows / 16][4], w_lo[kRows / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kRows / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float w[2];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int e = 8 * ks + 2 * r + cc, i = r % 2;
+          const int key = s0 + (e / 4) * 8 + cq + cc;
+          const int q = q0 + r_in + 8 * i;
+          w[cc] = key <= q
+                      ? g[e] * expf(cum_q[i] - cum_s[key]) * dt_s[key]
+                      : 0.f;
+        }
+        split2(w[0], w[1], w_hi[ks][r], w_lo[ks][r]);
+      }
+
+    // acc += W_hi . x + W_lo . x, x MN-major (P contiguous)
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kRows / 16; ++ks) {
+      const uint64_t xd = hopper::make_desc(x_addr + ks * 16 * SWP,
+                                            kRows * SWP, 8 * SWP, SWZP);
+      Wgmma<P>::rs_tb(acc, w_hi[ks], xd);
+      Wgmma<P>::rs_tb(acc, w_lo[ks], xd);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < kRows / 16; ++ks) {
+      hopper::fence_regs(w_hi[ks]);
+      hopper::fence_regs(w_lo[ks]);
+    }
+    __syncthreads();      // every warp is done with the slot: refill it
+    if (tid == 0 && j + kStages < n_kt) load_tile(j + kStages);
+  }
+
+  // y = acc + D[h] x[q], two columns at a time
+  const float Dh = d_bf16 ? __bfloat162float(
+                                static_cast<const __nv_bfloat16*>(D)[h])
+                          : static_cast<const float*>(D)[h];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t l = l0 + q0 + r_in + 8 * i;
+    const __nv_bfloat16* xr = x + b * x_sb + l * x_sl + h * x_sh;
+    __nv_bfloat16* yr = y + (((int64_t)b * L + l) * H + h) * P;
+#pragma unroll
+    for (int cb = 0; cb < P / 8; ++cb) {
+      const int p = cb * 8 + cq;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xr + p));
+      *reinterpret_cast<__nv_bfloat162*>(yr + p) =
+          __floats2bfloat162_rn(acc[cb * 4 + 2 * i] + Dh * xv.x,
+                                acc[cb * 4 + 2 * i + 1] + Dh * xv.y);
+    }
+  }
+}
+
+template <int P, int N>
+int launch(const CUtensorMap maps[3], const void* x, const float* dt,
+           const void* D, int d_bf16, const float* cum, const float* states,
+           void* y, int B, int L, int H, int Q, int64_t x_sb, int64_t x_sl,
+           int64_t x_sh, int64_t dt_sb, int64_t dt_sl, int64_t dt_sh,
+           cudaStream_t st) {
+  auto kernel = chunk_scan_wgmma_kernel<P, N>;
+  const size_t smem = Smem<P, N>::bytes(Q);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qtiles = Q / kRows;
+  kernel<<<dim3((L / Q) * n_qtiles, H, B), kWgThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], static_cast<const __nv_bfloat16*>(x), dt, D,
+      d_bf16, cum, states, static_cast<__nv_bfloat16*>(y), L, Q, n_qtiles,
+      x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int dispatch_n(int N, const CUtensorMap maps[3], const void* x,
+               const float* dt, const void* D, int d_bf16, const float* cum,
+               const float* states, void* y, int B, int L, int H, int Q,
+               int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
+               int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
+  switch (N) {
+#define REPRO_SSD_WG_N(NN)                                                  \
+  case NN:                                                                  \
+    return launch<P, NN>(maps, x, dt, D, d_bf16, cum, states, y, B, L, H,   \
+                         Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, st);
+    REPRO_SSD_WG_N(16)
+    REPRO_SSD_WG_N(32)
+    REPRO_SSD_WG_N(64)
+    REPRO_SSD_WG_N(128)
+#undef REPRO_SSD_WG_N
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The third launch for bf16 on the tensor cores: P in {16, 32, 64}, N in
+// {16, 32, 64, 128}, Q % 64 == 0, x, Bm and Cm at 16-byte aligned bases
+// and strides (the wrapper decides this before any launch).
+int run(const void* x, const float* dt, const void* Bm, const void* Cm,
+        const void* D, int d_bf16, const float* cum, const float* states,
+        void* y, int B, int L, int H, int P, int N, int Q, int64_t x_sb,
+        int64_t x_sl, int64_t x_sh, int64_t dt_sb, int64_t dt_sl,
+        int64_t dt_sh, int64_t b_sb, int64_t b_sl, int64_t c_sb,
+        int64_t c_sl, cudaStream_t st) {
+  if (Q % kRows || (P != 16 && P != 32 && P != 64))
+    return (int)cudaErrorInvalidValue;
+  const int64_t xdims[4] = {P, L, H, B}, xs[3] = {x_sl, x_sh, x_sb};
+  const int64_t ndims[4] = {N, L, B, 1};
+  const int64_t bs[3] = {b_sl, b_sb, b_sb * B}, cs[3] = {c_sl, c_sb, c_sb * B};
+  CUtensorMap maps[3];
+  int rc = hopper::make_map_bf16_4d(&maps[0], x, xdims, xs, P, kRows);
+  if (!rc) rc = hopper::make_map_bf16_4d(&maps[1], Bm, ndims, bs,
+                                         row_bytes(N) / 2, kRows);
+  if (!rc) rc = hopper::make_map_bf16_4d(&maps[2], Cm, ndims, cs,
+                                         row_bytes(N) / 2, kRows);
+  if (rc) return rc;
+#define REPRO_SSD_WG_ARGS                                                   \
+  N, maps, x, dt, D, d_bf16, cum, states, y, B, L, H, Q, x_sb, x_sl, x_sh,  \
+      dt_sb, dt_sl, dt_sh, st
+  if (P == 16) return dispatch_n<16>(REPRO_SSD_WG_ARGS);
+  if (P == 32) return dispatch_n<32>(REPRO_SSD_WG_ARGS);
+  return dispatch_n<64>(REPRO_SSD_WG_ARGS);
+#undef REPRO_SSD_WG_ARGS
+}
+
+}  // namespace wg
+
 template <typename T, typename TD>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, const void* D, void* y, float* final_state,
            float* cum, float* states, int B, int L, int H, int P, int N,
            int Q, int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
            int64_t dt_sl, int64_t dt_sh, int64_t b_sb, int64_t b_sl,
-           int64_t c_sb, int64_t c_sl, cudaStream_t st) {
+           int64_t c_sb, int64_t c_sl, int tensor_core, cudaStream_t st) {
   const int n_chunks = L / Q;
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
@@ -379,6 +736,12 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
+  if (tensor_core) {
+    if (sizeof(T) != 2) return (int)cudaErrorInvalidValue;
+    return wg::run(x, dt, Bm, Cm, D, sizeof(TD) == 2, cum, states, y, B, L, H,
+                   P, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl,
+                   c_sb, c_sl, st);
+  }
   const int n_qtiles = (Q + kTile - 1) / kTile;
   const size_t smem3 =
       (size_t)(Q + 2 * kTile * (N + 1) + kTile * P + kTile * (kTile + 1)) * 4;
@@ -406,21 +769,27 @@ extern "C" {
 // strides (sb, sl, 1); D: (H,).  y: contiguous (B,L,H,P); final_state:
 // contiguous (B,H,P,N) f32; cum: f32 scratch (B,H,L/Q,Q); states: f32
 // scratch (B,H,L/Q,P,N).  L % Q == 0, P <= 64, N <= 128, Q <= 1024.
-// Returns cudaGetLastError() after the launches (0 on success).
+// tensor_core = 1 runs the third launch as chunk_scan_wgmma_kernel (bf16
+// only, at the shapes wg::run names), 0 as chunk_scan_kernel.
+// Returns cudaGetLastError() after the launches (0 on success), or 10000 +
+// the CUresult of cuTensorMapEncodeTiled where a TMA tensor map cannot be
+// encoded.
 int ssd_scan_launch(int x_dtype, int d_dtype, const void* x, const float* dt,
                     const float* A, const void* Bm, const void* Cm,
                     const void* D, void* y, float* final_state, float* cum,
                     float* states, int B, int L, int H, int P, int N, int Q,
                     int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
                     int64_t dt_sl, int64_t dt_sh, int64_t b_sb, int64_t b_sl,
-                    int64_t c_sb, int64_t c_sl, void* stream) {
+                    int64_t c_sb, int64_t c_sl, int tensor_core,
+                    void* stream) {
   if (P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxQ ||
       L % Q != 0 || B < 1 || B > 65535 || H < 1 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_SSD_ARGS                                                      \
   x, dt, A, Bm, Cm, D, y, final_state, cum, states, B, L, H, P, N, Q, x_sb, \
-      x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, c_sb, c_sl, st
+      x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, c_sb, c_sl, tensor_core, \
+      st
   if (x_dtype == 0 && d_dtype == 0)
     return launch<float, float>(REPRO_SSD_ARGS);
   if (x_dtype == 0 && d_dtype == 1)

@@ -18,7 +18,9 @@ of anything.  An int ``bk`` follows the reference: ``bk = min(bk, S)``,
 combined by log-sum-exp when there is more than one.  The kernel search
 domain (``kernels/bench.py``) searches exactly this ``bk``.
 
-On CPU tensors it runs :func:`decode_attention_plain` and counts that in
+The kernel has instances for the head dims in ``HEAD_DIMS``; on the card
+any other D raises.  On CPU tensors it runs :func:`decode_attention_plain`
+at any D and counts that in
 ``COUNT.plain``; on CUDA tensors it launches the kernel (``COUNT.launches``)
 or raises.
 """
@@ -34,7 +36,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # the kernel's, on the card
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
 
@@ -107,8 +109,6 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dimension of q, k and v must be contiguous")
     if B > 65535 or k.shape[1] > 65535:
@@ -146,11 +146,13 @@ def decode_attention(q, k, v, length, *, bk: Optional[int] = None
     if q.device.type == "cpu":
         COUNT.plain += 1
         return decode_attention_plain(q, k, v, length)
+    B, Hq, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
 
     lib = _library()
-    B, Hq, D = q.shape
     _, Hkv, S, _ = k.shape
     G = Hq // Hkv
     if lib.decode_attention_smem_bytes(D, G) > _MAX_SMEM:

@@ -6,8 +6,12 @@ hand-written CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``,
 built with ``nvcc`` at first use and bound with ``ctypes``.  The dtype
 alone picks one: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the tensor
 cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p)) in f32),
-float32 runs ``flash_fwd_kernel`` on CUDA cores.  A bfloat16 call that the
-tensor-core kernel cannot take raises; it never falls back.
+float32 runs ``flash_fwd_kernel`` on CUDA cores.  The kernels have head
+dims 32, 64, 128 and 256 (bfloat16 at 256 runs ``flash_fwd_kernel``, which
+has a bfloat16 instance there alone); any other D up to 256 is padded with
+zero columns to the next of them, scaled by ``1/sqrt(D)`` of the true D and
+sliced back, which leaves every score and output unchanged.  A bfloat16
+call that the tensor-core kernel cannot take raises; it never falls back.
 
 :func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
 k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
@@ -36,7 +40,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mha_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)   # the kernels' instances on the card
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
 _TMA_ALIGN = 16              # bytes: TMA base address and stride alignment
@@ -86,8 +90,6 @@ def _check(q, k, v, window: int, bq: int, bk: int):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if Sq < 1 or Sk < 1 or bq < 1 or bk < 1:
         raise ValueError(f"empty sequence or block: Sq={Sq}, Sk={Sk}, "
                          f"bq={bq}, bk={bk}")
@@ -127,6 +129,23 @@ def _check_wgmma(q, k, v, out) -> None:
                 f"strides {t.stride()} at address {t.data_ptr()}")
 
 
+def instance_dim(D: int) -> int:
+    """The head dim of the kernel instance that runs D on the card: D
+    itself or the next instance above it, its extra columns zero."""
+    for Dk in HEAD_DIMS:
+        if D <= Dk:
+            return Dk
+    raise ValueError(f"head dim {D} is above the kernels' largest, "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def _pad(t, Dk: int):
+    """t with its head dim zero-padded to Dk (a new contiguous tensor)."""
+    out = t.new_zeros(t.shape[:-1] + (Dk,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
 def _strides(t):
     """(sb, sh, ss) of a (B,H,S,D) tensor, a dimension of size 1 given the
     largest extent in elements, so every stride is a valid TMA stride."""
@@ -152,15 +171,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         COUNT.plain += 1
         return out.copy_(mha_ref(q, k, v, causal=causal, window=window))
+    Dk = instance_dim(q.shape[3])
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if Dk == q.shape[3]:
+        return _launch(q, k, v, out, causal, window, bq, bk)
+    padded = _launch(_pad(q, Dk), _pad(k, Dk), _pad(v, Dk),
+                     torch.empty(q.shape[:3] + (Dk,), dtype=q.dtype,
+                                 device=q.device),
+                     causal, window, bq, bk, scale=1.0 / math.sqrt(q.shape[3]))
+    return out.copy_(padded[..., :q.shape[3]])
 
-    tensor_core = q.dtype == torch.bfloat16
+
+def _launch(q, k, v, out, causal, window, bq, bk, scale=None):
+    """One launch at an instance's head dim; ``scale`` defaults to
+    ``1/sqrt(D)``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    tensor_core = q.dtype == torch.bfloat16 and D <= 128
     if tensor_core:
         _check_wgmma(q, k, v, out)
     lib = _library()
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
     smem = lib.flash_attention_smem_bytes(_DTYPE_CODE[q.dtype], D, bq, bk)
     if not 0 < smem <= _MAX_SMEM:
         raise ValueError(f"bq={bq}, bk={bk} at D={D} do not fit in shared "
@@ -172,8 +203,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         rc = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, Hq, Hq // Hkv, Sq, Sk, bq, bk,
-            int(bool(causal)), int(window), strides, 1.0 / math.sqrt(D),
-            stream)
+            int(bool(causal)), int(window), strides,
+            1.0 / math.sqrt(D) if scale is None else scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} (10000 + n: TMA tensor map encoding "

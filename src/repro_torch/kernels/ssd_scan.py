@@ -17,14 +17,23 @@ Where the Pallas kernel walks the chunks of one (b, h) in order, the CUDA
 kernel takes the chunked decomposition of the Mamba2 paper (arXiv
 2405.21060) in three launches: each chunk's cumulative decay and its own
 state contribution; the state passed from chunk to chunk; each chunk's
-output.  Its plain version is ``kernels.ref.ssd_ref``, the model layer's
-chunked reference (``models.ssm.ssd_reference``).
+output.  The third launch has two instances.  For bfloat16 x, Bm and Cm at
+the shapes :func:`uses_tensor_cores` names (the model's among them) it is
+``chunk_scan_wgmma_kernel`` on the tensor cores: C.B^T of exact bf16
+values, and the two products with an f32 operand (the decay-weighted
+W = (C.B^T) o L o dt, and the carried state) each as two bf16 products,
+``bf16(v)`` and ``bf16(v - bf16(v))``, into f32 sums.  Every other shape,
+and float32, runs ``chunk_scan_kernel`` on CUDA cores.  The choice is made
+from shape and alignment before the launch; a failed launch raises and
+never falls back.  Its plain version is ``kernels.ref.ssd_ref``, the model
+layer's chunked reference (``models.ssm.ssd_reference``).
 
-On CPU tensors the wrapper runs the plain version and counts that in
-``COUNT.plain``; on CUDA tensors it launches the kernel
-(``COUNT.launches``) or raises.  It raises when autograd would need its
-gradient: the reference cannot differentiate its kernel either, and the
-kernel has no backward yet.
+On CPU tensors the wrapper runs the plain version at any P, N and chunk,
+and counts that in ``COUNT.plain``; on CUDA tensors it launches the kernel
+(``COUNT.launches``; ``COUNT.wgmma`` counts those on the tensor cores) or
+raises.  It raises when autograd would need its gradient: the reference
+cannot differentiate its kernel either, and the kernel has no backward
+yet.
 """
 from __future__ import annotations
 
@@ -40,15 +49,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64        # P: one block's output tile is (64 rows, P)
 MAX_STATE = 128          # N: one (64, N) tile of C and of B in shared memory
 MAX_CHUNK = 1024         # Q: the chunk's cumulative decay in shared memory
+# the tensor-core instance: P and N whose bf16 rows are a TMA swizzle width
+# (32, 64 or 128 bytes; N = 128 as two 128-byte column blocks), whole
+# 64-row tiles, and TMA's 16-byte alignment
+WGMMA_HEAD_DIMS = (16, 32, 64)
+WGMMA_STATES = (16, 32, 64, 128)
+_TMA_ALIGN = 16
 
 
 @dataclasses.dataclass
 class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
+    wgmma: int = 0           # of them, with the tensor-core third launch
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
         self.launches = 0
+        self.wgmma = 0
         self.plain = 0
 
 
@@ -64,7 +81,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("ssd_scan")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.ssd_scan_launch.argtypes = (
-            [i, i] + [p] * 10 + [i] * 6 + [i64] * 10 + [p])
+            [i, i] + [p] * 10 + [i] * 6 + [i64] * 10 + [i, p])
         lib.ssd_scan_launch.restype = i
         _lib = lib
     return _lib
@@ -98,9 +115,6 @@ def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
     Q = min(chunk, L)
     if L % Q:
         raise ValueError(f"L={L} is not a multiple of chunk {Q}")
-    if Pd > MAX_HEAD_DIM or N > MAX_STATE or Q > MAX_CHUNK:
-        raise ValueError(f"P={Pd}, N={N}, Q={Q} exceed the kernel's "
-                         f"{MAX_HEAD_DIM}, {MAX_STATE}, {MAX_CHUNK}")
     if x.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 \
             or A.stride(0) != 1 or D.stride(0) != 1:
         raise ValueError("the last dimension of x, Bm, Cm, A and D must be "
@@ -117,6 +131,30 @@ def _check(x, dt, A, Bm, Cm, D, chunk: int) -> int:
     return Q
 
 
+def _strides(t):
+    """t's strides but the last, a dimension of size 1 given its largest
+    extent rounded up to 8 elements, so every stride is a valid TMA
+    stride (it is never used to address)."""
+    far = -(-max(st * n for st, n in zip(t.stride(), t.shape)) // 8) * 8
+    return [st if n > 1 else far for st, n in zip(t.stride()[:-1],
+                                                  t.shape[:-1])]
+
+
+def uses_tensor_cores(x, Bm, Cm, chunk: int) -> bool:
+    """Whether the third launch runs on the tensor cores for these inputs:
+    bfloat16, P in ``WGMMA_HEAD_DIMS``, N in ``WGMMA_STATES``, the chunk
+    ``Q = min(chunk, L)`` a multiple of 64, and the base addresses and the
+    strides of x, Bm and Cm multiples of 16 bytes (TMA reads them).  Decided
+    from shape and alignment alone, before any launch."""
+    Q = min(chunk, x.shape[1])
+    return (x.dtype == torch.bfloat16 and x.shape[3] in WGMMA_HEAD_DIMS
+            and Bm.shape[-1] in WGMMA_STATES and Q % 64 == 0
+            and all(t.data_ptr() % _TMA_ALIGN == 0
+                    and all(st * t.element_size() % _TMA_ALIGN == 0
+                            for st in _strides(t))
+                    for t in (x, Bm, Cm)))
+
+
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     """x: (B,L,H,P); dt: (B,L,H); A, D: (H,); Bm, Cm: (B,L,N)
     -> (y (B,L,H,P), final_state (B,H,P,N) f32)."""
@@ -124,12 +162,31 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     if x.device.type == "cpu":
         COUNT.plain += 1
         return ssd_ref(x, dt, A, Bm, Cm, D, chunk)
+    return _launch(x, dt, A, Bm, Cm, D, Q,
+                   uses_tensor_cores(x, Bm, Cm, chunk))
+
+
+def _ssd_scan_instance(x, dt, A, Bm, Cm, D, *, chunk: int, tensor_core: bool):
+    """:func:`ssd_scan` on the card with its third launch on the named
+    instance (a bfloat16 shape on CUDA cores, to time the two instances
+    side by side); raises where the tensor cores do not take the shape."""
+    Q = _check(x, dt, A, Bm, Cm, D, chunk)
+    if tensor_core and not uses_tensor_cores(x, Bm, Cm, chunk):
+        raise ValueError("the tensor-core instance does not take these "
+                         "inputs")
+    return _launch(x, dt, A, Bm, Cm, D, Q, tensor_core)
+
+
+def _launch(x, dt, A, Bm, Cm, D, Q: int, tensor_core: bool):
+    B_, L, H, Pd = x.shape
+    N = Bm.shape[-1]
+    if Pd > MAX_HEAD_DIM or N > MAX_STATE or Q > MAX_CHUNK:
+        raise ValueError(f"P={Pd}, N={N}, Q={Q} exceed the kernel's "
+                         f"{MAX_HEAD_DIM}, {MAX_STATE}, {MAX_CHUNK}")
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
 
     lib = _library()
-    B_, L, H, Pd = x.shape
-    N = Bm.shape[-1]
     n = L // Q
     dev = x.device
     y = torch.empty((B_, L, H, Pd), dtype=x.dtype, device=dev)
@@ -144,12 +201,12 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
             cum.data_ptr(), chunk_states.data_ptr(),
-            B_, L, H, Pd, N, Q,
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1), dt.stride(2),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-            stream)
+            B_, L, H, Pd, N, Q, *_strides(x), *dt.stride(),
+            *_strides(Bm), *_strides(Cm), int(tensor_core), stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc} "
+                           f"(10000 + n: TMA tensor map encoding failed with "
+                           f"CUresult n)")
     COUNT.launches += 1
+    COUNT.wgmma += bool(tensor_core)
     return y, state

@@ -75,9 +75,14 @@ SWEEP = [   # tests/test_kernels.py:17-25
     (1, 4, 4, 256, 64, False, 0, "float32"),     # bidirectional
     (1, 2, 2, 384, 64, True, 0, "float32"),      # non-pow2 seq
 ]
+# head dims outside the instances (on the card 48, 80 and 112 are
+# zero-padded to one, 256 has its own): hubert-xlarge, zamba2-7b, gemma-7b
+HEAD_DIM_SWEEP = [(1, 4, 2, 128, D, True, 0, dt) for D in (48, 80, 112, 256)
+                  for dt in ("float32", "bfloat16")]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,dt", SWEEP)
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,dt",
+                         SWEEP + HEAD_DIM_SWEEP)
 def test_flash_matches_pallas_interpret(B, Hq, Hkv, S, D, causal, window,
                                         dt):
     q, k, v = _inputs(B, Hq, Hkv, S, D, dt)
@@ -191,9 +196,10 @@ def test_kernel_source_keeps_the_reference_numerics():
     finite -1e30 and the output divides by max(l, 1e-30).  The bfloat16
     kernel adds p.v as p_hi.V + p_lo.V into one f32 accumulator, with
     p_hi = bf16(p) and p_lo = bf16(p - p_hi); the float32 kernel keeps p
-    f32 on CUDA cores, unchanged.  The dtype alone picks the kernel, with
-    no bfloat16 instance of the float32 one to fall back to, and the plain
-    version is ``mha_ref``."""
+    f32 on CUDA cores, unchanged.  The dtype and the head dim pick the
+    kernel: bfloat16 runs the CUDA-core kernel at D = 256 alone, where the
+    tensor-core kernel has no instance, so there is no bfloat16 fallback
+    to it; the plain version is ``mha_ref``."""
     src = CSRC.read_text()
     assert "constexpr float kNegInf = -1e30f;" in src
     assert "pallas_call at :93" in src
@@ -211,6 +217,8 @@ def test_kernel_source_keeps_the_reference_numerics():
     assert "fmaf(pv[r], vv[c], acc[r][c])" in src
     assert "if (dtype == 0)\n    return dispatch<float>(" in src
     assert "if (dtype == 1)\n    return wg::run(" in src
+    assert ("if (dtype == 1 && D == 256)\n"
+            "    return launch_d<__nv_bfloat16, 256>(") in src
     assert "dispatch<__nv_bfloat16>" not in src
     assert "mha_ref(q, k, v, causal=causal, window=window)" in \
         inspect.getsource(fa.flash_attention)
@@ -315,15 +323,39 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     elif bad == "Hq % Hkv":
         q = torch.zeros(1, 3, 96, 64)
     elif bad == "head_dim":
-        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+        # any D up to 256 runs (padded to an instance; on CPU tensors any
+        # D runs the plain version): one above the largest instance is
+        # refused where the kernel would run, here a meta tensor
+        q, k, v = (torch.zeros(t.shape[:3] + (300,), device="meta")
+                   for t in (q, k, v))
     elif bad == "stride":
         k = torch.zeros(1, 2, 64, 96).transpose(2, 3)
     elif bad == "window":
         kw["window"] = -1
     else:
         v = torch.zeros(1, 2, 95, 64)
-    with pytest.raises(exc):
+    with pytest.raises(exc, match="head dim" if bad == "head_dim" else None):
         ops.flash_attention(q, k, v, **kw)
+
+
+def test_instance_dim_is_the_next_instance():
+    """Padding goes to the smallest instance that holds D; zero columns
+    change no score (q.k sums over them add 0) and no kept output column."""
+    assert [fa.instance_dim(D) for D in (16, 32, 48, 64, 80, 112, 128, 200,
+                                          256)] == \
+        [32, 32, 64, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head dim"):
+        fa.instance_dim(257)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 64, 80,
+                                                    "float32", seed=5))
+    padded = mha_ref(*(fa._pad(t, 128) for t in (q, k, v)))
+    # mha_ref scales by 1/sqrt(128) on the padded inputs; the kernel is
+    # handed 1/sqrt(80), which equals scaling q by sqrt(128/80) first
+    scaled = mha_ref(fa._pad(q * (128 / 80) ** 0.5, 128), fa._pad(k, 128),
+                     fa._pad(v, 128))
+    assert torch.equal(padded[..., 80:], torch.zeros_like(padded[..., 80:]))
+    torch.testing.assert_close(scaled[..., :80], mha_ref(q, k, v),
+                               atol=1e-6, rtol=1e-6)
 
 
 def test_blocks_are_cut_to_the_sequence():

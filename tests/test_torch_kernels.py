@@ -71,6 +71,11 @@ def _one_torch_thread():
     (3, 8, 2, 512, 64, (5, 512, 130), "float32"),
     (3, 4, 4, 512, 16, (1, 0, 300), "bfloat16"),
     (2, 4, 2, 512, 64, 0, "float32"),
+    # hubert-xlarge's and zamba2-7b's head dims, instances on the card
+    (2, 8, 2, 512, 80, 300, "float32"),
+    (2, 8, 2, 512, 80, (1, 512), "bfloat16"),
+    (2, 8, 2, 512, 112, 300, "float32"),
+    (2, 8, 2, 512, 112, (1, 512), "bfloat16"),
 ])
 def test_plain_matches_pallas_interpret(B, Hq, Hkv, S, D, length, dt):
     q, k, v = _inputs(B, Hq, Hkv, S, D, dt)
@@ -167,12 +172,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     if bad == "dtype":
         q = q.half()
     elif bad == "head_dim":
-        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+        # on CPU tensors any D runs the plain version; the kernel has no
+        # D = 48 instance, so it is refused where the kernel would run,
+        # here a meta tensor
+        q, k, v = (t[..., :48].to("meta") for t in (q, k, v))
     elif bad == "stride":
         k = torch.zeros(2, 2, 64, 32).transpose(2, 3)
     else:
         q = torch.zeros(2, 3, 64)
-    with pytest.raises(exc):
+    with pytest.raises(exc, match="head dim" if bad == "head_dim" else None):
         ops.decode_attention(q, k, v, 4)
 
 
@@ -311,9 +319,12 @@ def _ssd_pair(B, L, H, P, N, chunk, dt, d_dt="float32", **kw):
     return (yj, sj), (yt, st)
 
 
-@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", SSD_SWEEP)
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt", SSD_SWEEP + [
+    (1, 128, 2, 80, 16, 64, "float32"),      # P above the CUDA kernel's 64
+    (1, 128, 2, 16, 160, 64, "float32")])    # N above its 128
 def test_ssd_plain_matches_pallas_interpret(B, L, H, P, N, chunk, dt):
-    """y at 5 x TOL, state at 1e-4, as tests/test_kernels.py:53-57."""
+    """y at 5 x TOL, state at 1e-4, as tests/test_kernels.py:53-57; on CPU
+    tensors at any P and N, as the Pallas kernel."""
     (yj, sj), (yt, st) = _ssd_pair(B, L, H, P, N, chunk, dt)
     np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
                                atol=5 * TOL[dt], rtol=5 * TOL[dt])
@@ -423,10 +434,15 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     elif bad == "stride":
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
     elif bad == "head dim":
-        x = torch.zeros(1, 64, 2, 80)
+        # CPU tensors run the plain version at any P and N; the kernel's
+        # limits hold where it would run, here on meta tensors
+        x, dtv, A, Bm, Cm, D = (t.to("meta") for t in (
+            torch.zeros(1, 64, 2, 80), dtv, A, Bm, Cm, D))
     else:
-        Bm = Cm = torch.zeros(1, 64, 136)
-    with pytest.raises(exc):
+        x, dtv, A, Bm, Cm, D = (t.to("meta") for t in (
+            x, dtv, A, torch.zeros(1, 64, 136), torch.zeros(1, 64, 136), D))
+    with pytest.raises(exc, match="exceed" if bad in ("head dim", "state")
+                       else None):
         ops.ssd(x, dtv, A, Bm, Cm, D, chunk=chunk)
 
 
@@ -450,6 +466,7 @@ def test_ssd_kernel_selects_the_upper_triangle():
     never multiplies by a 0/1 mask."""
     src = SSD_SRC.read_text()
     assert "keep ? g[i][j] * expf(cum_s[q] - cum_s[s]) : 0.f" in src
+    assert "? g[e] * expf(cum_q[i] - cum_s[key]) * dt_s[key]" in src
     assert "pallas_call at :80" in src
 
 
@@ -466,6 +483,8 @@ def test_ssd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dt):
     y, s = ops.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_mod.COUNT.launches == 1 and ssd_mod.COUNT.plain == 0
+    assert ssd_mod.COUNT.wgmma == ssd_mod.uses_tensor_cores(
+        args[0], args[3], args[4], chunk)
     yp, sp = ssd_ref(*args, chunk=chunk)
     torch.testing.assert_close(y.float(), yp.float(), atol=5 * TOL[dt],
                                rtol=5 * TOL[dt])
