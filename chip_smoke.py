@@ -10,7 +10,11 @@ from a seeded ``torch.Generator``, and checks that each path's kernel
 really ran there:
 
 * dense serving: ``BatchedServer(use_kernel=True)`` on ``qwen1.5-4b``
-  (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel;
+  (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel,
+  one launch a call: a profiled step must hold one per layer.  Before it
+  the kernel is timed at three readings (the main path's shape,
+  ``long_500k`` at zamba2-7b's widths, GQA ``decode_32k`` at
+  minitron-8b's) beside its bytes bound, SDPA and the plain version;
 * ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
   50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
   plain path, then ``BatchedServer`` serving requests on the same model;
@@ -69,14 +73,15 @@ from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SPIN_CYCLES = 2_000_000   # ~1 ms of the card's clock queued before each rep
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
 F32_FLASH_KERNEL = "flash_fwd_kernel"
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
 SSD_LAUNCHES = ("chunk_state_kernel", "state_pass_kernel",
                 SSD_WGMMA_KERNEL)                 # one ssd_scan call, bf16
 KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
-PORT_KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
-                     "chunk_state_kernel", "state_pass_kernel",
+DECODE_KERNEL = "decode_attention_kernel"        # one launch a call
+PORT_KERNEL_NAMES = (DECODE_KERNEL, "chunk_state_kernel", "state_pass_kernel",
                      "chunk_scan_kernel", SSD_WGMMA_KERNEL,
                      "flash_fwd_kernel",
                      "flash_fwd_wgmma_kernel")  # the __global__s of csrc/
@@ -119,7 +124,13 @@ def log(*a) -> None:
 
 def time_ms(fn, reps: int = 50) -> float:
     """Median device time of one call, L2 flushed before each (the model
-    streams ~200 MB of weights between two layers' attention calls)."""
+    streams ~200 MB of weights between two layers' attention calls).
+
+    Each rep's events and launches queue behind a spin of the card
+    (``SPIN_CYCLES``, after the flush), so the host has enqueued the
+    whole call before the start event runs and the pair reads device
+    time: without it a call of a few microseconds is timed as its
+    wrapper's host work whenever that outlasts the flush."""
     flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -127,11 +138,25 @@ def time_ms(fn, reps: int = 50) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Microseconds per call on the host clock over ``calls`` calls with
+    one synchronise at the end: the wrapper's host cost wherever the
+    device keeps up (a kernel shorter than it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -166,14 +191,26 @@ def check_decode_attention(main_lengths):
         ("D=112 (zamba2-7b)", 2, 8, 2, 300, 112, (300, 17),
          torch.float32),
         ("D=112 bf16", 2, 8, 2, 300, 112, (129, 1), torch.bfloat16),
+        ("G=8 near S", 2, 16, 2, 1000, 128, (999, 1000), torch.float32),
+        ("G=8 bf16 near S", 3, 64, 8, 4096, 128, (4095, 4096, 1),
+         torch.bfloat16),
+        ("G=5 (llama4-scout)", 2, 40, 8, 700, 128, (700, 333),
+         torch.bfloat16),
+        ("G=16, two head groups", 2, 32, 2, 500, 64, (499, 0),
+         torch.float32),
+        ("G=3 D=256", 2, 6, 2, 300, 256, (300, 1), torch.float32),
         ("main path", BATCH, 20, 20, MAX_SEQ, 128, main_lengths,
          torch.float32),
     ]
     errs = {}
     for i, (name, B, Hq, Hkv, S, D, lengths, dt) in enumerate(cases):
         q, k, v, ln = decode_inputs(B, Hq, Hkv, S, D, lengths, dt, seed=i)
+        da.COUNT.reset()
         out = da.decode_attention(q, k, v, ln)
         torch.cuda.synchronize()
+        if da.COUNT.launches != 1:
+            raise AssertionError(f"decode_attention took {da.COUNT.launches}"
+                                 f" launches at {name}")
         ref = da.decode_attention_plain(q, k, v, ln).float()
         err = (out.float() - ref).abs().max().item()
         log(f"decode_attention {name}: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
@@ -181,40 +218,109 @@ def check_decode_attention(main_lengths):
         if not torch.allclose(out.float(), ref, atol=TOL[dt], rtol=TOL[dt]):
             raise AssertionError(f"decode_attention disagrees at {name}")
         errs[name] = err
+    # rows 65 floats apart, not a multiple of 16 bytes: the element loads
+    q, k, v, ln = decode_inputs(2, 8, 2, 300, 64, (300, 17), torch.float32,
+                                seed=50)
+    pad = [torch.zeros(2, 2, 300, 65, device="cuda") for _ in range(2)]
+    for t, src in zip(pad, (k, v)):
+        t[..., :64] = src
+    out = da.decode_attention(q, pad[0][..., :64], pad[1][..., :64], ln)
+    ref = da.decode_attention_plain(q, k, v, ln)
+    log(f"decode_attention unaligned rows (stride 65): max_abs_err "
+        f"{(out - ref).abs().max().item():.3e}")
+    if not torch.allclose(out, ref, atol=TOL[torch.float32],
+                          rtol=TOL[torch.float32]):
+        raise AssertionError("decode_attention disagrees on unaligned rows")
     return errs["main path"]
 
 
+def decode_readings(main_lengths):
+    """The shapes decode_attention is timed at: name, B, Hq, Hkv, S, D,
+    dtype, per-slot lengths, reps of the kernel's timer."""
+    s32k = 32768
+    return [
+        # qwen1.5-4b serving: the server's f32 cache, the served lengths
+        ("main path", BATCH, 20, 20, MAX_SEQ, 128, torch.float32,
+         np.asarray(main_lengths), 50),
+        # long_500k (configs/base.py): zamba2-7b's shared attention, B = 1
+        ("long_500k", 1, 32, 32, 524288, 112, torch.float32,
+         np.array([524288]), 10),
+        # decode_32k: minitron-8b's GQA attention, its batch of 128 cut to
+        # 32 so the plain check fits beside the 4.3 GB cache
+        ("decode_32k GQA", 32, 32, 8, s32k, 128, torch.bfloat16,
+         np.random.default_rng(5).integers(1, s32k + 1, 32), 10),
+    ]
+
+
+def decode_bound(B, Hq, Hkv, S, D, dtype, lengths):
+    """(bytes, flops) one call needs: K and V rows below each length (all
+    S where it is 0) read once, q read and out written once; q.k and
+    p.v at 2 flops an element for each of the G heads."""
+    ln = np.asarray(lengths)
+    n_read = int(np.where(ln <= 0, S, np.minimum(ln, S)).sum())
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (2 * n_read * Hkv * D * elem + 2 * B * Hq * D * elem + B * 4)
+    return nbytes, 4 * n_read * Hq * D
+
+
 def measure_decode_attention(main_lengths):
-    """Times at the main path's shape: kernel, plain version, and SDPA
-    (the library yardstick; the port never calls it)."""
-    B, H, S, D, dt = BATCH, 20, MAX_SEQ, 128, torch.float32
-    q, k, v, ln = decode_inputs(B, H, H, S, D, main_lengths, dt, seed=99)
-    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])
-    mask = mask[:, None, None, :]                         # (B, 1, 1, S)
+    """Each reading of ``decode_readings``: the kernel's device time with
+    the L2 flushed, its bytes bound at 3.35 TB/s and achieved GB/s, the
+    plain version's and SDPA's times (the library yardstick, boolean
+    mask, ``enable_gqa`` where G > 1; the port never calls it), the
+    wrapper's host cost at the main shape, and the kernel and
+    ``decode_split_ref`` against the plain version at TOL."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_out = sdpa(q[:, :, None], k, v, attn_mask=mask)[:, :, 0]
-    ref = da.decode_attention_plain(q, k, v, ln)
-    if not torch.allclose(sdpa_out, ref, atol=1e-4, rtol=1e-4):
-        raise AssertionError("SDPA yardstick computes another function")
-    ms = time_ms(lambda: da.decode_attention(q, k, v, ln))
-    plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, ln))
-    library_ms = time_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask))
-    n_read = int(np.minimum(np.asarray(main_lengths), S).sum())
-    elem = torch.finfo(dt).bits // 8
-    nbytes = (q.numel() * elem                      # q
-              + 2 * n_read * H * D * elem           # K and V rows < length
-              + B * 4                               # length
-              + q.numel() * elem)                   # out
-    ops = 4 * n_read * H * D                        # q.k and p.v, G = 1
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS[dt] * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"decode_attention main path: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({nbytes} bytes at 3.35 TB/s; {ops} flops)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    rows = []
+    for i, (name, B, Hq, Hkv, S, D, dt, lengths, reps) in enumerate(
+            decode_readings(main_lengths)):
+        q, k, v, ln = decode_inputs(B, Hq, Hkv, S, D, lengths, dt,
+                                    seed=99 + i)
+        out = da.decode_attention(q, k, v, ln)
+        ref = da.decode_attention_plain(q, k, v, ln)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), atol=TOL[dt],
+                              rtol=TOL[dt]):
+            raise AssertionError(f"decode_attention disagrees at {name}")
+        split = da.decode_split_ref(q, k, v, ln, da.plan_for(q, k).keys)
+        split_err = (split.float() - ref.float()).abs().max().item()
+        if not torch.allclose(split.float(), ref.float(), atol=TOL[dt],
+                              rtol=TOL[dt]):
+            raise AssertionError(f"decode_split_ref disagrees at {name}")
+        mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])
+        mask = mask[:, None, None, :]                     # (B, 1, 1, S)
+        gqa = dict(enable_gqa=True) if Hq != Hkv else {}
+        lib = lambda: sdpa(q[:, :, None], k, v, attn_mask=mask, **gqa)
+        lib_tol = 1e-4 if dt == torch.float32 else 4 * TOL[dt]
+        if not torch.allclose(lib()[:, :, 0].float(), ref.float(),
+                              atol=lib_tol, rtol=lib_tol):
+            raise AssertionError("SDPA yardstick computes another function")
+        del out, ref, split
+        ms = time_ms(lambda: da.decode_attention(q, k, v, ln), reps=reps)
+        plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, ln),
+                           reps=min(reps, 10))
+        library_ms = time_ms(lib, reps=min(reps, 10))
+        nbytes, flops = decode_bound(B, Hq, Hkv, S, D, dt, lengths)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_OPS[dt] * 1e3
+        row = dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   gb_per_s=nbytes / ms * 1e-6, max_abs_err=err)
+        if i == 0:
+            row["host_us"] = host_us(lambda: da.decode_attention(q, k, v, ln))
+        log(f"decode_attention {name}: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+            f"{str(dt)[6:]}, {nbytes} bytes: kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.1f} GB/s, {bytes_ms / ms:.1%} of 3.35 TB/s)"
+            f", bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; max_abs_err "
+            f"{err:.3e}, decode_split_ref {split_err:.3e} (tol {TOL[dt]:g} "
+            f"abs+rel)" + (f"; wrapper {row['host_us']:.2f} us/call on the "
+                           f"host" if "host_us" in row else ""))
+        rows.append(row)
+        del q, k, v, ln, mask, lib
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_inputs(B, L, H, P, N, dtype, seed, *, d_dtype=torch.float32,
@@ -906,13 +1012,24 @@ def teacher_forced_check(model, server):
 
 def profile_steps(model, server, n=3):
     """Device time by kernel over a few decode steps of the server's
-    path (with the kernel where the server uses it)."""
+    path (with the kernel where the server uses it); on the kernel path
+    exactly one decode kernel per layer a step."""
     tok = torch.zeros((server.B, 1), dtype=torch.long, device="cuda")
     pos = torch.full((server.B,), 100, dtype=torch.int32, device="cuda")
     opts = ModelOpts(use_kernel=server.use_kernel)
-    profile_window(lambda: model.decode_step(
+    rows = profile_window(lambda: model.decode_step(
         server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
         n, "step")
+    if not (server.use_kernel and rows):
+        return
+    decode = [(ms, count) for ms, key, count in rows if DECODE_KERNEL in key]
+    per_step = sum(c for _, c in decode) / n
+    log(f"  {DECODE_KERNEL}: {per_step:g} a step ({model.cfg.n_layers} "
+        f"layers), {sum(ms for ms, _ in decode) / n:.4f} ms of device time a "
+        f"step")
+    if per_step != model.cfg.n_layers:
+        raise AssertionError("the step did not run one decode kernel per "
+                             "layer")
 
 
 def profile_window(fn, n, unit):
@@ -1238,7 +1355,9 @@ def main() -> None:
     main_lengths = np.random.default_rng(3).integers(
         PROMPT_LEN[0], PROMPT_LEN[1] + NEW_TOKENS + 1, BATCH)
     err = check_decode_attention(main_lengths)
-    timing = measure_decode_attention(main_lengths)
+    readings = measure_decode_attention(main_lengths)
+    timing = {key: readings[0][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
 
     check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel")
     ssd_err = check_ssd_scan()
@@ -1270,7 +1389,8 @@ def main() -> None:
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
-        launches=launches, max_abs_err=err, **timing), dict(
+        launches=launches, max_abs_err=err, **timing,
+        readings=readings[1:]), dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",

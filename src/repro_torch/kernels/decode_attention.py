@@ -3,7 +3,8 @@
 Port of the Pallas TPU kernel ``repro/kernels/decode_attention.py:59``
 (``decode_attention``; body ``_kernel`` at ``:23``).  The kernel is
 hand-written CUDA C++ for ``sm_90a`` in ``csrc/decode_attention.cu``,
-built with ``nvcc`` at first use and bound with ``ctypes``.
+built with ``nvcc`` at first use and bound with ``ctypes``: one launch a
+call, its combine included.
 
 :func:`decode_attention` takes the reference's layout: q ``(B,Hq,D)``,
 k and v ``(B,Hkv,S,D)``, ``length`` a scalar or ``(B,)``; it returns
@@ -11,25 +12,27 @@ k and v ``(B,Hkv,S,D)``, ``length`` a scalar or ``(B,)``; it returns
 dimension is contiguous, such as ``cache.transpose(1, 2)`` of the model's
 ``(B,S,Hkv,D)`` cache, so the model passes its cache without a copy.
 
-``bk=None`` (the serving path) lets the wrapper cut the KV sequence into
-splits from the card's SM count, and then ``S`` need not be a multiple
-of anything.  An int ``bk`` follows the reference: ``bk = min(bk, S)``,
-``S % bk == 0`` or ``ValueError``, and each split covers ``bk`` keys,
-combined by log-sum-exp when there is more than one.  The kernel search
+The keys of each (b, kv head) are cut into ranges of a key budget, one
+block each; blocks past a slot's length return at once (:func:`plan`).
+``bk=None`` (the serving path) lets the wrapper choose the budget from
+the card's SM count, and then ``S`` need not be a multiple of anything.
+An int ``bk`` follows the reference: ``bk = min(bk, S)``, ``S % bk == 0``
+or ``ValueError``, and each range covers ``bk`` keys.  The kernel search
 domain (``kernels/bench.py``) searches exactly this ``bk``.
+:func:`decode_split_ref` is that partition in plain torch.
 
 The kernel has instances for the head dims in ``HEAD_DIMS``; on the card
 any other D raises.  On CPU tensors it runs :func:`decode_attention_plain`
-at any D and counts that in
-``COUNT.plain``; on CUDA tensors it launches the kernel (``COUNT.launches``)
-or raises.
+at any D and counts that in ``COUNT.plain``; on CUDA tensors it launches
+the kernel (``COUNT.launches``) or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import math
-from typing import Optional
+import numbers
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,8 +40,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # the kernel's, on the card
+MAX_HEADS = 8          # query heads one block holds; more run in groups
+WAVES = 4              # block waves a full-length cache fills
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
+_LOG2E = 1.4426950408889634
 
 
 @dataclasses.dataclass
@@ -79,6 +84,85 @@ def decode_attention_plain(q, k, v, length) -> torch.Tensor:
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_split_ref(q, k, v, length, keys: int) -> torch.Tensor:
+    """The kernel's partition in plain torch, for tests and the chip
+    check (never on the main path): ranges of ``keys`` keys; a range at or
+    past ``n = min(length, S)`` (all S where ``length <= 0``) does not run;
+    each range that runs takes its own softmax in base 2 (scores scaled
+    by log2(e) / sqrt(D), as the kernel's q is), and the ranges are
+    merged by log-sum-exp and divided by ``max(l, 1e-30)``."""
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = k.shape
+    G = Hq // Hkv
+    ln = _lengths(length, B, q.device).long()
+    n = torch.where(ln <= 0, S, ln.clamp(max=S))                 # (B,)
+    qg = q.float().reshape(B, Hkv, G, D) * (_LOG2E / math.sqrt(D))
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
+    s = torch.where((ln <= 0)[:, None, None, None], NEG_INF, s)
+    kpos = torch.arange(S, device=q.device)
+    ms, ls, accs, runs = [], [], [], []
+    for lo in range(0, S, keys):
+        hi = min(S, lo + keys)
+        keep = (kpos[lo:hi][None, :] < n[:, None])[:, None, None, :]
+        sr = torch.where(keep, s[..., lo:hi], -math.inf)
+        run = (lo < n)[:, None, None]                            # (B,1,1)
+        m = torch.where(run, sr.amax(dim=-1), 0.0)               # (B,Hkv,G)
+        p = torch.exp2(sr - m[..., None])
+        ms.append(torch.where(run, m, -math.inf))
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgs,bhsd->bhgd", p, v[:, :, lo:hi].float()))
+        runs.append(run)
+    m = torch.stack(ms)                                          # (R,B,Hkv,G)
+    w = torch.where(torch.stack(runs), torch.exp2(m - m.amax(dim=0)), 0.0)
+    L = (torch.stack(ls) * w).sum(dim=0)
+    A = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    return (A / L.clamp_min(1e-30)[..., None]).reshape(B, Hq, D).to(q.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: ``ranges`` ranges of ``keys`` keys per (b, kv head),
+    blocks of ``heads`` query heads (the instance), ``groups`` of them per
+    kv head; the grid is (ranges, Hkv * groups, B)."""
+    keys: int
+    ranges: int
+    heads: int
+    groups: int
+    grid: Tuple[int, int, int]
+    part_floats: int     # f32 partials (m, l, acc) of every range; 0 if one
+    counters: int        # int32 counters, one per (b, kv head, group)
+
+
+def _heads(G: int) -> int:
+    """The instance for G query heads per kv head: 1, 2, 4 or 8 heads a
+    block."""
+    return MAX_HEADS if G > MAX_HEADS else 1 << (G - 1).bit_length()
+
+
+def plan(B: int, Hkv: int, G: int, S: int, D: int, *,
+         bk: Optional[int] = None, sms: int, round_keys: int,
+         resident: int) -> Plan:
+    """The launch of one call.  ``bk`` (already checked by ``_block``) is
+    the key budget as it is; else the budget is cut so that a full-length
+    cache fills ``WAVES`` waves of ``sms`` SMs holding ``resident`` blocks
+    each, in multiples of ``round_keys`` (the keys one block round
+    reads)."""
+    heads = _heads(G)
+    groups = -(-G // heads)
+    if bk is None:
+        ranges = max(1, WAVES * sms * resident // (B * Hkv * groups))
+        keys = -(-S // ranges)
+        keys = -(-keys // round_keys) * round_keys
+    else:
+        keys = bk
+    ranges = -(-S // keys)
+    return Plan(keys=keys, ranges=ranges, heads=heads, groups=groups,
+                grid=(ranges, Hkv * groups, B),
+                part_floats=B * Hkv * ranges * G * (D + 2) if ranges > 1
+                else 0,
+                counters=B * Hkv * groups)
+
+
 _lib = None
 
 
@@ -88,14 +172,85 @@ def _library() -> ctypes.CDLL:
         lib = build.load("decode_attention")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.decode_attention_launch.argtypes = (
-            [i, i] + [p] * 8 + [i] * 6 + [i64] * 8 + [ctypes.c_float, p])
+            [i, i, i] + [p] * 4 + [i] + [p] * 3 + [i] * 8 + [i64] * 8
+            + [ctypes.c_float, p])
         lib.decode_attention_launch.restype = i
-        lib.decode_attention_tile_keys.argtypes = [i]
-        lib.decode_attention_tile_keys.restype = i
-        lib.decode_attention_smem_bytes.argtypes = [i, i]
-        lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.decode_attention_info.argtypes = [i, i, i, i]
+        lib.decode_attention_info.restype = i
         _lib = lib
     return _lib
+
+
+class _Device:
+    """What one card's launches reuse: its SM count, each instance's
+    round keys and resident blocks, and per stream the partials' scratch
+    and the counters (zero between launches)."""
+
+    def __init__(self, device: torch.device):
+        self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+        self.instances: Dict[tuple, Tuple[int, int]] = {}
+        self.scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def plan(self, code, B, Hkv, G, S, D, bk) -> Plan:
+        heads = _heads(G)
+        inst = self.instances.get((code, D, heads))
+        if inst is None:
+            lib = _library()
+            inst = (lib.decode_attention_info(code, D, heads, 0),
+                    lib.decode_attention_info(code, D, heads, 1))
+            if min(inst) < 1:
+                raise RuntimeError(f"decode_attention: no instance for "
+                                   f"D={D}, {heads} heads ({inst})")
+            self.instances[(code, D, heads)] = inst
+        return plan(B, Hkv, G, S, D, bk=bk, sms=self.sms,
+                    round_keys=inst[0], resident=inst[1])
+
+    def buffers(self, stream: int, pl: Plan, device) -> Tuple[int, int]:
+        part, counter = self.scratch.get(stream, (None, None))
+        if part is None or part.numel() < pl.part_floats:
+            part = torch.empty(max(pl.part_floats, 1), dtype=torch.float32,
+                               device=device)
+        if counter is None or counter.numel() < pl.counters:
+            counter = torch.zeros(pl.counters, dtype=torch.int32,
+                                  device=device)
+        self.scratch[stream] = (part, counter)
+        return part.data_ptr(), counter.data_ptr()
+
+
+_devices: Dict[int, _Device] = {}
+
+
+def _device(device: torch.device) -> _Device:
+    st = _devices.get(device.index)
+    if st is None:
+        st = _devices[device.index] = _Device(device)
+    return st
+
+
+def plan_for(q, k, bk: Optional[int] = None) -> Plan:
+    """The plan of a call on these CUDA tensors."""
+    _, Hkv, S, D = k.shape
+    return _device(q.device).plan(_DTYPE_CODE[q.dtype], q.shape[0], Hkv,
+                                  q.shape[1] // Hkv, S, D, _block(bk, S))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Call:
+    """What the shapes, strides, dtypes and devices of a call fix: its
+    plan and the launch arguments that do not change between calls."""
+    device: torch.device
+    state: _Device
+    plan: Plan
+    out_shape: Tuple[int, int, int]
+    dtype: torch.dtype
+    code: int
+    dims: Tuple[int, ...]        # B, Hkv, G, groups, S, keys, ranges
+    strides: Tuple[int, ...]     # q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss
+    strides_aligned: bool        # every row stride a multiple of 16 bytes
+    scale_log2: float
+
+
+_calls: Dict[tuple, _Call] = {}
 
 
 def _check(q, k, v) -> None:
@@ -115,11 +270,13 @@ def _check(q, k, v) -> None:
         raise ValueError("batch and kv heads must each be below 65536")
 
 
-def _n_split(B: int, Hkv: int, S: int, tile: int, device) -> int:
-    """KV chunks per (b, kv head): enough blocks for two per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_tiles = -(-S // tile)
-    return max(1, min(n_tiles, -(-2 * sms // (B * Hkv))))
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of ``t`` is 16 bytes from the next along each dimension
+    that has more than one (its 16-byte loads stay aligned wherever its
+    base is)."""
+    e = t.element_size()
+    return all(st * e % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+               if n > 1)
 
 
 def _block(bk: Optional[int], S: int) -> Optional[int]:
@@ -134,58 +291,71 @@ def _block(bk: Optional[int], S: int) -> Optional[int]:
     return bk
 
 
+def _prepare(q, k, v, bk: Optional[int]) -> Optional[_Call]:
+    """Checks a call's shapes, dtypes and devices and plans its launch;
+    ``None`` for CPU tensors (the plain version's)."""
+    _check(q, k, v)
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = k.shape
+    bk = _block(bk, S)
+    device = q.device
+    if k.device != device or v.device != device:
+        raise ValueError(f"q, k, v on different devices: "
+                         f"{ {q.device, k.device, v.device} }")
+    if device.type == "cpu":
+        return None
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    G, code, state = Hq // Hkv, _DTYPE_CODE[q.dtype], _device(device)
+    pl = state.plan(code, B, Hkv, G, S, D, bk)
+    return _Call(
+        device=device, state=state, plan=pl, out_shape=(B, Hq, D),
+        dtype=q.dtype, code=code,
+        dims=(B, Hkv, G, pl.groups, S, pl.keys, pl.ranges),
+        strides=(*q.stride()[:2], *k.stride()[:3], *v.stride()[:3]),
+        strides_aligned=_rows_aligned(k) and _rows_aligned(v),
+        scale_log2=_LOG2E / math.sqrt(D))
+
+
 def decode_attention(q, k, v, length, *, bk: Optional[int] = None
                      ) -> torch.Tensor:
     """q: (B,Hq,D); k,v: (B,Hkv,S,D); attends positions < length -> (B,Hq,D).
-    ``bk``: keys per KV split, or ``None`` for a split by the SM count."""
-    _check(q, k, v)
-    bk = _block(bk, k.shape[2])
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {devices}")
-    if q.device.type == "cpu":
-        COUNT.plain += 1
-        return decode_attention_plain(q, k, v, length)
-    B, Hq, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-
-    lib = _library()
-    _, Hkv, S, _ = k.shape
-    G = Hq // Hkv
-    if lib.decode_attention_smem_bytes(D, G) > _MAX_SMEM:
-        raise ValueError(f"G={G} query heads per kv head at D={D} do not fit "
-                         "in shared memory")
-    if bk is None:
-        tile = lib.decode_attention_tile_keys(D)
-        n_split = _n_split(B, Hkv, S, tile, q.device)
-        chunk = -(-S // (n_split * tile)) * tile
+    ``bk``: keys per range, or ``None`` for the budget the card's SM count
+    gives."""
+    sig = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(),
+           k.dtype, k.device, v.shape, v.stride(), v.dtype, v.device, bk)
+    c = _calls.get(sig)
+    if c is None:
+        c = _prepare(q, k, v, bk)
+        if c is None:
+            COUNT.plain += 1
+            return decode_attention_plain(q, k, v, length)
+        _calls[sig] = c
+    device = c.device
+    if torch.cuda.current_device() != device.index:
+        with torch.cuda.device(device):
+            return decode_attention(q, k, v, length, bk=bk)
+    B, S = c.dims[0], c.dims[4]
+    if isinstance(length, numbers.Integral):
+        ln, length_all = None, max(0, min(int(length), S))
     else:
-        chunk = bk
-    n_split = -(-S // chunk)
-    ln = _lengths(length, B, q.device)
-    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    if n_split > 1:
-        part_m = torch.empty((B, Hkv, n_split, G), dtype=torch.float32,
-                             device=q.device)
-        part_l = torch.empty_like(part_m)
-        part_acc = torch.empty((B, Hkv, n_split, G, D), dtype=torch.float32,
-                               device=q.device)
-        parts = (part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr())
-    else:
-        parts = (None, None, None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.decode_attention_launch(
-            _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), ln.data_ptr(), out.data_ptr(), *parts,
-            B, Hkv, G, S, chunk, n_split,
-            q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            1.0 / math.sqrt(D), stream)
+        ln, length_all = length, 0
+        if not (isinstance(ln, torch.Tensor) and ln.dtype == torch.int32
+                and ln.shape == (B,) and ln.device == device
+                and ln.is_contiguous()):
+            ln = _lengths(length, B, device)
+    out = torch.empty(c.out_shape, dtype=c.dtype, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    part, counter = c.state.buffers(stream, c.plan, device)
+    kp, vp = k.data_ptr(), v.data_ptr()
+    rc = _library().decode_attention_launch(
+        c.code, c.out_shape[2], c.plan.heads, q.data_ptr(), kp, vp,
+        None if ln is None else ln.data_ptr(), length_all,
+        out.data_ptr(), part, counter, *c.dims,
+        int(c.strides_aligned and (kp | vp) % 16 == 0), *c.strides,
+        c.scale_log2, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -8,6 +8,7 @@ inputs.  The CUDA kernels themselves are held against the plain versions
 by the ``cuda`` tests, which skip without a card, and by ``chip_smoke.py``.
 """
 import inspect
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -130,12 +131,17 @@ def test_neg_inf_is_finite_and_length_zero_is_mean_of_v():
 
 
 def test_output_divides_by_guarded_sum():
-    """(c) acc / max(l, 1e-30), in the plain version and in both CUDA
-    kernels (split and combine)."""
+    """(c) acc / max(l, 1e-30), in the plain version, the partition's
+    emulation and the CUDA kernel.  In the kernel the output's one store
+    divides by the guarded sum (``write_out``), and both paths that write
+    the output call it: a single working range, and the last block's
+    combine of the ranges."""
     assert "clamp_min(1e-30)" in inspect.getsource(da.decode_attention_plain)
+    assert "clamp_min(1e-30)" in inspect.getsource(da.decode_split_ref)
     src = CSRC.read_text()
-    assert "acc_s[i] / fmaxf(l_s[g], 1e-30f)" in src
-    assert "O / fmaxf(L, 1e-30f)" in src
+    stores = re.findall(r"\bstore\((?!float\*|__nv_bfloat16\*)[^;]*;", src)
+    assert stores == ["store(o, acc / fmaxf(l, 1e-30f));"]
+    assert src.count("write_out(out + ") == 2
 
 
 @pytest.mark.parametrize("S,length", [(300, 257), (77, 77), (130, 0)])
@@ -205,6 +211,10 @@ def test_mha_ref_matches_reference_oracle():
     (1, 16, 2, 1024, 64, 17, "float32"),
     (3, 8, 2, 300, 16, (0, 5, 300), "float32"),
     (8, 20, 20, 512, 128, (40, 90, 17, 64, 8, 96, 33, 71), "float32"),
+    # G = 8 (llama-3.2-vision's), and lengths at and near S
+    (2, 16, 2, 1000, 128, (999, 1000), "float32"),
+    (3, 64, 8, 4096, 128, (4095, 4096, 1), "bfloat16"),
+    (2, 40, 8, 700, 112, (699, 700), "float32"),
 ])
 def test_kernel_matches_plain_on_card(B, Hq, Hkv, S, D, length, dt):
     if not torch.cuda.is_available():
