@@ -201,6 +201,9 @@ def check_decode_attention(main_lengths):
         ("G=3 D=256", 2, 6, 2, 300, 256, (300, 1), torch.float32),
         ("main path", BATCH, 20, 20, MAX_SEQ, 128, main_lengths,
          torch.float32),
+        # the small shapes of tests/test_torch_decode_split.py's planner test
+        ("G=5 ragged S=77", 3, 10, 2, 77, 64, (77, 30, 0), torch.float32),
+        ("G=16 S=300", 2, 32, 2, 300, 64, (300, 129), torch.bfloat16),
     ]
     errs = {}
     for i, (name, B, Hq, Hkv, S, D, lengths, dt) in enumerate(cases):
@@ -231,6 +234,16 @@ def check_decode_attention(main_lengths):
     if not torch.allclose(out, ref, atol=TOL[torch.float32],
                           rtol=TOL[torch.float32]):
         raise AssertionError("decode_attention disagrees on unaligned rows")
+    # a scalar length stands for every slot, as in the reference
+    for length in (150, 0, 1000):
+        out = da.decode_attention(q, k, v, length)
+        ref = da.decode_attention_plain(q, k, v, length)
+        log(f"decode_attention scalar length {length}: max_abs_err "
+            f"{(out - ref).abs().max().item():.3e}")
+        if not torch.allclose(out, ref, atol=TOL[torch.float32],
+                              rtol=TOL[torch.float32]):
+            raise AssertionError(f"decode_attention disagrees at scalar "
+                                 f"length {length}")
     return errs["main path"]
 
 
@@ -1350,6 +1363,15 @@ def main() -> None:
         for line in text.splitlines():    # wgmma serialised, setmaxnreg
             if "Performance Loss" in line or "setmaxnreg" in line:
                 log(f"    {line.strip()[:160]}")
+        if name == "decode_attention":    # its instances must not spill
+            reports = re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            spilled = [r for r in reports if r != ("0", "0")]
+            if not reports or spilled:
+                raise AssertionError(
+                    f"decode_attention: ptxas reports spills (stores, "
+                    f"loads) {spilled} in {len(regs)} kernels" if reports
+                    else "decode_attention: ptxas gave no spill report")
 
     # lengths of the served run: prompt 8-64 plus up to 32 new tokens
     main_lengths = np.random.default_rng(3).integers(

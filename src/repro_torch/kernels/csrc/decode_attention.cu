@@ -101,11 +101,10 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const int* length;   // (B,) int32, or null: every slot has length_all
+  const int* length;   // (B,) int32
   void* out;           // contiguous (B, Hkv * G, D), q's dtype
   float* part;         // partials: acc (B,Hkv,R,G,D), then m and l (B,Hkv,R,G)
   int* counter;        // (B, Hkv * groups) int32, zero between launches
-  int length_all;
   int S, G, keys, groups, aligned;
   int64_t q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float scale_log2;    // log2(e) / sqrt(D)
@@ -207,7 +206,7 @@ __global__ void __launch_bounds__(Cfg<T, D, MG>::kThreads)
   const int R = gridDim.x, Hkv = gridDim.y / p.groups;
   const int h = hg / p.groups, g0 = (hg % p.groups) * MG;
   const int gn = min(MG, p.G - g0);                // heads of this block
-  const int len = p.length ? p.length[b] : p.length_all;
+  const int len = p.length[b];
   const bool uniform = len <= 0;       // reference: mean of v over all S
   const int n = uniform ? p.S : min(len, p.S);
   const int start = r * p.keys;
@@ -472,15 +471,15 @@ int decode_attention_info(int dtype, int D, int MG, int what) {
 // query heads a block holds (1, 2, 4 or 8), `groups` = ceil(G / MG).
 // q: (B, Hkv*G, D) with strides (q_sb, q_sh, 1); k, v: (B, Hkv, S, D) with
 // strides (sb, sh, ss, 1); out: contiguous (B, Hkv*G, D); length: (B,)
-// int32, or null for `length_all` in every slot.  `ranges` ranges of
-// `keys` keys per (b, kv head); for ranges > 1, part: f32 scratch of
-// B*Hkv*ranges*G*(D+2) floats, counter: B*Hkv*groups int32 that are 0.
+// int32.  `ranges` ranges of `keys` keys per (b, kv head); for ranges > 1,
+// part: f32 scratch of B*Hkv*ranges*G*(D+2) floats, counter: B*Hkv*groups
+// int32 that are 0.
 // Returns cudaGetLastError() after the launch (0 on success).
 int decode_attention_launch(int dtype, int D, int MG, const void* q,
                             const void* k, const void* v, const int* length,
-                            int length_all, void* out, float* part,
-                            int* counter, int B, int Hkv, int G, int groups,
-                            int S, int keys, int ranges, int aligned,
+                            void* out, float* part, int* counter, int B,
+                            int Hkv, int G, int groups, int S, int keys,
+                            int ranges, int aligned,
                             int64_t q_sb, int64_t q_sh, int64_t k_sb,
                             int64_t k_sh, int64_t k_ss, int64_t v_sb,
                             int64_t v_sh, int64_t v_ss, float scale_log2,
@@ -493,7 +492,6 @@ int decode_attention_launch(int dtype, int D, int MG, const void* q,
   p.out = out;
   p.part = part;
   p.counter = counter;
-  p.length_all = length_all;
   p.S = S;
   p.G = G;
   p.keys = keys;

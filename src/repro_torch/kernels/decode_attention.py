@@ -31,7 +31,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-import numbers
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -172,8 +171,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("decode_attention")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.decode_attention_launch.argtypes = (
-            [i, i, i] + [p] * 4 + [i] + [p] * 3 + [i] * 8 + [i64] * 8
-            + [ctypes.c_float, p])
+            [i, i, i] + [p] * 7 + [i] * 8 + [i64] * 8 + [ctypes.c_float, p])
         lib.decode_attention_launch.restype = i
         lib.decode_attention_info.argtypes = [i, i, i, i]
         lib.decode_attention_info.restype = i
@@ -229,28 +227,7 @@ def _device(device: torch.device) -> _Device:
 
 def plan_for(q, k, bk: Optional[int] = None) -> Plan:
     """The plan of a call on these CUDA tensors."""
-    _, Hkv, S, D = k.shape
-    return _device(q.device).plan(_DTYPE_CODE[q.dtype], q.shape[0], Hkv,
-                                  q.shape[1] // Hkv, S, D, _block(bk, S))
-
-
-@dataclasses.dataclass(frozen=True)
-class _Call:
-    """What the shapes, strides, dtypes and devices of a call fix: its
-    plan and the launch arguments that do not change between calls."""
-    device: torch.device
-    state: _Device
-    plan: Plan
-    out_shape: Tuple[int, int, int]
-    dtype: torch.dtype
-    code: int
-    dims: Tuple[int, ...]        # B, Hkv, G, groups, S, keys, ranges
-    strides: Tuple[int, ...]     # q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss
-    strides_aligned: bool        # every row stride a multiple of 16 bytes
-    scale_log2: float
-
-
-_calls: Dict[tuple, _Call] = {}
+    return _prepare(q, k, k, bk)[1]
 
 
 def _check(q, k, v) -> None:
@@ -291,7 +268,7 @@ def _block(bk: Optional[int], S: int) -> Optional[int]:
     return bk
 
 
-def _prepare(q, k, v, bk: Optional[int]) -> Optional[_Call]:
+def _prepare(q, k, v, bk: Optional[int]) -> Optional[Tuple[_Device, Plan]]:
     """Checks a call's shapes, dtypes and devices and plans its launch;
     ``None`` for CPU tensors (the plain version's)."""
     _check(q, k, v)
@@ -308,15 +285,31 @@ def _prepare(q, k, v, bk: Optional[int]) -> Optional[_Call]:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    G, code, state = Hq // Hkv, _DTYPE_CODE[q.dtype], _device(device)
-    pl = state.plan(code, B, Hkv, G, S, D, bk)
-    return _Call(
-        device=device, state=state, plan=pl, out_shape=(B, Hq, D),
-        dtype=q.dtype, code=code,
-        dims=(B, Hkv, G, pl.groups, S, pl.keys, pl.ranges),
-        strides=(*q.stride()[:2], *k.stride()[:3], *v.stride()[:3]),
-        strides_aligned=_rows_aligned(k) and _rows_aligned(v),
-        scale_log2=_LOG2E / math.sqrt(D))
+    state = _device(device)
+    return state, state.plan(_DTYPE_CODE[q.dtype], B, Hkv, Hq // Hkv, S, D,
+                             bk)
+
+
+def _launch(q, k, v, length, state: _Device, pl: Plan) -> torch.Tensor:
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = k.shape
+    device = q.device
+    ln = _lengths(length, B, device)
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    part, counter = state.buffers(stream, pl, device)
+    kp, vp = k.data_ptr(), v.data_ptr()
+    aligned = _rows_aligned(k) and _rows_aligned(v) and (kp | vp) % 16 == 0
+    rc = _library().decode_attention_launch(
+        _DTYPE_CODE[q.dtype], D, pl.heads, q.data_ptr(), kp, vp,
+        ln.data_ptr(), out.data_ptr(), part, counter, B, Hkv, Hq // Hkv,
+        pl.groups, S, pl.keys, pl.ranges, int(aligned), *q.stride()[:2],
+        *k.stride()[:3], *v.stride()[:3], _LOG2E / math.sqrt(D), stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    COUNT.launches += 1
+    return out
 
 
 def decode_attention(q, k, v, length, *, bk: Optional[int] = None
@@ -324,40 +317,11 @@ def decode_attention(q, k, v, length, *, bk: Optional[int] = None
     """q: (B,Hq,D); k,v: (B,Hkv,S,D); attends positions < length -> (B,Hq,D).
     ``bk``: keys per range, or ``None`` for the budget the card's SM count
     gives."""
-    sig = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(),
-           k.dtype, k.device, v.shape, v.stride(), v.dtype, v.device, bk)
-    c = _calls.get(sig)
-    if c is None:
-        c = _prepare(q, k, v, bk)
-        if c is None:
-            COUNT.plain += 1
-            return decode_attention_plain(q, k, v, length)
-        _calls[sig] = c
-    device = c.device
-    if torch.cuda.current_device() != device.index:
-        with torch.cuda.device(device):
-            return decode_attention(q, k, v, length, bk=bk)
-    B, S = c.dims[0], c.dims[4]
-    if isinstance(length, numbers.Integral):
-        ln, length_all = None, max(0, min(int(length), S))
-    else:
-        ln, length_all = length, 0
-        if not (isinstance(ln, torch.Tensor) and ln.dtype == torch.int32
-                and ln.shape == (B,) and ln.device == device
-                and ln.is_contiguous()):
-            ln = _lengths(length, B, device)
-    out = torch.empty(c.out_shape, dtype=c.dtype, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    part, counter = c.state.buffers(stream, c.plan, device)
-    kp, vp = k.data_ptr(), v.data_ptr()
-    rc = _library().decode_attention_launch(
-        c.code, c.out_shape[2], c.plan.heads, q.data_ptr(), kp, vp,
-        None if ln is None else ln.data_ptr(), length_all,
-        out.data_ptr(), part, counter, *c.dims,
-        int(c.strides_aligned and (kp | vp) % 16 == 0), *c.strides,
-        c.scale_log2, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    COUNT.launches += 1
-    return out
+    prepared = _prepare(q, k, v, bk)
+    if prepared is None:
+        COUNT.plain += 1
+        return decode_attention_plain(q, k, v, length)
+    if torch.cuda.current_device() != q.device.index:
+        with torch.cuda.device(q.device):
+            return _launch(q, k, v, length, *prepared)
+    return _launch(q, k, v, length, *prepared)

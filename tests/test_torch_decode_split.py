@@ -96,18 +96,18 @@ def test_plan_takes_an_explicit_bk_as_the_key_budget():
 ])
 def test_plan_grid_covers_s_and_sizes_the_scratch(B, Hkv, G, S, D):
     """The grid's ranges cover S in whole ranges of K keys (a multiple of
-    the round), its y covers every head group, and the scratch holds
-    each range's (m, l, acc) for every head and one counter per block
-    column."""
+    the round), its y covers every head group, there is one counter per
+    block column, and partials only where ranges are merged.  That the
+    scratch fits the kernel's indexing is held on the card, at these
+    shapes, by ``chip_smoke.py``."""
     pl = da.plan(B, Hkv, G, S, D, sms=132, round_keys=64, resident=2)
     assert pl.keys % 64 == 0
     assert (pl.ranges - 1) * pl.keys < S <= pl.ranges * pl.keys
     assert pl.heads in (1, 2, 4, 8) and pl.heads * pl.groups >= G
     assert (pl.groups - 1) * pl.heads < G
     assert pl.grid == (pl.ranges, Hkv * pl.groups, B)
-    assert pl.counters == B * Hkv * pl.groups
-    want = B * Hkv * pl.ranges * G * (D + 2) if pl.ranges > 1 else 0
-    assert pl.part_floats == want
+    assert pl.counters == pl.grid[1] * pl.grid[2]
+    assert (pl.part_floats > 0) == (pl.ranges > 1)
     # a full-length cache fills at most WAVES waves of the card, or one
     # range per (b, kv head, group) where those alone exceed them
     blocks = pl.ranges * Hkv * pl.groups * B
