@@ -22,7 +22,12 @@ really ran there:
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
   block size the domain offers (``flash_attention`` in float32, on its
-  CUDA-core kernel);
+  tensor-core kernel ``flash_fwd_tf32_kernel``: every launch of the search
+  must be one of it).  That kernel's SASS must hold tf32 ``HGMMA``
+  instructions, and its output must pass a 3xTF32 gate against
+  ``mha_ref`` at every block of both presets and at the qwen1.5-4b
+  prefill shape in float32, which its two controls (one tf32 product;
+  bf16 hi + lo, both emulated by ``flash_tf32x3_ref``) fail;
 * bf16 prefill attention: ``ops.mha`` at two full-width shapes (qwen1.5-4b;
   a gemma3-27b local layer) on the tensor-core ``flash_attention`` kernel,
   whose SASS must hold ``HGMMA`` instructions and which must be the only
@@ -73,9 +78,11 @@ from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_OPS = 495e12                                   # tensor cores, dense
 SPIN_CYCLES = 2_000_000   # ~1 ms of the card's clock queued before each rep
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
-F32_FLASH_KERNEL = "flash_fwd_kernel"
+TF32_KERNEL = "flash_fwd_tf32_kernel"             # f32 flash attention
+F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores: D = 256, unaligned f32
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
 SSD_LAUNCHES = ("chunk_state_kernel", "state_pass_kernel",
                 SSD_WGMMA_KERNEL)                 # one ssd_scan call, bf16
@@ -83,8 +90,8 @@ KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 DECODE_KERNEL = "decode_attention_kernel"        # one launch a call
 PORT_KERNEL_NAMES = (DECODE_KERNEL, "chunk_state_kernel", "state_pass_kernel",
                      "chunk_scan_kernel", SSD_WGMMA_KERNEL,
-                     "flash_fwd_kernel",
-                     "flash_fwd_wgmma_kernel")  # the __global__s of csrc/
+                     "flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+                     "flash_fwd_tf32_kernel")  # the __global__s of csrc/
 
 ARCH = "qwen1.5-4b"
 BATCH, MAX_SEQ = 8, 512
@@ -108,6 +115,10 @@ FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
 # the split-p gate at those shapes, bf16 outputs against mha_ref: the
 # largest abs error (atol only) and the share of outputs that differ
 SPLIT_MAX_ABS, SPLIT_DIFF_SHARE = 8e-3, 0.02
+# the 3xTF32 gate, f32 outputs against f32 mha_ref: the largest abs error.
+# Emulated (flash_tf32x3_ref): 3xTF32 0.7-2.5e-6; bf16 hi + lo 1.0-2.5e-5;
+# one tf32 product ~1e-3.
+TF32_GATE = 8e-6
 # the ssd split gate: the share of bf16 y values that differ from ssd_ref's.
 # W and the state as bf16 hi + lo differ in ~0.2 % (float64 emulation at
 # the model's widths); either kept to bf16 alone, in 19-33 %.
@@ -596,10 +607,19 @@ def flash_inputs(B, Hq, Hkv, Sq, D, dtype, seed, Sk=None):
     return randn(B, Hq, Sq, D), randn(B, Hkv, Sk, D), randn(B, Hkv, Sk, D)
 
 
-def _flash_compare(name, q, k, v, causal, window, bq, bk):
+def _flash_compare(name, q, k, v, causal, window, bq, bk, kernel=None):
+    """One call against ``mha_ref``; it must be one launch of ``kernel``
+    (default: the dtype's tensor-core kernel)."""
+    if kernel is None:
+        kernel = TF32_KERNEL if q.dtype == torch.float32 else WGMMA_KERNEL
+    fa.COUNT.reset()
     out = fa.flash_attention(q, k, v, causal=causal, window=window, bq=bq,
                              bk=bk)
     torch.cuda.synchronize()
+    counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32)
+    if counts != (1, int(kernel == WGMMA_KERNEL), int(kernel == TF32_KERNEL)):
+        raise AssertionError(f"flash_attention {name}: (launches, wgmma, "
+                             f"tf32) {counts}, not one launch of {kernel}")
     ref = mha_ref(q, k, v, causal=causal, window=window).float()
     dt = q.dtype
     err = (out.float() - ref).abs().max().item()
@@ -612,15 +632,16 @@ def _flash_compare(name, q, k, v, causal, window, bq, bk):
 
 
 def check_flash_attention():
-    """Kernel vs plain (``mha_ref``) on the card, in float32 (the CUDA-core
-    kernel) and in bfloat16 (the tensor-core kernel): the sweep of
-    tests/test_kernels.py:17-25, every (bq, bk) of both presets of the
-    kernel search domain (D = 32 and 64), D = 128 at small and at 256-row
-    tiles, q tiles that are not whole warpgroups, MQA, a window, rows
-    with every key masked (Sq > Sk with a window: the mean of v), bf16 at
-    bk outside the domain's widths and at q tiles of many passes, head
-    dims padded to an instance (48, 80, 112) and the D = 256 instance,
-    and the window = Sk == causal property."""
+    """Kernel vs plain (``mha_ref``) on the card, in float32 and in
+    bfloat16 (each on its tensor-core kernel, every call counted): the
+    sweep of tests/test_kernels.py:17-25, every (bq, bk) of both presets
+    of the kernel search domain (D = 32 and 64), D = 128 at small and at
+    256-row tiles, q tiles that are not whole warpgroups, MQA, a window,
+    rows with every key masked (Sq > Sk with a window: the mean of v), bk
+    outside the domain's widths and q tiles of many passes, head dims
+    padded to an instance (48, 80, 112) and the D = 256 instance (CUDA
+    cores in both dtypes), float32 that TMA cannot read (CUDA cores), and
+    the window = Sk == causal property."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
         (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
@@ -656,45 +677,60 @@ def check_flash_attention():
             if not torch.allclose(out[:, :, 95:].float(), mean, atol=tol):
                 raise AssertionError("a row with every key masked is not the "
                                      "mean of v")
-    q, k, v = flash_inputs(1, 4, 2, 512, 128, bf16, seed=72)
-    for bq, bk in ((256, 256), (64, 64), (32, 128), (128, 32)):
-        _flash_compare("D=128", q, k, v, True, 0, bq, bk)
-    q, k, v = flash_inputs(1, 4, 2, 384, 64, bf16, seed=75)
-    for bq, bk in ((96, 128), (48, 64), (192, 32)):
-        _flash_compare("bq not a multiple of 64", q, k, v, True, 0, bq, bk)
-    # bf16 at any bk = min(bk, Sk) (a piece padded past its tile, a tile
-    # walked in pieces) and a q tile of many passes (q loaded per pass)
-    for i, (Hq, Hkv, Sq, Sk, D, window, bq, bk) in enumerate((
-            (2, 1, 48, 48, 64, 0, 128, 128), (2, 1, 16, 16, 32, 0, 128, 128),
-            (4, 2, 96, 96, 128, 0, 32, 48), (4, 2, 200, 100, 64, 40, 40, 100),
-            (2, 1, 1024, 1024, 128, 0, 128, 512),
-            (2, 1, 4096, 4096, 128, 0, 1024, 128))):
-        q, k, v = flash_inputs(1, Hq, Hkv, Sq, D, bf16, seed=76 + i, Sk=Sk)
+    for dt in (f32, bf16):
+        q, k, v = flash_inputs(1, 4, 2, 512, 128, dt, seed=72)
+        for bq, bk in ((256, 256), (64, 64), (32, 128), (128, 32)):
+            _flash_compare("D=128", q, k, v, True, 0, bq, bk)
+        q, k, v = flash_inputs(1, 4, 2, 384, 64, dt, seed=75)
+        for bq, bk in ((96, 128), (48, 64), (192, 32)):
+            _flash_compare("bq not a multiple of 64", q, k, v, True, 0, bq,
+                           bk)
+    # any bk = min(bk, Sk) (a piece padded past its tile, a tile walked in
+    # pieces) and a q tile of many passes (q loaded per pass)
+    for i, (Hq, Hkv, Sq, Sk, D, window, bq, bk, dt) in enumerate(
+            (Hq, Hkv, Sq, Sk, D, window, bq, bk, dt) for dt in (bf16, f32)
+            for (Hq, Hkv, Sq, Sk, D, window, bq, bk) in (
+                (2, 1, 48, 48, 64, 0, 128, 128),
+                (2, 1, 16, 16, 32, 0, 128, 128),
+                (4, 2, 96, 96, 128, 0, 32, 48),
+                (4, 2, 200, 100, 64, 40, 40, 100),
+                (2, 1, 1024, 1024, 128, 0, 128, 512),
+                (2, 1, 4096, 4096, 128, 0, 1024, 128))):
+        q, k, v = flash_inputs(1, Hq, Hkv, Sq, D, dt, seed=76 + i, Sk=Sk)
         out = _flash_compare("any bk, any bq", q, k, v, True, window, bq, bk)
         if Sq > Sk:     # rows Sk + window - 1 .. keep no key: the mean of v
             dead = Sk + window - 1
             mean = v.float().mean(dim=2).repeat_interleave(Hq // Hkv, dim=1)
             if not torch.allclose(out[:, :, dead:].float(), mean[:, :, None]
                                   .expand_as(out[:, :, dead:]),
-                                  atol=TOL[bf16]):
+                                  atol=TOL[dt]):
                 raise AssertionError("a row with every key masked is not "
                                      "the mean of v over Sk keys")
     # head dims outside the instances: zero-padded to the next one (48 ->
-    # 64, 80 and 112 -> 128: bf16 on the tensor cores), and the D = 256
-    # instance (CUDA cores in both dtypes); each one launch
+    # 64, 80 and 112 -> 128: the tensor cores in both dtypes), and the
+    # D = 256 instance (CUDA cores in both dtypes); each one launch
     for i, (D, dt) in enumerate((
             (48, f32), (48, bf16), (80, f32), (80, bf16), (112, f32),
             (112, bf16), (256, f32), (256, bf16))):
         q, k, v = flash_inputs(1, 4, 2, 256, D, dt, seed=90 + i)
+        kernel = (F32_FLASH_KERNEL if D > 128 else
+                  TF32_KERNEL if dt == f32 else WGMMA_KERNEL)
         for bq, bk in ((128, 128), (64, 32)):
-            fa.COUNT.reset()
             _flash_compare(f"D={D} (instance {fa.instance_dim(D)})", q, k, v,
-                           True, 0, bq, bk)
-            want = (1, int(dt == bf16 and D <= 128))
-            if (fa.COUNT.launches, fa.COUNT.wgmma) != want:
-                raise AssertionError(f"flash_attention at D={D}: (launches, "
-                                     f"wgmma) {fa.COUNT.launches, fa.COUNT.wgmma}"
-                                     f", not {want}")
+                           True, 0, bq, bk, kernel)
+    # float32 that TMA cannot read (k's and v's rows 65 floats apart, q 4
+    # bytes past an aligned address): the CUDA-core kernel
+    q, k, v = flash_inputs(1, 4, 2, 256, 64, f32, seed=98)
+    wide = [torch.zeros(1, 2, 256, 65, device="cuda") for _ in range(2)]
+    for t, src in zip(wide, (k, v)):
+        t[..., :64] = src
+    shifted = torch.zeros(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    for bq, bk in ((128, 128), (64, 32)):
+        _flash_compare("f32 rows 65 floats apart", q, wide[0][..., :64],
+                       wide[1][..., :64], True, 0, bq, bk, F32_FLASH_KERNEL)
+        _flash_compare("f32 q base not 16-byte aligned", shifted, k, v, True,
+                       0, bq, bk, F32_FLASH_KERNEL)
     q, k, v = flash_inputs(2, 4, 2, 256, 64, f32, seed=73)
     a = fa.flash_attention(q, k, v, causal=True, window=0)
     b = fa.flash_attention(q, k, v, causal=True, window=256)
@@ -705,11 +741,11 @@ def check_flash_attention():
         raise AssertionError("window = Sk differs from causal")
 
 
-def check_wgmma_sass(source, kernel, other):
+def check_wgmma_sass(source, kernel, other, operand):
     """The tensor-core kernel's SASS, from ``cuobjdump -sass`` of the built
     library of ``source``: every instance of ``kernel`` must hold HGMMA
-    (wgmma) instructions.  ``other`` names its CUDA-core sibling, whose
-    count is printed beside."""
+    (wgmma) instructions on ``operand`` inputs (``BF16`` or ``TF32``), and
+    ``other``, its CUDA-core sibling, none."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
                           capture_output=True, text=True, check=True,
@@ -719,16 +755,21 @@ def check_wgmma_sass(source, kernel, other):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
+            counts[name] = [0, 0]
         elif name is not None and "HGMMA" in line:
-            counts[name] += 1
+            counts[name][0] += 1
+            counts[name][1] += bool(re.search(r"HGMMA\.\S*" + operand, line))
     wg = {n: c for n, c in counts.items() if kernel in n}
+    sib = sum(c[0] for n, c in counts.items() if other in n)
+    typed = [c[1] for c in wg.values()]
     log(f"SASS of {source}: {len(wg)} instances of {kernel}, HGMMA "
-        f"instructions {min(wg.values(), default=0)}-"
-        f"{max(wg.values(), default=0)} each; {other}: "
-        f"{sum(c for n, c in counts.items() if other in n and kernel not in n)}")
-    if not wg or min(wg.values()) == 0:
-        raise AssertionError(f"{kernel} has no HGMMA instruction")
+        f"instructions on {operand} {min(typed, default=0)}-"
+        f"{max(typed, default=0)} each; {other}: {sib}")
+    if not wg or min(typed) == 0:
+        raise AssertionError(f"an instance of {kernel} has no HGMMA "
+                             f"instruction on {operand}")
+    if sib:
+        raise AssertionError(f"{other} holds HGMMA instructions")
 
 
 def _pairs(S, window):
@@ -737,9 +778,9 @@ def _pairs(S, window):
     return int((np.minimum(qpos + 1, window) if window else qpos + 1).sum())
 
 
-def flash_full_inputs(B, S, Hq, Hkv, D):
+def flash_full_inputs(B, S, Hq, Hkv, D, dtype=torch.bfloat16):
     g = torch.Generator("cuda").manual_seed(80)
-    return tuple(torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+    return tuple(torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
                  for H in (Hq, Hkv, Hkv))
 
 
@@ -874,39 +915,130 @@ def measure_flash_attention():
     return out[0], launches
 
 
+def tf32_gate(name, out, ref, q, k, v, *, causal=True, window=0, bq=128,
+              bk=128):
+    """The 3xTF32 gate: ``out`` (``flash_fwd_tf32_kernel``'s) within
+    TF32_GATE of f32 ``mha_ref`` (``ref``, same layout), and the two
+    controls of ``flash_tf32x3_ref`` (one tf32 product; bf16 hi + lo) on
+    the (B,H,S,D) inputs q, k, v outside it.  Returns the kernel's
+    error."""
+    err = (out - ref).abs().max().item()
+    if out.shape != ref.shape:
+        raise AssertionError("the gate compares outputs of one layout")
+    line = [f"{TF32_KERNEL} {err:.3e}"]
+    for split in fa.SPLITS:
+        emu = fa.flash_tf32x3_ref(q, k, v, causal=causal, window=window,
+                                  bq=bq, bk=bk, split=split)
+        if emu.shape != ref.shape:
+            emu = emu.transpose(1, 2)
+        e = (emu - ref).abs().max().item()
+        line.append(f"emulated {split} {e:.3e}")
+        if split != "tf32x3" and e <= TF32_GATE:
+            raise AssertionError(f"the 3xTF32 gate passes the {split} "
+                                 "control")
+        del emu
+    log(f"flash_attention {name}: 3xTF32 gate (max abs err vs mha_ref <= "
+        f"{TF32_GATE:g}): {'; '.join(line)}")
+    if err > TF32_GATE:
+        raise AssertionError(f"{TF32_KERNEL} fails the 3xTF32 gate at {name}")
+    return err
+
+
+def tf32_gate_presets():
+    """The 3xTF32 gate at every (bq, bk) of both presets of the kernel
+    search domain, causal as the search runs them."""
+    for preset in ("tiny", "small"):
+        B, Hq, Hkv, S, D = bench.PRESETS[preset]["flash_attention"]
+        q, k, v = flash_inputs(B, Hq, Hkv, S, D, torch.float32, seed=74)
+        ref = mha_ref(q, k, v, causal=True)
+        for bq in bench._BLOCKS[preset]["flash"]:
+            for bk in bench._BLOCKS[preset]["flash"]:
+                out = _flash_compare(f"{preset} preset", q, k, v, True, 0,
+                                     bq, bk)
+                tf32_gate(f"{preset} preset bq={bq} bk={bk}", out, ref, q, k,
+                          v, bq=bq, bk=bk)
+
+
 def measure_flash_f32():
     """The float32 kernel at the shape and blocks the kernel search runs
-    most (the small preset, its incumbent bq = bk = 128, causal): kernel,
-    plain version and SDPA in float32."""
+    most (the small preset, its incumbent bq = bk = 128, causal) and at
+    the qwen1.5-4b prefill shape through ``ops.mha`` (one counted tf32
+    launch, the 3xTF32 gate): the kernel, the CUDA-core kernel on the same
+    inputs, the plain version and SDPA in float32 (``allow_tf32`` off).
+    The bound counts six tf32 products (q.k and p.v, three each) at 495
+    TFLOP/s against the bytes of q, k, v and o.  Returns the small
+    preset's reading with the full shape's under ``readings``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     B, Hq, Hkv, S, D = bench.PRESETS["small"]["flash_attention"]
     bq = bk = bench._BLOCKS["small"]["flash"][0]
-    q, k, v = flash_inputs(B, Hq, Hkv, S, D, torch.float32, seed=81)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ref = mha_ref(q, k, v, causal=True)
-    out = fa.flash_attention(q, k, v, causal=True, bq=bq, bk=bk)
-    err = (out - ref).abs().max().item()
-    lib_err = (sdpa(q, k, v, is_causal=True, enable_gqa=True) - ref).abs()
-    if lib_err.max().item() > 4 * TOL[torch.float32]:
-        raise AssertionError("SDPA yardstick computes another function")
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, bq=bq,
-                                            bk=bk))
-    plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=True))
-    library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                      enable_gqa=True))
-    pairs = B * Hq * _pairs(S, 0)
-    flops = 2 * D * pairs
-    nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"flash_attention float32 (small preset B={B} S={S} Hq={Hq} "
-        f"Hkv={Hkv} D={D}, bq=bk={bq}, {F32_FLASH_KERNEL}): max_abs_err="
-        f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({2 * flops} flops "
-        f"at 67 TFLOP/s; {nbytes} bytes at 3.35 TB/s)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    full = FLASH_FULL[0]
+    shapes = [("small preset", B, S, Hq, Hkv, D, bq, bk),
+              (f"{full[0]} float32", full[1], full[2], full[3], full[4],
+               full[5], 128, 128)]
+    readings = []
+    for name, B, S, Hq, Hkv, D, bq, bk in shapes:
+        q, k, v = flash_full_inputs(B, S, Hq, Hkv, D, torch.float32)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fa.COUNT.reset()
+        out = ops.mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        counts = (fa.COUNT.launches, fa.COUNT.tf32, fa.COUNT.plain)
+        if counts != (1, 1, 0):
+            raise AssertionError(f"ops.mha float32 at {name}: (launches, tf32,"
+                                 f" plain) = {counts}, not one tf32 launch")
+        ref = mha_ref(qt, kt, vt, causal=True).transpose(1, 2)
+        if out.shape != q.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"ops.mha float32 at {name}: bad output")
+        err = tf32_gate(name, out, ref, qt, kt, vt, bq=bq, bk=bk)
+        cuda_core = fa._flash_attention_instance(
+            qt, kt, vt, kernel=F32_FLASH_KERNEL, causal=True, bq=bq, bk=bk)
+        cc_err = (cuda_core - ref.transpose(1, 2)).abs().max().item()
+        lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                   - ref.transpose(1, 2)).abs().max().item()
+        if lib_err > 4 * TOL[torch.float32] or cc_err > TOL[torch.float32]:
+            raise AssertionError(f"at {name}, SDPA ({lib_err:.3e}) or "
+                                 f"{F32_FLASH_KERNEL} ({cc_err:.3e}) computes"
+                                 " another function")
+        del out, ref, cuda_core
+        reps = 50 if S < 1024 else 20
+        ms = time_ms(lambda: ops.mha(q, k, v, causal=True), reps=reps)
+        cc_ms = time_ms(lambda: fa._flash_attention_instance(
+            qt, kt, vt, kernel=F32_FLASH_KERNEL, causal=True, bq=bq, bk=bk),
+            reps=reps)
+        plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True),
+                           reps=reps if S < 1024 else 10)
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True), reps=reps)
+        pairs = B * Hq * _pairs(S, 0)
+        flops = 2 * D * pairs                  # each of q.k and p.v
+        nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 6 * flops / TF32_OPS * 1e3
+        f32_rate_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"flash_attention float32 {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} "
+            f"D={D}, bq=bk={bq}, ops.mha, {TF32_KERNEL}): max_abs_err="
+            f"{err:.3e} (3xTF32 gate {TF32_GATE:g}), {F32_FLASH_KERNEL} "
+            f"{cc_err:.3e}, sdpa {lib_err:.3e}; kernel {ms:.4f} ms, "
+            f"{F32_FLASH_KERNEL} {cc_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({pairs} "
+            f"kept pairs: 6 x {flops} flops of tf32 products at 495 TFLOP/s ="
+            f" {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s = {bytes_ms:.5f} "
+            f"ms); kernel/bound {ms / bound_ms:.2f}, kernel/sdpa "
+            f"{ms / library_ms:.2f}, {6 * flops / ms / 1e9:.1f} TFLOP/s of "
+            f"tf32 products; the old count, both products at the f32 rate "
+            f"of 67 TFLOP/s: {f32_rate_ms:.5f} ms")
+        readings.append(dict(shape=name, max_abs_err=err, ms=ms,
+                             cuda_core_ms=cc_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by="bytes" if bytes_ms >= ops_ms
+                             else "operations"))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    first = readings[0]
+    return dict({key: first[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")}, readings=readings)
 
 
 # ---------------------------------------------------------------------------
@@ -1381,13 +1513,17 @@ def main() -> None:
     timing = {key: readings[0][key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
 
-    check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel")
+    check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel",
+                     "BF16")
     ssd_err = check_ssd_scan()
     ssd_gate_phase()
     ssd_timing = measure_ssd_scan()
 
-    check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL)
+    check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL,
+                     "BF16")
+    check_wgmma_sass("flash_attention", TF32_KERNEL, F32_FLASH_KERNEL, "TF32")
     check_flash_attention()
+    tf32_gate_presets()
     flash_timing, flash_launches = measure_flash_attention()
     flash_f32_timing = measure_flash_f32()
 
@@ -1403,9 +1539,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     domain_launches = kernel_domain_phase()
-    if fa.COUNT.wgmma:
-        raise AssertionError("the float32 kernel search launched the bf16 "
-                             "kernel")
+    if fa.COUNT.wgmma or fa.COUNT.tf32 != fa.COUNT.launches:
+        raise AssertionError(f"the float32 kernel search made {fa.COUNT.tf32}"
+                             f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
+                             f", {fa.COUNT.wgmma} bf16 launches")
 
     kernels = [dict(
         name="decode_attention", route="cuda",

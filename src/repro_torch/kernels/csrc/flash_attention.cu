@@ -5,25 +5,30 @@
 // k and v with an f32 online softmax over KV tiles of `bk` keys, one
 // q tile of `bq` rows at a time; GQA maps query head h to KV head h / G.
 //
-// Two kernels, chosen by dtype and head dim D (32, 64, 128 or 256; the
-// wrapper pads any other D up to 256 with zero columns):
+// Three kernels.  The caller (kernels/flash_attention.py) names one, by
+// dtype, head dim D (32, 64, 128 or 256; the wrapper pads any other D up
+// to 256 with zero columns) and alignment:
 //  * bfloat16 at D <= 128: flash_fwd_wgmma_kernel, on the tensor cores
 //    (below);
-//  * float32, and bfloat16 at D = 256: flash_fwd_kernel, f32 FMAs on CUDA
-//    cores (the kernel search domain's presets run it; at D = 256 every
-//    (bq, bk) fits a block's shared memory, at most 198 KB).
+//  * float32 at D <= 128 whose q, k, v and o have 16-byte aligned base
+//    addresses and strides: flash_fwd_tf32_kernel, on the tensor cores as
+//    three tf32 products (below);
+//  * either dtype at D = 256, and float32 that TMA cannot read:
+//    flash_fwd_kernel, f32 FMAs on CUDA cores (at D = 256 every (bq, bk)
+//    fits a block's shared memory, at most 198 KB).
 //
-// Semantics kept from the reference by both: scores are f32 sums times
-// the scale; masked scores are the finite -1e30; the softmax state (m, l)
-// and the rescale of acc are updated once per bk tile; l is the f32 sum
-// of f32 p; the output is acc / max(l, 1e-30) in q's dtype.  KV tiles
-// that the causal or window mask removes entirely are not visited (the
-// Pallas kernel computes them).  Skipping is exact: such a tile leaves
-// (m, l, acc) unchanged in the reference.  The one case where it would
-// not is a row whose every key is masked (Sq > Sk with a window): the
-// reference then returns the mean of v over all Sk, because the finite
-// -1e30 makes p = 1 everywhere.  A pass holding such a row visits every
-// tile, as the reference does.  q, k, v and o are read and written
+// Semantics kept from the reference by all three: scores are f32 sums
+// times the scale; masked scores are the finite -1e30; the softmax state
+// (m, l) and the rescale of acc are updated once per bk tile (a tile
+// wider than a kernel's piece, once per piece: see each kernel); l is the
+// f32 sum of f32 p; the output is acc / max(l, 1e-30) in q's dtype.  KV
+// tiles that the causal or window mask removes entirely are not visited
+// (the Pallas kernel computes them).  Skipping is exact: such a tile
+// leaves (m, l, acc) unchanged in the reference.  The one case where it
+// would not is a row whose every key is masked (Sq > Sk with a window):
+// the reference then returns the mean of v over all Sk, because the
+// finite -1e30 makes p = 1 everywhere.  A pass holding such a row visits
+// every tile, as the reference does.  q, k, v and o are read and written
 // through strides with only the last dimension contiguous: `mha` passes
 // (B,S,H,D) tensors as views.  The causal q tiles with the most keys are
 // launched first.
@@ -74,7 +79,68 @@
 //  * The output is divided by l in registers and stored through strides.
 // The wgmma, TMA and mbarrier helpers are in hopper.cuh.
 //
-// --- float32: flash_fwd_kernel (first design, CUDA cores) -----------------
+// --- float32: flash_fwd_tf32_kernel ---------------------------------------
+// The reference's f32 products at the tf32 rate.  Each f32 operand x is
+// split into big = tf32(x) (cvt.rna: to nearest, ties away) and small =
+// tf32(x - big), and each product is three tf32 wgmmas into one f32
+// accumulator: big.big + big.small + small.big (small.small, ~2^-22 of
+// the product, is dropped).  That keeps about 21 of f32's 24 bits: within
+// ~2.5e-6 of the f32 reference at a prefill shape, where bf16 hi + lo
+// misses the kernel search's 2e-5 gate and one tf32 product misses it 50
+// times over (kernels/flash_attention.py `flash_tf32x3_ref` emulates all
+// three).  Both roundings are explicit, so what the tensor cores do with
+// an operand's 13 low bits does not matter.  Least time: six tf32
+// products at 495 TFLOP/s.
+//  * Blocks, warps and passes are flash_fwd_wgmma_kernel's: one block per
+//    (b, h, q tile), one or two consumer warpgroups of 64 q rows and a
+//    producer warp (setmaxnreg 240 / 24 with two), q tiles padded to 64
+//    rows or walked in passes.  Tiles arrive by TMA with the 128-byte
+//    swizzle (rows of 32 floats); a tf32 k8 step is 32 bytes, as bf16's
+//    k16 step is, so the K-major descriptors are the bf16 kernel's.
+//  * tf32 wgmma reads both operands K-major: the PTX ISA has no transpose
+//    for 32-bit types.  q and k rows have D contiguous, as q.k^T needs.
+//    For p.v each V sub-tile is transposed in shared memory into V^T (D
+//    rows of the sub-tile's keys, column blocks of 32 keys).  p comes from
+//    the S accumulator in registers, where a thread holds keys (2q, 2q+1)
+//    of each 8-key group, while a tf32 A fragment holds columns (q, q+4).
+//    V^T stores each 8-key group in the key order (0, 2, 4, 6, 1, 3, 5,
+//    7): then the accumulator's registers are the A fragment as they are,
+//    and p.v sums over the same keys.
+//  * The consumers split each tile once it lands: q per pass and K in
+//    place (big over the TMA tile, small beside it), V into V^T big and
+//    small (small over the TMA tile once every thread has read it).  Every
+//    consumer thread splits its share; fence.proxy.async and a named
+//    barrier among the consumers hand the tile to wgmma.
+//  * Shared memory holds a pass of q twice (big and small, 64 KB a
+//    warpgroup at D = 128) and a ring of slots of one K or V sub-tile
+//    twice (8 N D bytes for N keys), which the producer fills in the
+//    consumers' order: per piece its K sub-tiles, then its V sub-tiles.
+//    A consumer frees a K slot once the next sub-tile's wgmmas are issued
+//    and its own have run, so a K sub-tile's split overlaps the previous
+//    one's products; a V slot once its own products have run.  Plans
+//    (227 KB a block at most):
+//      D = 128: 32-key sub-tiles; two warpgroups: q 128 KB and 3 slots of
+//               32 KB; one warpgroup: q 64 KB and 5 slots;
+//      D = 64:  64-key sub-tiles (32 at bk = 32): q 64 KB (two
+//               warpgroups) and up to 5 slots of 32 KB;
+//      D = 32:  q 32 KB and up to 8 slots of 16 KB (two pieces' K and V).
+//  * A piece (one softmax update) is bk keys at bk = 32, 64 or 128, 128
+//    keys of a bk that is a multiple of 128, and 64 keys of any other bk;
+//    keys of a piece past its tile are -inf, as in the bf16 kernel.
+//  * The tensor cores round each wgmma's sum toward zero, so a long chain
+//    of wgmmas into one accumulator drifts: p.v chained over 4096 keys
+//    (1,536 wgmmas) brought the output at the qwen1.5-4b prefill shape
+//    near the 8e-6 gate of chip_smoke.py, several times the emulation's
+//    error.  So each piece's p.v goes into an accumulator of its own (48
+//    wgmmas at 128 keys), and acc = acc * alpha + pv is an f32 FMA,
+//    rounded to nearest, once per piece.  A
+//    thread holds acc and pv (D/2 each), the piece's scores (64 registers
+//    at 128 keys) and one sub-tile's big and small p; at D = 128 that
+//    spills (PERF.md).
+//
+// --- flash_fwd_kernel (first design, CUDA cores) --------------------------
+// float32 at D = 256 or with a base or stride TMA cannot read, bfloat16 at
+// D = 256.
 //  * One block per (b, h, q tile); 256 threads as a 16 x 16 grid, each
 //    holding a register tile of 2 or 4 query rows (the block walks its
 //    q tile in passes of 32 or 64 rows) by D/16 output columns and by
@@ -83,7 +149,7 @@
 //  * The softmax state is updated once per bk tile, as in the reference
 //    (a tile wider than 256 keys is updated per 256-key piece); K and V
 //    enter shared memory in sub-tiles of 64 keys, so every (bq, bk) of
-//    the search domain fits a block's 227 KB (at most 133 KB, at D=128).
+//    the search domain fits a block's 227 KB (at most 198 KB, at D=256).
 //  * p stays f32 for p.v, as in the reference; its least time is at the
 //    f32 rate (67 TFLOP/s).
 
@@ -804,50 +870,527 @@ int run(int D, const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// float32: flash_fwd_tf32_kernel
+// ---------------------------------------------------------------------------
+namespace tf {
+
+using hopper::WgmmaTf32;
+
+constexpr int kRows = 64;                     // q rows of one warpgroup
+constexpr size_t kMaxSmem = 232448;           // bytes a block can use
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSyncId = 1;                    // named barrier of the consumers
+
+// Keys per softmax update (the kernel's piece, BKC): bk where it is 32, 64
+// or 128; 128-key pieces of a bk that is a multiple of 128; 64-key pieces
+// of any other bk (the last piece of a tile padded past it).
+__host__ __device__ constexpr int piece_width(int bk) {
+  return bk == 32 || bk == 64 ? bk : bk % 128 == 0 ? 128 : 64;
+}
+// keys per K or V sub-tile: 32 at D = 128 (shared memory), else the piece
+// up to 64
+__host__ __device__ constexpr int sub_keys(int D, int bkc) {
+  return D == 128 ? 32 : bkc < 64 ? bkc : 64;
+}
+__host__ __device__ constexpr int warpgroups(int bq) {
+  return bq > kRows ? 2 : 1;
+}
+__host__ __device__ constexpr int block_threads(int nwg) {
+  return nwg == 2 ? 384 : 160;
+}
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+struct Plan {
+  int nwg, stages;
+  size_t smem;
+};
+
+// Shared memory: 1024 bytes of alignment slack, one pass of q rows twice
+// (the TMA tile, rounded in place to big, and small), `stages` slots of
+// one K or V sub-tile twice (see the header), and the barriers.  As many
+// slots as fit, up to two pieces' K and V; at least two.
+__host__ inline Plan plan(int D, int bq, int bkc) {
+  Plan p;
+  p.nwg = warpgroups(bq);
+  const int n = sub_keys(D, bkc), nsub = bkc / n;
+  const size_t q_bytes = 2 * (size_t)kRows * p.nwg * D * 4;
+  const size_t slot = 2 * (size_t)n * D * 4;
+  for (p.stages = 4 * nsub; ; --p.stages) {
+    p.smem = 1024 + q_bytes + slot * p.stages + 8 * (2 + 2 * p.stages);
+    if (p.smem <= kMaxSmem || p.stages == 2) break;
+  }
+  return p;
+}
+
+// Every float of `n4` float4s at t split: big in place, small at sm; the
+// consumer thread i of NT takes float4s i, i + NT, ... (the swizzle moves
+// whole 16-byte pieces, so the layout is kept)
+template <int N4, int NT>
+__device__ __forceinline__ void split_tile(uint8_t* t, uint8_t* sm, int i) {
+  float4* a = reinterpret_cast<float4*>(t);
+  uint4* s = reinterpret_cast<uint4*>(sm);
+#pragma unroll 4
+  for (int c = i; c < N4; c += NT) {
+    const float4 x = a[c];
+    uint4 big, small;
+    hopper::split_tf32(x.x, big.x, small.x);
+    hopper::split_tf32(x.y, big.y, small.y);
+    hopper::split_tf32(x.z, big.z, small.z);
+    hopper::split_tf32(x.w, big.w, small.w);
+    reinterpret_cast<uint4*>(a)[c] = big;
+    s[c] = small;
+  }
+}
+
+// The V sub-tile of a slot, N keys x D as TMA wrote it (D/32 column blocks
+// of N 128-byte rows, swizzled), becomes V^T big in the slot's second half
+// and V^T small over the first: D rows of the sub-tile's keys, K-major,
+// column blocks of 32 keys (D 128-byte rows each, swizzled), each 8-key
+// group in the key order (0, 2, 4, 6, 1, 3, 5, 7) of the A fragments that
+// p is (see the header).  Consumer thread i reads keys lane by lane, so
+// neither the reads nor the 4-byte writes conflict in a bank.
+template <int D, int N, int NT>
+__device__ __forceinline__ void split_v(uint8_t* vs, int i) {
+  constexpr int ITEMS = N * D / 4 / NT;       // float4s a thread
+  constexpr uint32_t HALF = N * D * 4;
+  float4 x[ITEMS];
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int idx = i + u * NT, r = idx % N, dg = idx / N;
+    x[u] = *reinterpret_cast<const float4*>(
+        vs + (dg / 8) * (N * 128) + r * 128 + (((dg % 8) ^ (r % 8)) << 4));
+  }
+  hopper::named_sync<kSyncId, NT>();   // the raw tile is overwritten below
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int idx = i + u * NT, r = idx % N, dg = idx / N;
+    const int pos = (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+    const int pp = pos % 32;
+    uint8_t* col = vs + (pos / 32) * (D * 128) + (pp % 4) * 4;
+    const float e[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 4 * dg + c;
+      const uint32_t off = d * 128 + (((pp / 4) ^ (d % 8)) << 4);
+      uint32_t big, small;
+      hopper::split_tf32(e[c], big, small);
+      *reinterpret_cast<uint32_t*>(col + HALF + off) = big;
+      *reinterpret_cast<uint32_t*>(col + off) = small;
+    }
+  }
+}
+
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return hopper::make_desc(addr, 16, 8 * 128, hopper::desc_swizzle(128));
+}
+
+// grid (Sq / bq, Hq, B); block block_threads(NWG).  Maps: q (D, Sq, Hq, B)
+// in boxes of (32, 64); k and v (D, Sk, Hkv, B) in boxes of (32, N).  BKC:
+// keys per piece (piece_width(bk)); tiles of bk keys.
+template <int D, int BKC, int NWG>
+__global__ void __launch_bounds__(block_threads(NWG), 1) flash_fwd_tf32_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int Sk,
+    int G, int bq, int bk, int causal, int window, int stages, int64_t o_sb,
+    int64_t o_sh, int64_t o_ss, float scale_log2) {
+  constexpr int N = sub_keys(D, BKC);
+  constexpr int NSUB = BKC / N;
+  constexpr int CB = D / 32;                 // 128-byte column blocks of a row
+  constexpr int PASS = kRows * NWG;          // q rows per pass
+  constexpr int NT = 128 * NWG;              // consumer threads
+  constexpr uint32_t Q_BYTES = PASS * D * 4;
+  constexpr uint32_t HALF = N * D * 4;       // one K or V sub-tile
+  constexpr uint32_t BOX_Q = kRows * 128;    // one (32, 64) q box
+  constexpr uint32_t BOX_KV = N * 128;       // one (32, N) k or v box
+  constexpr uint32_t BOX_VT = D * 128;       // 32 keys of V^T
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* slots = q_s + 2 * Q_BYTES;        // q big, q small, then the ring
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(slots + 2 * HALF * stages);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + stages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // most keys first
+  const int h = blockIdx.y, b = blockIdx.z, hkv = h / G;
+  const int q0 = qt * bq, q_end = q0 + bq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 4 * NWG);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 4 * NWG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // ---- producer: per pass its q rows, then per piece the K sub-tiles
+    // and the V sub-tiles, one ring slot each, in the consumers' order
+    if constexpr (NWG == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != 4 * NWG || lane != 0) return;
+    int it = 0, pass = 0;
+    for (int p0 = q0; p0 < q_end; p0 += PASS, ++pass) {
+      if (pass > 0) hopper::mbar_wait(q_empty, (pass - 1) & 1);
+      hopper::mbar_expect_tx(q_full, Q_BYTES);
+      for (int r = 0; r < NWG; ++r)
+        for (int cb = 0; cb < CB; ++cb)
+          hopper::tma_load_4d(q_s + (r * CB + cb) * BOX_Q, &qmap, q_full,
+                              cb * 32, p0 + r * kRows, h, b);
+      int lo, hi;
+      wg::tile_range(p0, min(p0 + PASS, q_end) - 1, Sk, bk, causal, window,
+                     lo, hi);
+      for (int t = lo; t < hi; ++t)
+        for (int c0 = t * bk; c0 < (t + 1) * bk; c0 += BKC)
+          for (int kv = 0; kv < 2; ++kv)
+            for (int j = 0; j < NSUB; ++j, ++it) {
+              const int s = it % stages, use = it / stages;
+              if (use > 0) hopper::mbar_wait(empty + s, (use - 1) & 1);
+              uint8_t* dst = slots + s * 2 * HALF;
+              hopper::mbar_expect_tx(full + s, HALF);
+              for (int cb = 0; cb < CB; ++cb)
+                hopper::tma_load_4d(dst + cb * BOX_KV, kv ? &vmap : &kmap,
+                                    full + s, cb * 32, c0 + j * N, hkv, b);
+            }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wgi holds q rows [64 wgi, 64 wgi + 64) of
+  // each pass; this thread rows r_in and r_in + 8 of them ----
+  if constexpr (NWG == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x;
+  const int wgi = warp / 4;
+  const int r_in = (warp % 4) * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;       // first of its 2 columns per 8
+  const uint32_t qb_addr = hopper::smem_u32(q_s) + wgi * CB * BOX_Q;
+  const uint32_t qs_addr = qb_addr + Q_BYTES;
+
+  int it = 0, pass = 0;
+  for (int p0 = q0; p0 < q_end; p0 += PASS, ++pass) {
+    int lo, hi;
+    wg::tile_range(p0, min(p0 + PASS, q_end) - 1, Sk, bk, causal, window, lo,
+                   hi);
+    const int w0 = p0 + wgi * kRows;          // first q row of the tile
+    const int qpos[2] = {w0 + r_in, w0 + r_in + 8};
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    hopper::mbar_wait(q_full, pass & 1);
+    split_tile<PASS * D / 4, NT>(q_s, q_s + Q_BYTES, ct);
+    hopper::fence_proxy_async();
+    hopper::named_sync<kSyncId, NT>();
+
+    // the pieces of each tile in [lo, hi): BKC keys loaded from c0, the
+    // first `valid` of them in the tile
+    for (int t = lo; t < hi; ++t) {
+      for (int c0 = t * bk; c0 < (t + 1) * bk; c0 += BKC) {
+        const int valid = min(BKC, (t + 1) * bk - c0);
+        // S = Q.K^T = Qb.Kb + Qb.Ks + Qs.Kb, one sub-tile at a time: split
+        // it, issue its wgmmas, then free the previous sub-tile's slot
+        float s[NSUB][N / 2];
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j, ++it) {
+          const int slot = it % stages;
+          hopper::mbar_wait(full + slot, (it / stages) & 1);
+          uint8_t* ks = slots + slot * 2 * HALF;
+          split_tile<N * D / 4, NT>(ks, ks + HALF, ct);
+          hopper::fence_proxy_async();
+          hopper::named_sync<kSyncId, NT>();
+          const uint32_t kb_addr = hopper::smem_u32(ks);
+          const uint32_t ks_addr = kb_addr + HALF;
+          hopper::fence_regs(s[j]);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 8; ++kk) {
+            const uint32_t qo = (kk / 4) * BOX_Q + (kk % 4) * 32;
+            const uint32_t ko = (kk / 4) * BOX_KV + (kk % 4) * 32;
+            WgmmaTf32<N>::ss(s[j], kmajor(qb_addr + qo), kmajor(kb_addr + ko),
+                             kk > 0);
+            WgmmaTf32<N>::ss(s[j], kmajor(qb_addr + qo), kmajor(ks_addr + ko),
+                             1);
+            WgmmaTf32<N>::ss(s[j], kmajor(qs_addr + qo), kmajor(kb_addr + ko),
+                             1);
+          }
+          hopper::wgmma_commit();
+          if (j > 0) {
+            hopper::wgmma_wait<1>();
+            if (lane == 0) hopper::mbar_arrive(empty + (it - 1) % stages);
+          }
+        }
+        hopper::wgmma_wait<0>();
+        if (lane == 0) hopper::mbar_arrive(empty + (it - 1) % stages);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j) hopper::fence_regs(s[j]);
+
+        // scale, mask, and the online softmax over the whole piece
+        const bool kept_all = (!causal || c0 + BKC - 1 <= w0) &&
+                              (!window || c0 > w0 + kRows - 1 - window);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e) {
+            const int i = (e / 2) % 2;
+            float x = s[j][e] * scale_log2;
+            if (!kept_all) {
+              const int key = c0 + j * N + (e / 4) * 8 + cq + e % 2;
+              bool keep = true;
+              if (causal) keep = key <= qpos[i];
+              if (window) keep = keep && key > qpos[i] - window;
+              if (!keep) x = kNegInf;
+            }
+            s[j][e] = x;
+          }
+        if (valid < BKC) {   // keys past the tile: -inf, so p = 0
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+            for (int e = 0; e < N / 2; ++e)
+              if (j * N + (e / 4) * 8 + cq + e % 2 >= valid)
+                s[j][e] = -CUDART_INF_F;
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e)
+            mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[j][e]);
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          alpha[i] = exp2f(m[i] - mx[i]);
+          m[i] = mx[i];
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+          for (int e = 0; e < N / 2; ++e) {
+            const int i = (e / 2) % 2;
+            s[j][e] = exp2f(s[j][e] - m[i]);
+            sum[i] += s[j][e];
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+
+        // pv = P.V = Pb.Vb + Pb.Vs + Ps.Vb over the piece, one sub-tile at a
+        // time, in an accumulator of its own (see the header).  The
+        // accumulator of keys 8 ks + (2q, 2q + 1) in rows (r, r + 8) is the A
+        // fragment of V^T's key positions (q, q + 4).  A sub-tile's Pb and
+        // Ps live until its wgmmas have run: waiting for them before the
+        // next sub-tile's split keeps one sub-tile's worth in registers
+        // (with two in flight more instances spilled, and every domain
+        // block and the prefill shape ran slower).
+        float pv[D / 2];
+        hopper::fence_regs(pv);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j, ++it) {
+          const int slot = it % stages;
+          hopper::mbar_wait(full + slot, (it / stages) & 1);
+          uint8_t* vs = slots + slot * 2 * HALF;
+          split_v<D, N, NT>(vs, ct);
+          hopper::fence_proxy_async();
+          hopper::named_sync<kSyncId, NT>();
+          uint32_t pb[N / 8][4], ps[N / 8][4];
+#pragma unroll
+          for (int ks = 0; ks < N / 8; ++ks) {
+            const float* x = &s[j][4 * ks];
+            hopper::split_tf32(x[0], pb[ks][0], ps[ks][0]);  // r, 2q
+            hopper::split_tf32(x[2], pb[ks][1], ps[ks][1]);  // r+8, 2q
+            hopper::split_tf32(x[1], pb[ks][2], ps[ks][2]);  // r, 2q+1
+            hopper::split_tf32(x[3], pb[ks][3], ps[ks][3]);  // r+8, 2q+1
+          }
+          hopper::wgmma_fence();
+          const uint32_t vb_addr = hopper::smem_u32(vs) + HALF;
+          const uint32_t vsm_addr = hopper::smem_u32(vs);
+#pragma unroll
+          for (int ks = 0; ks < N / 8; ++ks) {
+            const uint32_t vo = (ks / 4) * BOX_VT + (ks % 4) * 32;
+            const uint32_t(&big)[4] = pb[ks];
+            const uint32_t(&sml)[4] = ps[ks];
+            WgmmaTf32<D>::rs(pv, big[0], big[1], big[2], big[3],
+                             kmajor(vb_addr + vo), j > 0 || ks > 0);
+            WgmmaTf32<D>::rs(pv, big[0], big[1], big[2], big[3],
+                             kmajor(vsm_addr + vo), 1);
+            WgmmaTf32<D>::rs(pv, sml[0], sml[1], sml[2], sml[3],
+                             kmajor(vb_addr + vo), 1);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+#pragma unroll
+          for (int ks = 0; ks < N / 8; ++ks) {
+            hopper::fence_regs(pb[ks]);
+            hopper::fence_regs(ps[ks]);
+          }
+          if (lane == 0) hopper::mbar_arrive(empty + slot);
+        }
+        hopper::fence_regs(pv);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e)
+          acc[e] = fmaf(acc[e], alpha[(e / 2) % 2], pv[e]);
+      }
+    }
+    if (lane == 0) hopper::mbar_arrive(q_empty);   // q read for the pass
+
+    // o = acc / max(l, 1e-30); l summed over the row's 4 threads
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (qpos[i] >= q_end) continue;
+      const float li = fmaxf(l[i], 1e-30f);
+      float* orow = o + b * o_sb + h * o_sh + (int64_t)qpos[i] * o_ss;
+#pragma unroll
+      for (int cb = 0; cb < D / 8; ++cb)
+        *reinterpret_cast<float2*>(orow + cb * 8 + cq) =
+            make_float2(acc[cb * 4 + 2 * i] / li, acc[cb * 4 + 2 * i + 1] / li);
+    }
+  }
+}
+
+template <int D, int BKC, int NWG>
+int launch(const CUtensorMap maps[3], void* o, int B, int Hq, int G, int Sq,
+           int Sk, int bq, int bk, int causal, int window, const int64_t* st,
+           float scale, const Plan& p, cudaStream_t stream) {
+  auto kernel = flash_fwd_tf32_kernel<D, BKC, NWG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Sq / bq, Hq, B);
+  kernel<<<grid, block_threads(NWG), p.smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(o), Sk, G, bq, bk,
+      causal, window, p.stages, st[9], st[10], st[11], scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BKC>
+int dispatch_nwg(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
+                 int Sq, int Sk, int bq, int bk, int causal, int window,
+                 const int64_t* st, float scale, const Plan& p,
+                 cudaStream_t stream) {
+  if (p.nwg == 2)
+    return launch<D, BKC, 2>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                             window, st, scale, p, stream);
+  return launch<D, BKC, 1>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
+                           st, scale, p, stream);
+}
+
+template <int D>
+int dispatch_bkc(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
+                 int Sq, int Sk, int bq, int bk, int causal, int window,
+                 const int64_t* st, float scale, const Plan& p,
+                 cudaStream_t stream) {
+  switch (piece_width(bk)) {
+#define REPRO_TF_BKC(BB)                                                     \
+  case BB:                                                                   \
+    return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,    \
+                               window, st, scale, p, stream);
+    REPRO_TF_BKC(32)
+    REPRO_TF_BKC(64)
+    REPRO_TF_BKC(128)
+#undef REPRO_TF_BKC
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int run(int D, const void* q, const void* k, const void* v, void* o, int B,
+        int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
+        int window, const int64_t* st, float scale, cudaStream_t stream) {
+  if (!wg::supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
+  const int bkc = piece_width(bk);
+  const Plan p = plan(D, bq, bkc);
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int64_t qdims[4] = {D, Sq, Hq, B}, kdims[4] = {D, Sk, Hq / G, B};
+  const int64_t qs[3] = {st[2], st[1], st[0]}, ks[3] = {st[5], st[4], st[3]},
+                vs[3] = {st[8], st[7], st[6]};
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int n = sub_keys(D, bkc);
+  CUtensorMap maps[3];
+  int rc = hopper::make_map_4d(&maps[0], f32, 4, q, qdims, qs, 32, kRows);
+  if (!rc) rc = hopper::make_map_4d(&maps[1], f32, 4, k, kdims, ks, 32, n);
+  if (!rc) rc = hopper::make_map_4d(&maps[2], f32, 4, v, kdims, vs, 32, n);
+  if (rc) return rc;
+  switch (D) {
+    case 32:
+      return dispatch_bkc<32>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                              window, st, scale, p, stream);
+    case 64:
+      return dispatch_bkc<64>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                              window, st, scale, p, stream);
+    default:
+      return dispatch_bkc<128>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, p, stream);
+  }
+}
+
+}  // namespace tf
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the kernel for (dtype, D)
-// takes (dtype: 0 = float32, 1 = bfloat16), or -1 for what that kernel
-// does not take (a head dim other than 32, 64, 128, 256; a block under
-// one row).
-long long flash_attention_smem_bytes(int dtype, int D, int bq, int bk) {
-  if (D != 32 && D != 64 && D != 128 && D != 256) return -1;
-  if (dtype == 1 && D != 256) {
-    if (!wg::supported(D, bq, bk)) return -1;
-    return (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(bk)))
-        .smem;
+// kernel: 0 = flash_fwd_kernel (CUDA cores: float32 at D = 32, 64, 128,
+// 256, bfloat16 at D = 256), 1 = flash_fwd_wgmma_kernel (bfloat16, D = 32,
+// 64, 128), 2 = flash_fwd_tf32_kernel (float32, D = 32, 64, 128); dtype: 0
+// = float32, 1 = bfloat16.  The caller names the kernel: nothing here
+// picks one.
+
+// Bytes of dynamic shared memory one block of `kernel` takes for (dtype,
+// D, bq, bk), or -1 for what that kernel does not take (a dtype or head
+// dim it has no instance for; a block under one row).
+long long flash_attention_smem_bytes(int kernel, int dtype, int D, int bq,
+                                     int bk) {
+  if (kernel == 1 || kernel == 2) {   // bfloat16 or float32, D <= 128
+    if (dtype != (kernel == 1) || !wg::supported(D, bq, bk)) return -1;
+    return kernel == 1
+               ? (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(bk)))
+                     .smem
+               : (long long)tf::plan(D, bq, tf::piece_width(bk)).smem;
   }
+  const bool f32 = dtype == 0 && (D == 32 || D == 64 || D == 128 || D == 256);
+  if (kernel != 0 || !(f32 || (dtype == 1 && D == 256))) return -1;
   return (long long)(smem_floats(D, bq, bk) * sizeof(float));
 }
 
-// dtype: 0 = float32 (flash_fwd_kernel), 1 = bfloat16
-// (flash_fwd_wgmma_kernel at D = 32, 64, 128; flash_fwd_kernel at
-// D = 256, which has no tensor-core instance); q, k, v and o share it.
-// q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D), each with
-// any strides whose last is 1; strides holds (sb, sh, ss) of q, k, v, o in
-// that order.  Needs Hq = Hkv * G, Sq % bq == 0, Sk % bk == 0; bfloat16
-// needs 16-byte aligned base addresses and strides of q, k, v (TMA).
-// Returns cudaGetLastError() after the launch (0 on success), or 10000 +
-// the CUresult of cuTensorMapEncodeTiled where a TMA tensor map cannot be
-// encoded.
-int flash_attention_launch(int dtype, int D, const void* q, const void* k,
-                           const void* v, void* o, int B, int Hq, int G,
-                           int Sq, int Sk, int bq, int bk, int causal,
-                           int window, const int64_t* strides, float scale,
-                           void* stream) {
+// q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D) in dtype,
+// each with any strides whose last is 1; strides holds (sb, sh, ss) of q,
+// k, v, o in that order.  Needs Hq = Hkv * G, Sq % bq == 0, Sk % bk == 0;
+// kernels 1 and 2 need 16-byte aligned base addresses and strides of q, k,
+// v (TMA) and o.  Returns cudaGetLastError() after the launch (0 on
+// success), cudaErrorInvalidValue for what `kernel` does not take, or
+// 10000 + the CUresult of cuTensorMapEncodeTiled where a TMA tensor map
+// cannot be encoded.
+int flash_attention_launch(int kernel, int dtype, int D, const void* q,
+                           const void* k, const void* v, void* o, int B,
+                           int Hq, int G, int Sq, int Sk, int bq, int bk,
+                           int causal, int window, const int64_t* strides,
+                           float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flash_attention_smem_bytes(kernel, dtype, D, bq, bk) < 0)
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 2)
+    return tf::run(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
+                   strides, scale, st);
+  if (kernel == 1)
+    return wg::run(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
+                   strides, scale, st);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                            window, strides, scale, st);
-  if (dtype == 1 && D == 256)
-    return launch_d<__nv_bfloat16, 256>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,
-                                        causal, window, strides, scale, st);
-  if (dtype == 1)
-    return wg::run(D, q, k, v, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
-                   strides, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_d<__nv_bfloat16, 256>(q, k, v, o, B, Hq, G, Sq, Sk, bq, bk,
+                                      causal, window, strides, scale, st);
 }
 
 }  // extern "C"

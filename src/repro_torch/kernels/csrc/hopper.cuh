@@ -23,6 +23,9 @@
 //    SBO = 8 * SW (from one 8-row group along the reduction to the next),
 //    LBO = the bytes of one 128-byte column block (rows * SW); a k16 step
 //    advances the start address by 16 rows, 16 * SW bytes.
+// tf32 operands (f32 tiles, 4-byte elements) are K-major only: the PTX ISA
+// has no transpose for them.  A k8 step is 32 bytes, as bf16's k16 is, so
+// the K-major descriptors above serve both.
 
 #pragma once
 
@@ -96,6 +99,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // threads follows.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) among the first `count` threads
+// to arrive, a multiple of 32: a subset of the block's warps
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// its 13 low bits zero: what a tf32 wgmma reads of it, exactly
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about 21 bits: big = tf32(x), small = tf32(x - big)
+// (x - big is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 // The byte offset, from an atom-aligned base, at which the SW-byte
@@ -311,6 +337,126 @@ struct Wgmma<128> {
   }
 };
 
+// m64nNk8, f32 accumulators, tf32 operands (f32 registers and tiles whose
+// 13 low mantissa bits the tensor cores do not read).  The accumulator
+// layout is Wgmma's.  A register fragment of a 64x8 A (PTX ISA, wgmma
+// .tf32 A fragment): a0 = A[r][q], a1 = A[r+8][q], a2 = A[r][q+4], a3 =
+// A[r+8][q+4], with r and q as above.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  // d (+)= A . B, A and B K-major in shared memory (descriptors a, b);
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (+)= A . B, A in registers (a0..a3), B K-major in shared memory;
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void rs(float (&d)[16], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  // d (+)= A . B, A and B K-major in shared memory (descriptors a, b);
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31},"
+        " %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (+)= A . B, A in registers (a0..a3), B K-major in shared memory;
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void rs(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  // d (+)= A . B, A in registers (a0..a3), B K-major in shared memory;
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // host: TMA tensor maps
 // ---------------------------------------------------------------------------
@@ -341,28 +487,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor (d0, d1, d2, d3), d0 contiguous, the other strides in
-// elements, read in boxes of (box0, box1, 1, 1) with the swizzle of
-// box0 * 2-byte rows (box0 = 64, 32 or 16).  Returns 0 or a nonzero error.
-inline int make_map_bf16_4d(CUtensorMap* map, const void* ptr,
-                            const int64_t dims[4], const int64_t strides[3],
-                            int box0, int box1) {
+// A tensor (d0, d1, d2, d3) of `type` (elements of `bytes` bytes), d0
+// contiguous, the other strides in elements, read in boxes of (box0, box1,
+// 1, 1) with the swizzle of its box0 * bytes-byte rows (128, 64 or 32).
+// Returns 0 or a nonzero error.
+inline int make_map_4d(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                       const void* ptr, const int64_t dims[4],
+                       const int64_t strides[3], int box0, int box1) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   cuuint64_t gdim[4], gstride[3];
   for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
-  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i] * 2;
+  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i] * bytes;
   const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = box0 * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : box0 * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), gdim, gstride, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+  const int row = box0 * bytes;
+  const CUtensorMapSwizzle swz = row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), gdim, gstride,
+                        box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// make_map_4d for bf16 (box0 = 64, 32 or 16)
+inline int make_map_bf16_4d(CUtensorMap* map, const void* ptr,
+                            const int64_t dims[4], const int64_t strides[3],
+                            int box0, int box1) {
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims,
+                     strides, box0, box1);
 }
 
 }  // namespace hopper

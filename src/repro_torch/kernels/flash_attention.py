@@ -3,15 +3,20 @@
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py:75``
 (``flash_attention``; body ``_kernel`` at ``:28``).  The kernels are
 hand-written CUDA C++ for ``sm_90a`` in ``csrc/flash_attention.cu``,
-built with ``nvcc`` at first use and bound with ``ctypes``.  The dtype
-alone picks one: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the tensor
-cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p)) in f32),
-float32 runs ``flash_fwd_kernel`` on CUDA cores.  The kernels have head
-dims 32, 64, 128 and 256 (bfloat16 at 256 runs ``flash_fwd_kernel``, which
-has a bfloat16 instance there alone); any other D up to 256 is padded with
-zero columns to the next of them, scaled by ``1/sqrt(D)`` of the true D and
-sliced back, which leaves every score and output unchanged.  A bfloat16
-call that the tensor-core kernel cannot take raises; it never falls back.
+built with ``nvcc`` at first use and bound with ``ctypes``.  The instance
+rule :func:`kernel_for` names one from dtype, head dim and alignment
+alone, before any launch: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the
+tensor cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p))
+in f32); float32 runs ``flash_fwd_tf32_kernel`` on the tensor cores, each
+f32 product as three tf32 products (big.big + big.small + small.big, big
+= tf32(x), small = tf32(x - big); :func:`flash_tf32x3_ref` emulates it),
+where TMA can read q, k, v and out (16-byte aligned base addresses and
+strides); head dim 256, and float32 that TMA cannot read, run
+``flash_fwd_kernel`` on CUDA cores.  The kernels have head dims 32, 64, 128
+and 256; any other D up to 256 is padded with zero columns to the next of
+them, scaled by ``1/sqrt(D)`` of the true D and sliced back, which leaves
+every score and output unchanged.  A bfloat16 call that the tensor-core
+kernel cannot take raises; nothing falls back or is retried.
 
 :func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
 k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
@@ -24,9 +29,10 @@ v may be any strided views whose last dimension is contiguous, so
 
 The plain version is ``kernels.ref.mha_ref``, the same function.  On CPU
 tensors the wrapper runs it and counts ``COUNT.plain``; on CUDA tensors it
-launches a kernel (``COUNT.launches``; ``COUNT.wgmma`` counts those of the
-bfloat16 kernel) or raises.  It raises when
-autograd would need a gradient: the reference defines none.
+launches a kernel (``COUNT.launches``; ``COUNT.wgmma`` and ``COUNT.tf32``
+count those of the bfloat16 and the float32 tensor-core kernel) or
+raises.  It raises when autograd would need a gradient: the reference
+defines none.
 """
 from __future__ import annotations
 
@@ -38,10 +44,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import mha_ref
+from repro_torch.kernels.ref import NEG_INF, mha_ref
 
 HEAD_DIMS = (32, 64, 128, 256)   # the kernels' instances on the card
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CUDA_CORE_KERNEL = "flash_fwd_kernel"
+WGMMA_KERNEL = "flash_fwd_wgmma_kernel"      # bfloat16, tensor cores
+TF32_KERNEL = "flash_fwd_tf32_kernel"        # float32, tensor cores
+_KERNEL_CODE = {CUDA_CORE_KERNEL: 0, WGMMA_KERNEL: 1, TF32_KERNEL: 2}
 _MAX_SMEM = 232_448          # bytes of shared memory one H100 block can use
 _TMA_ALIGN = 16              # bytes: TMA base address and stride alignment
 
@@ -50,11 +60,13 @@ _TMA_ALIGN = 16              # bytes: TMA base address and stride alignment
 class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
     wgmma: int = 0           # of them, bfloat16 tensor-core launches
+    tf32: int = 0            # of them, float32 tensor-core launches
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
         self.launches = 0
         self.wgmma = 0
+        self.tf32 = 0
         self.plain = 0
 
 
@@ -69,9 +81,9 @@ def _library() -> ctypes.CDLL:
         lib = build.load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = (
-            [i, i] + [p] * 4 + [i] * 9 + [p, ctypes.c_float, p])
+            [i, i, i] + [p] * 4 + [i] * 9 + [p, ctypes.c_float, p])
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_smem_bytes.argtypes = [i, i, i, i]
+        lib.flash_attention_smem_bytes.argtypes = [i] * 5
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -113,20 +125,51 @@ def _check(q, k, v, window: int, bq: int, bk: int):
     return bq, bk
 
 
+def _tma_aligned(t) -> bool:
+    """Whether TMA can read t: its base address and the strides of its
+    first three dimensions are multiples of 16 bytes.  A stride of a
+    dimension of size 1 is never used and is not checked."""
+    nbytes = t.element_size()
+    return t.data_ptr() % _TMA_ALIGN == 0 and all(
+        (st * nbytes) % _TMA_ALIGN == 0
+        for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 def _check_wgmma(q, k, v, out) -> None:
     """Raise on what the bfloat16 tensor-core kernel does not take: a base
     address or stride of q, k, v or out that is not a multiple of 16 bytes
-    (TMA reads q, k and v; out is written two columns at a time).  A
-    stride of a dimension of size 1 is never used and is not checked."""
+    (TMA reads q, k and v; out is written two columns at a time)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        nbytes = t.element_size()
-        if t.data_ptr() % _TMA_ALIGN or any(
-                (st * nbytes) % _TMA_ALIGN
-                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+        if not _tma_aligned(t):
             raise ValueError(
                 f"bfloat16 flash attention needs {name}'s base address and "
                 f"strides to be multiples of {_TMA_ALIGN} bytes; got "
                 f"strides {t.stride()} at address {t.data_ptr()}")
+
+
+def kernel_for(q, k, v, out=None) -> str:
+    """The kernel a call on the card runs for these tensors (the instance
+    rule), from dtype, head dim and alignment alone, before any launch:
+
+    * bfloat16 at an instance head dim up to 128: ``flash_fwd_wgmma_kernel``
+      (which raises on a layout TMA cannot read);
+    * float32 there whose q, k, v and ``out`` (if given) TMA can read, or
+      whose head dim is padded (the launch then takes new contiguous
+      tensors): ``flash_fwd_tf32_kernel``;
+    * anything else, head dim 256 in either dtype and float32 that TMA
+      cannot read: ``flash_fwd_kernel`` on CUDA cores.
+
+    Every float32 call thus has a kernel: the rule narrows nothing."""
+    D = q.shape[3]
+    Dk = instance_dim(D)
+    if Dk > 128:
+        return CUDA_CORE_KERNEL
+    if q.dtype == torch.bfloat16:
+        return WGMMA_KERNEL
+    tensors = (q, k, v) if out is None else (q, k, v, out)
+    if Dk != D or all(_tma_aligned(t) for t in tensors):
+        return TF32_KERNEL
+    return CUDA_CORE_KERNEL
 
 
 def instance_dim(D: int) -> int:
@@ -174,35 +217,52 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Dk = instance_dim(q.shape[3])
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    kernel = kernel_for(q, k, v, out)
     if Dk == q.shape[3]:
-        return _launch(q, k, v, out, causal, window, bq, bk)
+        return _launch(q, k, v, out, kernel, causal, window, bq, bk)
     padded = _launch(_pad(q, Dk), _pad(k, Dk), _pad(v, Dk),
                      torch.empty(q.shape[:3] + (Dk,), dtype=q.dtype,
                                  device=q.device),
-                     causal, window, bq, bk, scale=1.0 / math.sqrt(q.shape[3]))
+                     kernel, causal, window, bq, bk,
+                     scale=1.0 / math.sqrt(q.shape[3]))
     return out.copy_(padded[..., :q.shape[3]])
 
 
-def _launch(q, k, v, out, causal, window, bq, bk, scale=None):
-    """One launch at an instance's head dim; ``scale`` defaults to
-    ``1/sqrt(D)``."""
+def _flash_attention_instance(q, k, v, *, kernel: str, causal: bool = True,
+                              window: int = 0, bq: int = 128, bk: int = 128):
+    """:func:`flash_attention` on the card through the named kernel, at an
+    instance head dim (float32 on CUDA cores where the rule picks the tf32
+    kernel, to time the two side by side); raises where that kernel does
+    not take the inputs."""
+    bq, bk = _check(q, k, v, window, bq, bk)
+    if q.device.type != "cuda" or instance_dim(q.shape[3]) != q.shape[3]:
+        raise ValueError("want CUDA tensors at an instance head dim")
+    if kernel != CUDA_CORE_KERNEL and kernel != kernel_for(q, k, v):
+        raise ValueError(f"{kernel} does not take these inputs")
+    return _launch(q, k, v, torch.empty_like(q), kernel, causal, window, bq,
+                   bk)
+
+
+def _launch(q, k, v, out, kernel, causal, window, bq, bk, scale=None):
+    """One launch of ``kernel`` at an instance's head dim; ``scale``
+    defaults to ``1/sqrt(D)``."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    tensor_core = q.dtype == torch.bfloat16 and D <= 128
-    if tensor_core:
+    if kernel == WGMMA_KERNEL:
         _check_wgmma(q, k, v, out)
     lib = _library()
-    smem = lib.flash_attention_smem_bytes(_DTYPE_CODE[q.dtype], D, bq, bk)
+    code, dtype = _KERNEL_CODE[kernel], _DTYPE_CODE[q.dtype]
+    smem = lib.flash_attention_smem_bytes(code, dtype, D, bq, bk)
     if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"bq={bq}, bk={bk} at D={D} do not fit in shared "
-                         "memory")
+        raise ValueError(f"{kernel} does not take bq={bq}, bk={bk} at D={D} "
+                         f"in {q.dtype}")
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
                                       for s in _strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, Hq, Hq // Hkv, Sq, Sk, bq, bk,
+            code, dtype, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, Hq, Hq // Hkv, Sq, Sk, bq, bk,
             int(bool(causal)), int(window), strides,
             1.0 / math.sqrt(D) if scale is None else scale, stream)
     if rc != 0:
@@ -210,5 +270,87 @@ def _launch(q, k, v, out, causal, window, bq, bk, scale=None):
                            f"error {rc} (10000 + n: TMA tensor map encoding "
                            f"failed with CUresult n)")
     COUNT.launches += 1
-    COUNT.wgmma += tensor_core
+    COUNT.wgmma += kernel == WGMMA_KERNEL
+    COUNT.tf32 += kernel == TF32_KERNEL
     return out
+
+
+# ---------------------------------------------------------------------------
+# the float32 tensor-core kernel's numerics, in plain torch
+# ---------------------------------------------------------------------------
+_LOG2E = 1.4426950408889634
+SPLITS = ("tf32x3", "tf32", "bf16x3")
+
+
+def _tf32(x):
+    """x rounded to tf32 as ``cvt.rna.tf32.f32`` does: to 10 mantissa bits,
+    to nearest, ties away from zero (the 13 low bits of the float32 zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, split: str):
+    """a @ b of float32 operands as the kernel's tensor cores form it:
+    ``tf32x3`` big.big + big.small + small.big with big = tf32(x), small =
+    tf32(x - big); ``tf32`` one product of tf32(a) and tf32(b); ``bf16x3``
+    as tf32x3 with bf16 hi and lo.  Every sum is f32."""
+    if split == "tf32":
+        return _tf32(a) @ _tf32(b)
+    rnd = _tf32 if split == "tf32x3" else (
+        lambda t: t.bfloat16().float())
+    a_big, b_big = rnd(a), rnd(b)
+    a_small, b_small = rnd(a - a_big), rnd(b - b_big)
+    return a_big @ b_big + a_big @ b_small + a_small @ b_big
+
+
+def piece_width(bk: int) -> int:
+    """Keys per softmax update of the float32 tensor-core kernel for a KV
+    tile of ``bk`` keys: bk at 32, 64 or 128; 128 where bk is a multiple
+    of 128; else 64 (the last piece of a tile cut at its end)."""
+    return bk if bk in (32, 64) else 128 if bk % 128 == 0 else 64
+
+
+def flash_tf32x3_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                     bq: int = 128, bk: int = 128, split: str = "tf32x3"):
+    """``flash_fwd_tf32_kernel``'s function in plain torch, float32 in and
+    out: q.k and p.v as :func:`_product` of ``split`` (``tf32x3`` the
+    kernel's; ``tf32`` and ``bf16x3`` the two controls its gate must tell
+    apart), the online softmax in base 2 (scores times
+    ``f32(1/sqrt(D)) * f32(log2 e)``, ``exp2``) once per piece of
+    :func:`piece_width` keys of each bk tile, the finite -1e30 mask, keys
+    of a piece past its tile at -inf, l the f32 sum of f32 p, acc /
+    max(l, 1e-30).  ``bq`` changes nothing: the kernel skips only tiles
+    whose skipping is exact."""
+    if split not in SPLITS:
+        raise ValueError(f"split must be one of {SPLITS}; got {split!r}")
+    B, Hq, Sq, D = q.shape
+    Sk, G = k.shape[2], Hq // k.shape[1]
+    bk = min(bk, Sk)
+    kq, vq = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
+    q = q.float()
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+                  * torch.tensor(_LOG2E, dtype=torch.float32)).item()
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    acc = torch.zeros(B, Hq, Sq, D, device=q.device)
+    m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros(B, Hq, Sq, 1, device=q.device)
+    width = piece_width(bk)
+    for t0 in range(0, Sk, bk):
+        for c0 in range(t0, t0 + bk, width):
+            c1 = min(c0 + width, t0 + bk)
+            kpos = torch.arange(c0, c1, device=q.device)[None, :]
+            x = _product(q, kq[:, :, c0:c1].transpose(2, 3), split)
+            x = x * scale_log2
+            keep = torch.ones(Sq, c1 - c0, dtype=torch.bool, device=q.device)
+            if causal:
+                keep = kpos <= qpos
+            if window:
+                keep = keep & (kpos > qpos - window)
+            x = torch.where(keep, x, torch.tensor(NEG_INF, device=q.device))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _product(p, vq[:, :, c0:c1], split)
+            m = m_new
+    return acc / torch.clamp(l, min=1e-30)

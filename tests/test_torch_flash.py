@@ -192,36 +192,63 @@ def test_row_with_every_key_masked_is_mean_of_v(causal):
 
 
 def test_kernel_source_keeps_the_reference_numerics():
-    """Both kernels keep the reference's numerics: masked scores are the
+    """The kernels keep the reference's numerics: masked scores are the
     finite -1e30 and the output divides by max(l, 1e-30).  The bfloat16
     kernel adds p.v as p_hi.V + p_lo.V into one f32 accumulator, with
-    p_hi = bf16(p) and p_lo = bf16(p - p_hi); the float32 kernel keeps p
-    f32 on CUDA cores, unchanged.  The dtype and the head dim pick the
-    kernel: bfloat16 runs the CUDA-core kernel at D = 256 alone, where the
-    tensor-core kernel has no instance, so there is no bfloat16 fallback
-    to it; the plain version is ``mha_ref``."""
+    p_hi = bf16(p) and p_lo = bf16(p - p_hi).  The float32 tensor-core
+    kernel forms q.k and p.v each as three tf32 products into one f32
+    accumulator (big.big + big.small + small.big, big = tf32(x) by
+    cvt.rna, small = tf32(x - big)), p.v per piece in an accumulator of
+    its own that an f32 FMA adds to acc.  The CUDA-core kernel (D = 256,
+    float32 that TMA cannot read) keeps p f32, unchanged.  The caller
+    names the kernel and the C side only checks it; the instance rule
+    ``kernel_for`` picks it from dtype, head dim and alignment, and there
+    is no bfloat16 instance of the CUDA-core kernel below D = 256; the
+    plain version is ``mha_ref``."""
     src = CSRC.read_text()
+    hopper = (CSRC.parent / "hopper.cuh").read_text()
     assert "constexpr float kNegInf = -1e30f;" in src
     assert "pallas_call at :93" in src
-    # bfloat16: the guarded divide, the hi + lo split, two wgmmas into acc
-    assert "const float li = fmaxf(l[i], 1e-30f);" in src
+    # both tensor-core kernels: the guarded divide of the accumulator
+    assert src.count("const float li = fmaxf(l[i], 1e-30f);") == 2
     assert "acc[cb * 4 + 2 * i] / li" in src
+    # bfloat16: the hi + lo split, two wgmmas into acc
     assert "const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);" in src
     assert ("__floats2bfloat162_rn(x0 - __low2float(h),\n"
             "                                                 x1 - "
             "__high2float(h));") in src
     assert re.search(r"Wgmma<D>::rs_tb\(acc, p_hi\[j\]\[ks\], vd\);\s*"
                      r"Wgmma<D>::rs_tb\(acc, p_lo\[j\]\[ks\], vd\);", src)
-    # float32: the CUDA-core kernel as it was
+    # float32 on the tensor cores: big = tf32(x), small = tf32(x - big),
+    # three products into one accumulator for q.k and for p.v
+    assert 'asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));' in hopper
+    assert "small = tf32_rna(x - __uint_as_float(big));" in hopper
+    assert re.search(
+        r"WgmmaTf32<N>::ss\(s\[j\], kmajor\(qb_addr \+ qo\), "
+        r"kmajor\(kb_addr \+ ko\),\s*kk > 0\);\s*"
+        r"WgmmaTf32<N>::ss\(s\[j\], kmajor\(qb_addr \+ qo\), "
+        r"kmajor\(ks_addr \+ ko\),\s*1\);\s*"
+        r"WgmmaTf32<N>::ss\(s\[j\], kmajor\(qs_addr \+ qo\), "
+        r"kmajor\(kb_addr \+ ko\),\s*1\);", src)
+    assert re.search(
+        r"WgmmaTf32<D>::rs\(pv, big\[0\], [^;]*kmajor\(vb_addr \+ vo\), "
+        r"j > 0 \|\| ks > 0\);\s*WgmmaTf32<D>::rs\(pv, big\[0\], [^;]*"
+        r"kmajor\(vsm_addr \+ vo\), 1\);\s*WgmmaTf32<D>::rs\(pv, sml\[0\], "
+        r"[^;]*kmajor\(vb_addr \+ vo\), 1\);", src)
+    # each piece's p.v in an accumulator of its own, folded in by an FMA
+    assert "acc[e] = fmaf(acc[e], alpha[(e / 2) % 2], pv[e]);" in src
+    # the CUDA-core kernel as it was
     assert "l = fmaxf(l_s[row], 1e-30f)" in src and "acc[r][c] / l" in src
     assert "fmaf(pv[r], vv[c], acc[r][c])" in src
+    # the kernel named by the caller
+    assert "if (kernel == 2)\n    return tf::run(" in src
+    assert "if (kernel == 1)\n    return wg::run(" in src
     assert "if (dtype == 0)\n    return dispatch<float>(" in src
-    assert "if (dtype == 1)\n    return wg::run(" in src
-    assert ("if (dtype == 1 && D == 256)\n"
-            "    return launch_d<__nv_bfloat16, 256>(") in src
+    assert "  return launch_d<__nv_bfloat16, 256>(" in src
     assert "dispatch<__nv_bfloat16>" not in src
     assert "mha_ref(q, k, v, causal=causal, window=window)" in \
         inspect.getsource(fa.flash_attention)
+    assert "kernel_for(q, k, v, out)" in inspect.getsource(fa.flash_attention)
 
 
 def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True):
@@ -440,6 +467,12 @@ def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
     (1, 4, 4, 256, 256, 64, False, 0, 32, 256, "float32"),
     (1, 2, 1, 128, 128, 32, True, 0, 32, 32, "float32"),
     (1, 4, 2, 256, 64, 32, True, 32, 64, 32, "float32"),
+    # float32 on the tensor cores at D = 32, 64, 128: a q tile of one and
+    # of two warpgroups, two 128-key pieces of a 256-key tile, bk = 48
+    (1, 2, 1, 128, 128, 32, True, 0, 128, 64, "float32"),
+    (1, 4, 2, 256, 256, 64, True, 0, 256, 256, "float32"),
+    (1, 4, 2, 384, 384, 128, True, 64, 64, 48, "float32"),
+    (1, 2, 2, 384, 384, 128, False, 0, 96, 128, "float32"),
     (1, 4, 2, 512, 512, 128, True, 0, 256, 256, "bfloat16"),
     (1, 2, 1, 128, 128, 32, True, 0, 32, 32, "bfloat16"),
     (1, 4, 2, 256, 64, 32, True, 32, 64, 32, "bfloat16"),
@@ -467,5 +500,26 @@ def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
     torch.cuda.synchronize()
     assert fa.COUNT.launches == 1 and fa.COUNT.plain == 0
     assert fa.COUNT.wgmma == (dt == "bfloat16")
+    assert fa.COUNT.tf32 == (dt == "float32")
     _close(out.float().cpu(),
            mha_ref(q, k, v, causal=causal, window=window).float().cpu(), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_float32_cuda_core_kernel_on_card(D):
+    """float32 that TMA cannot read (k's rows 65 floats apart) and float32
+    at D = 256 run the CUDA-core kernel, and match the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device; compared against its plain version by "
+                    "chip_smoke.py")
+    q, k, v = (_torch(a).cuda() for a in _inputs(1, 4, 2, 256, D, "float32"))
+    if D == 64:
+        wide = torch.zeros(1, 2, 256, D + 1, device="cuda")
+        wide[..., :D] = k
+        k = wide[..., :D]
+    fa.COUNT.reset()
+    out = ops.flash_attention(q, k, v, causal=True, bq=64, bk=32)
+    torch.cuda.synchronize()
+    assert (fa.COUNT.launches, fa.COUNT.tf32, fa.COUNT.wgmma) == (1, 0, 0)
+    _close(out.cpu(), mha_ref(q, k, v, causal=True).cpu(), "float32")
