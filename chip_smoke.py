@@ -17,7 +17,15 @@ really ran there:
   minitron-8b's) beside its bytes bound, SDPA and the plain version;
 * ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
   50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
-  plain path, then ``BatchedServer`` serving requests on the same model;
+  plain path, then ``BatchedServer`` serving requests on the same model.
+  Every bf16 call runs launches 1 and 3 on the tensor cores
+  (``chunk_state_wgmma_kernel``, ``chunk_scan_wgmma_kernel``: both SASS
+  must hold bf16 ``HGMMA``, their CUDA-core siblings none, and a profiled
+  forward must show each once a layer).  Before it the scan is held to
+  two gates at the main shape: the share of bf16 y that differs from
+  ``ssd_ref`` and the final state's error, which controls keeping W and
+  the carried state (launch 3) or x o w (launch 1) in bf16 alone fail;
+  and timed by launch beside each launch's bound;
 * kernel search: both rungs of the ``kernel`` fidelity ladder
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
@@ -83,13 +91,15 @@ SPIN_CYCLES = 2_000_000   # ~1 ms of the card's clock queued before each rep
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
 TF32_KERNEL = "flash_fwd_tf32_kernel"             # f32 flash attention
 F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores: D = 256, unaligned f32
+SSD_STATE_KERNEL = "chunk_state_wgmma_kernel"     # bf16 ssd_scan, launch 1
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
-SSD_LAUNCHES = ("chunk_state_kernel", "state_pass_kernel",
+SSD_LAUNCHES = (SSD_STATE_KERNEL, "state_pass_kernel",
                 SSD_WGMMA_KERNEL)                 # one ssd_scan call, bf16
+SSD_CUDA_CORE = ("chunk_state_kernel", "chunk_scan_kernel")  # their siblings
 KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 DECODE_KERNEL = "decode_attention_kernel"        # one launch a call
-PORT_KERNEL_NAMES = (DECODE_KERNEL, "chunk_state_kernel", "state_pass_kernel",
-                     "chunk_scan_kernel", SSD_WGMMA_KERNEL,
+PORT_KERNEL_NAMES = (DECODE_KERNEL, "chunk_state_kernel", SSD_STATE_KERNEL,
+                     "state_pass_kernel", "chunk_scan_kernel", SSD_WGMMA_KERNEL,
                      "flash_fwd_kernel", "flash_fwd_wgmma_kernel",
                      "flash_fwd_tf32_kernel")  # the __global__s of csrc/
 
@@ -112,6 +122,9 @@ SSM_SERVE_SEQ = 128
 # name, B, S (the train_4k length), Hq, Hkv, D, window
 FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
               ("gemma3-27b local layer", 1, 4096, 32, 16, 128, 1024)]
+# the CUDA-core flash kernel's own shape: gemma-7b prefill (head dim 256,
+# configs/gemma_7b.py), bf16 through ops.mha, causal
+FLASH_D256 = ("gemma-7b prefill", 1, 4096, 16, 16, 256)
 # the split-p gate at those shapes, bf16 outputs against mha_ref: the
 # largest abs error (atol only) and the share of outputs that differ
 SPLIT_MAX_ABS, SPLIT_DIFF_SHARE = 8e-3, 0.02
@@ -123,6 +136,19 @@ TF32_GATE = 8e-6
 # W and the state as bf16 hi + lo differ in ~0.2 % (float64 emulation at
 # the model's widths); either kept to bf16 alone, in 19-33 %.
 SSD_SPLIT_SHARE = 0.01
+# the ssd state gate: the state leaving each chunk against ssd_ref's,
+# relative in norm, at the worst chunk (each chunk's own state from launch 1
+# enters the next chunk's state undecayed, so every chunk is held).  Float64
+# emulation (ssd_split_ref; tests/test_torch_ssd_split.py's inputs, B=1,
+# L=1024, H=4, 4 chunks, and ssd_gate_phase's log at the main shape): x o w
+# as bf16 hi + lo 2.4-2.7e-6 from the exact states at the worst chunk; f32
+# ssd_ref_states itself up to 7.5e-6; x o w in bf16 alone 1.52e-3 or more
+# at every chunk.  The limit is 19x the split's, room for the card's
+# truncating sums and ssd_ref's own f32 error, and 30x below the control.
+# (The y gate alone does not see x o w in bf16 at the model's steps: the
+# share of y it moves stays under SSD_SPLIT_SHARE there; ssd_gate_phase
+# logs it.)
+SSD_STATE_REL = 5e-5
 DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
 DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
               "decode_attention": TOL[torch.float32],
@@ -401,7 +427,7 @@ def _ssd_compare(name, args, chunk):
     x, _, _, Bm, _, D = args
     log(f"ssd_scan {name}: x {tuple(x.shape)} {str(dt)[6:]} N={Bm.shape[-1]} "
         f"chunk={chunk} D {str(D.dtype)[6:]} strides {x.stride()} "
-        f"[{SSD_WGMMA_KERNEL if tc else 'chunk_scan_kernel'}]: "
+        f"[{', '.join(SSD_LAUNCHES[::2] if tc else SSD_CUDA_CORE)}]: "
         f"y max_abs_err={err:.3e} (tol {5 * TOL[dt]:g} abs+rel), state "
         f"max_abs_err={serr:.3e} (tol 1e-4 abs+rel)")
     if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
@@ -417,9 +443,9 @@ def _ssd_compare(name, args, chunk):
 def check_ssd_scan():
     """The sweep of tests/test_kernels.py:39-43, bf16 D, the model's
     strided layout, chunk invariance, bf16 shapes on the tensor-core
-    instance (zamba2's widths; chunks of 128), and the main path's shape,
-    each held at today's tolerances; each case must run the instance that
-    ``ssd.uses_tensor_cores`` names."""
+    instances (zamba2's widths; chunks of 128; chunks of 1024, whose Bm
+    rows launch 1 takes in two column slices), and the main path's shape,
+    each held at today's tolerances."""
     cases = [   # name, B, L, H, P, N, chunk, dtype, d_dtype, strided
         ("test_kernels 1", 2, 256, 3, 64, 32, 64, torch.float32,
          torch.float32, False),
@@ -441,13 +467,13 @@ def check_ssd_scan():
          torch.bfloat16, True),
         ("P=16 N=32", 1, 512, 2, 16, 32, 64, torch.bfloat16, torch.float32,
          False),
+        ("Q=1024 N=128: launch 1 in two column slices, 6 heads", 1, 2048, 6,
+         64, 128, 1024, torch.bfloat16, torch.bfloat16, True),
     ]
     for i, (name, B, L, H, P, N, chunk, dt, ddt, strided) in enumerate(cases):
         args = ssd_inputs(B, L, H, P, N, dt, seed=10 + i, d_dtype=ddt,
                           strided=strided)
-        want = ssd.uses_tensor_cores(args[0], args[3], args[4], chunk)
-        if _ssd_compare(name, args, chunk)[3] != want:
-            raise AssertionError(f"ssd_scan at {name} ran the wrong instance")
+        _ssd_compare(name, args, chunk)
     args = ssd_inputs(1, 256, 2, 32, 16, torch.float32, seed=30)
     _, y64, s64, _ = _ssd_compare("chunk 64", args, 64)
     _, y256, s256, _ = _ssd_compare("chunk 256", args, 256)
@@ -459,48 +485,58 @@ def check_ssd_scan():
     err, _, _, tc = _ssd_compare("main path", ssd_main_inputs(), SSD_MAIN[-1])
     if not tc:
         raise AssertionError("the main path's shape did not run "
-                             f"{SSD_WGMMA_KERNEL}")
+                             f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
     return err
 
 
-def ssd_split_ref(x, dt, A, Bm, Cm, D, chunk, *, split=True):
-    """``ssd_ref``'s function with the tensor-core instance's roundings:
-    W = (C.B^T) o L o dt and the state entering each chunk kept as bf16
-    hi + lo (``split``), or rounded to bf16 alone (the control the gate
-    must fail, as ``mha_p_bf16`` is for flash); x, Bm, Cm as given, every
-    sum f32, the chunk states themselves f32 as launches 1 and 2 keep
-    them."""
-    def rnd(t):
-        hi = t.bfloat16().float()
-        return hi + (t - hi).bfloat16().float() if split else hi
+def ssd_split_ref(x, dt, A, Bm, Cm, D, chunk, *, split=True, state_split=True,
+                  dtype=torch.float32):
+    """``ssd_ref``'s function with the tensor-core instances' roundings;
+    returns (y in x's dtype, the state leaving each chunk (B, H, L/Q, P, N)
+    in ``dtype``, the final state last).  Launch 1's
+    x o w (w = dt exp(cum[Q-1] - cum), each chunk's own state) is kept as
+    bf16 hi + lo (``state_split`` True) or rounded to bf16 alone (False:
+    the control the state gate must fail); launch 3's W = (C.B^T) o L o dt
+    and the state entering each chunk likewise (``split``; False is the
+    control the y gate must fail, as ``mha_p_bf16`` is for flash); None
+    keeps a value as it is.  x, Bm, Cm as given, every sum in ``dtype``
+    (float32 as the kernels sum; float64 sets the gates' limits)."""
+    def rnd(t, mode):
+        if mode is None:
+            return t
+        hi = t.bfloat16().to(dtype)
+        return hi + (t - hi).bfloat16().to(dtype) if mode else hi
     B_, L, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, L)
     n = L // Q
-    a = (dt * A.float()[None, None, :]).reshape(B_, n, Q, H)
+    dt = dt.to(dtype)
+    a = (dt * A.to(dtype)[None, None, :]).reshape(B_, n, Q, H)
     dt_c = dt.reshape(B_, n, Q, H)
-    x_c = x.float().reshape(B_, n, Q, H, P)
-    B_c = Bm.float().reshape(B_, n, Q, N)
-    C_c = Cm.float().reshape(B_, n, Q, N)
+    x_c = x.to(dtype).reshape(B_, n, Q, H, P)
+    B_c = Bm.to(dtype).reshape(B_, n, Q, N)
+    C_c = Cm.to(dtype).reshape(B_, n, Q, N)
     keep = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    state = torch.zeros(B_, H, P, N, device=x.device)
-    ys = []
+    state = torch.zeros(B_, H, P, N, dtype=dtype, device=x.device)
+    ys, states = [], []
     for c in range(n):
         cum = a[:, c].transpose(1, 2).cumsum(-1)                 # (B, H, Q)
         seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, 0)
         G = torch.einsum("bqn,bsn->bqs", C_c[:, c], B_c[:, c])
         W = torch.where(keep, G[:, None] * torch.exp(seg)
                         * dt_c[:, c].transpose(1, 2)[:, :, None, :], 0.0)
-        y = torch.einsum("bhqs,bshp->bqhp", rnd(W), x_c[:, c])
-        y = y + torch.einsum("bqn,bhpn->bqhp", C_c[:, c], rnd(state)) \
+        y = torch.einsum("bhqs,bshp->bqhp", rnd(W, split), x_c[:, c])
+        y = y + torch.einsum("bqn,bhpn->bqhp", C_c[:, c], rnd(state, split)) \
             * torch.exp(cum).transpose(1, 2)[..., None]
         ys.append(y)
-        to_end = torch.exp(cum[..., -1:] - cum)                   # (B, H, Q)
+        w = dt_c[:, c] * torch.exp(cum[..., -1:] - cum).transpose(1, 2)
+        xw = rnd(x_c[:, c] * w[..., None], state_split)       # (B, Q, H, P)
         state = state * torch.exp(cum[..., -1])[..., None, None] + \
-            torch.einsum("bqn,bhq,bqhp->bhpn", B_c[:, c], to_end,
-                         x_c[:, c] * dt_c[:, c][..., None])
+            torch.einsum("bqn,bqhp->bhpn", B_c[:, c], xw)
+        states.append(state)
     y = torch.stack(ys, dim=1).reshape(B_, L, H, P)
-    return (y + x.float() * D.float()[None, None, :, None]).to(x.dtype)
+    return ((y + x.to(dtype) * D.to(dtype)[None, None, :, None]).to(x.dtype),
+            torch.stack(states, dim=2))
 
 
 def ssd_split_gate(y, ref):
@@ -510,11 +546,54 @@ def ssd_split_gate(y, ref):
     return share, share <= SSD_SPLIT_SHARE
 
 
+def ssd_ref_states(x, dt, A, Bm, Cm, D, chunk):
+    """``ssd_ref``'s state leaving each chunk, (B, H, L/Q, P, N) f32, the
+    final state last: each chunk's own state is ssd_ref's final state of
+    that chunk alone (one call on the chunks as a batch of sequences),
+    carried from chunk to chunk as ssd_ref carries it."""
+    B_, L, H, P = x.shape
+    N, Q = Bm.shape[-1], min(chunk, L)
+    n = L // Q
+
+    def chunks(t):
+        return t.reshape(B_ * n, Q, *t.shape[2:])
+    own = ssd_ref(chunks(x), chunks(dt), A, chunks(Bm), chunks(Cm), D, Q)[1]
+    own = own.reshape(B_, n, H, P, N)
+    total = torch.exp((dt * A.float()[None, None, :]).reshape(B_, n, Q, H)
+                      .cumsum(2)[:, :, -1])                     # (B, n, H)
+    state = torch.zeros_like(own[:, 0])
+    states = []
+    for c in range(n):
+        state = state * total[:, c, :, None, None] + own[:, c]
+        states.append(state)
+    return torch.stack(states, dim=2)
+
+
+def ssd_state_errors(states, ref):
+    """Each chunk's error of the states leaving the chunks, (..., n, P, N),
+    against ``ref``'s, relative in norm over the other axes: (n,) float64."""
+    d = (states.double() - ref.double()).movedim(-3, 0).flatten(1)
+    return d.norm(dim=1) / ref.double().movedim(-3, 0).flatten(1).norm(dim=1)
+
+
+def ssd_state_gate(states, ref):
+    """The worst chunk's error of the states leaving the chunks against
+    ``ref`` (``ssd_ref_states``'), and whether it is within SSD_STATE_REL."""
+    err = ssd_state_errors(states, ref).max().item()
+    return err, err <= SSD_STATE_REL
+
+
 def ssd_gate_phase():
-    """The split gate at the main shape (the model's steps: cum falls to
+    """The split gates at the main shape (the model's steps: cum falls to
     about -200 in a chunk) and with slow decay (dt scaled by 0.05, so the
-    carried state reaches deep into a chunk): the kernel passes it, the
-    bf16 control fails it at both."""
+    carried state reaches deep into a chunk).  y: the share of bf16 values
+    that differ from ssd_ref's; the states leaving the chunks (the kernel's
+    states entering chunks 1.. after launch 2, then its final state): the
+    worst chunk's error relative in norm.  The kernel passes both at both
+    inputs; the y gate fails the control that keeps launch 3's W and
+    carried state in bf16 alone, the state gate the one that keeps launch
+    1's x o w in bf16 alone, at every chunk.  The float64 emulation beside
+    them is what SSD_STATE_REL was set from."""
     B, L, H, P, N, chunk = SSD_MAIN
     for name, args in (("model steps", ssd_main_inputs()),
                        ("slow decay", ssd_inputs(
@@ -522,32 +601,71 @@ def ssd_gate_phase():
                            d_dtype=torch.bfloat16, strided=True,
                            dt_scale=0.05))):
         ssd.COUNT.reset()
-        y, _ = ssd.ssd_scan(*args, chunk=chunk)
-        if ssd.COUNT.wgmma != 1:
+        y, st = ssd.ssd_scan(*args, chunk=chunk)
+        if (ssd.COUNT.wgmma, ssd.COUNT.launches) != (1, 1):
             raise AssertionError("the gate's input did not run "
-                                 f"{SSD_WGMMA_KERNEL}")
-        ref = ssd_ref(*args, chunk)[0]
+                                 f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
+        y2, st2, entering = ssd._ssd_scan_instance(*args, chunk=chunk,
+                                                   tensor_core=True)
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError("ssd_scan and its tensor-core instance differ")
+        states = torch.cat([entering[:, :, 1:], st[:, :, None]], dim=2)
+        del y2, st2, entering
+        ref, ref_st = ssd_ref(*args, chunk)
+        ref_states = ssd_ref_states(*args, chunk)
         share, ok = ssd_split_gate(y, ref)
-        emu_share, emu_ok = ssd_split_gate(ssd_split_ref(*args, chunk), ref)
+        errs = ssd_state_errors(states, ref_states)
+        s_err, s_ok = ssd_state_gate(states, ref_states)
+        f_err = ssd_state_errors(st[:, :, None], ref_st[:, :, None]).item()
+        emu_y, emu_st = ssd_split_ref(*args, chunk)
         c_share, c_ok = ssd_split_gate(
-            ssd_split_ref(*args, chunk, split=False), ref)
+            ssd_split_ref(*args, chunk, split=False)[0], ref)
+        cs_y, cs_states = ssd_split_ref(*args, chunk, state_split=False)
+        c_errs = ssd_state_errors(cs_states, ref_states)
+        cs_share = ssd_split_gate(cs_y, ref)[0]
+        del cs_y, cs_states
+        exact = ssd_split_ref(*args, chunk, split=None, state_split=None,
+                              dtype=torch.float64)[1]
+        f64 = {tag: ssd_state_errors(ssd_split_ref(
+            *args, chunk, dtype=torch.float64, state_split=mode)[1], exact)
+            for tag, mode in (("hi + lo", True), ("bf16", False))}
         log(f"ssd_scan split gate, {name} (bf16 y differing from ssd_ref <= "
-            f"{SSD_SPLIT_SHARE:.0%}): {SSD_WGMMA_KERNEL} {share:.4%}; the "
-            f"split emulation {emu_share:.4%}; the bf16 control "
-            f"{c_share:.4%}")
+            f"{SSD_SPLIT_SHARE:.0%}): kernel {share:.4%}; the split "
+            f"emulation {ssd_split_gate(emu_y, ref)[0]:.4%}; the bf16 control "
+            f"{c_share:.4%}; x o w in bf16 alone (launch 1's control) "
+            f"{cs_share:.4%}")
+        log(f"ssd_scan state gate, {name} (the states leaving each of "
+            f"{errs.numel()} chunks vs ssd_ref's, relative in norm, worst "
+            f"chunk <= {SSD_STATE_REL:g}): kernel {s_err:.3e} (best chunk "
+            f"{errs.min().item():.3e}; the final state {f_err:.3e}); the split "
+            f"emulation {ssd_state_gate(emu_st, ref_states)[0]:.3e}; x o w "
+            f"in bf16 alone {c_errs.min().item():.3e} at its best chunk; "
+            f"float64 emulation against the exact states: hi + lo "
+            f"{f64['hi + lo'].max().item():.3e} at the worst chunk, bf16 "
+            f"alone {f64['bf16'].min().item():.3e} at the best, f32 "
+            f"ssd_ref {ssd_state_gate(ref_states, exact)[0]:.3e} at the "
+            f"worst; ssd_ref_states' last vs ssd_ref's final state "
+            f"{ssd_state_errors(ref_states[:, :, -1:], ref_st[:, :, None]).item():.3e}")
         if c_ok:
             raise AssertionError("the ssd split gate passes the bf16 control")
+        if (c_errs <= SSD_STATE_REL).any():
+            raise AssertionError("the ssd state gate passes the control that "
+                                 "keeps x o w in bf16 at some chunk")
         if not ok:
             raise AssertionError(f"ssd_scan fails the split gate at {name}: "
                                  "W or the state is not kept to hi + lo")
-        del y, ref
+        if not s_ok:
+            raise AssertionError(f"ssd_scan fails the state gate at {name}: "
+                                 "x o w is not kept to hi + lo")
+        del y, st, states, ref, ref_st, ref_states, emu_y, emu_st, exact
 
 
 def measure_ssd_scan():
-    """Times at the main path's shape: the kernel (the tensor-core third
-    launch), the same with the CUDA-core third launch, in turns in this
-    call, and the plain version; each launch's device time in a profiler
-    window.  No single PyTorch call computes the SSD scan, so there is no
+    """Times at the main path's shape: the kernel (launches 1 and 3 on the
+    tensor cores) and the same call with both on CUDA cores, in turns in
+    this call, and the plain version; each launch's device time in
+    profiler windows of both calls, in turns, beside each launch's own
+    bound.  No single PyTorch call computes the SSD scan, so there is no
     library time."""
     B, L, H, P, N, chunk = SSD_MAIN
     args = ssd_main_inputs()
@@ -560,42 +678,76 @@ def measure_ssd_scan():
         (tc_ms if tc else cc_ms).append(time_ms(instance(tc)))
     ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
     plain_ms = time_ms(lambda: ssd_ref(*args, chunk), reps=10)
-    rows = profile_window(lambda: ssd.ssd_scan(*args, chunk=chunk), 5, "call")
-    per = {k: sum(r[0] for r in rows if k in r[1]) / 5 for k in SSD_LAUNCHES}
+
+    def launch_ms(rows, name):
+        return sum(r[0] for r in rows if name in r[1]) / 5
+    per = {k: [] for k in SSD_LAUNCHES + SSD_CUDA_CORE}
+    for tc in (True, False, False, True):
+        rows = profile_window(instance(tc), 5, "call")
+        for k in (SSD_LAUNCHES if tc else SSD_CUDA_CORE + SSD_LAUNCHES[1:2]):
+            per[k].append(launch_ms(rows, k))
+
     Q, n = chunk, L // chunk
     x, dt, A, Bm, Cm, D = args
     el = x.element_size()
-    nbytes = (2 * B * L * H * P * el              # x read, y written
-              + dt.numel() * 4 + A.numel() * 4 + D.numel() * D.element_size()
-              + 2 * B * L * N * el                # Bm, Cm
-              + B * H * P * N * 4)                # final state
+    xb, nb = B * L * H * P * el, B * L * N * el       # x (or y); Bm (or Cm)
+    dtb, cumb = dt.numel() * 4, B * H * n * Q * 4
+    stb = B * H * n * P * N * 4                       # the chunk states, f32
+    small = A.numel() * 4 + D.numel() * D.element_size()
+    nbytes = 2 * xb + dtb + 2 * nb + B * H * P * N * 4 + small
     tri = Q * (Q + 1) // 2
     # C.B^T multiplies two bf16 operands with f32 sums.  The other three
-    # products take an f32 operand (dt x and the decays in W, the state),
-    # each as two bf16 products (hi + lo, held by the split gate): all at
-    # the bf16 rate.
+    # products take an f32 operand (dt x and the decays in W, the state,
+    # x o w), each as two bf16 products (hi + lo, held by the split and
+    # state gates): all at the bf16 rate.
     ops_cb = B * n * tri * N * 2                  # causal, once per (b, c)
-    ops_f32 = B * H * (n * tri * P * 2            # (C.B^T o L o dt) . x
-                       + (n - 1) * Q * P * N * 2  # C . state; zero in chunk 0
-                       + n * Q * P * N * 2)       # each chunk's new state
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (ops_cb + 2 * ops_f32) / PEAK_OPS[torch.bfloat16] * 1e3
-    old_ms = (ops_cb / PEAK_OPS[torch.bfloat16]
-              + ops_f32 / PEAK_OPS[torch.float32]) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"ssd_scan main path: kernel {ms:.4f} ms ({SSD_WGMMA_KERNEL} as "
-        f"launch 3; in turns {' / '.join(f'{t:.4f}' for t in tc_ms)}), the "
-        f"CUDA-core chunk_scan_kernel as launch 3 "
-        f"{' / '.join(f'{t:.4f}' for t in cc_ms)} ms; plain {plain_ms:.4f} "
-        f"ms, no library call; per launch in a profiler window of 5 calls: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
-        + f"; bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s = "
-        f"{bytes_ms:.5f} ms; {ops_cb} flops of C.B^T and 2 x {ops_f32} of "
-        f"hi + lo products at 989 TFLOP/s = {ops_ms:.5f} ms); the old count,"
-        f" the f32-operand products at the f32 rate of 67 TFLOP/s: "
+    ops_w = B * H * n * tri * P * 2               # (C.B^T o L o dt) . x
+    ops_c = B * H * (n - 1) * Q * P * N * 2       # C . state; zero in chunk 0
+    ops_s = B * H * n * Q * P * N * 2             # each chunk's new state
+    ops_f32 = ops_w + ops_c + ops_s
+    rate = PEAK_OPS[torch.bfloat16]
+
+    def bound(nbytes, ops, rate=rate):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+    bound_ms, bound_by = bound(nbytes, ops_cb + 2 * ops_f32)
+    old_ms = (ops_cb / rate + ops_f32 / PEAK_OPS[torch.float32]) * 1e3
+    # each launch's own: what it reads and writes once, its products
+    own = {SSD_STATE_KERNEL: bound(xb + dtb + nb + small + cumb + stb,
+                                   2 * ops_s),
+           "state_pass_kernel": bound(2 * stb + B * H * P * N * 4
+                                      + B * H * n * 4, 2 * B * H * n * P * N,
+                                      PEAK_OPS[torch.float32]),
+           SSD_WGMMA_KERNEL: bound(2 * xb + dtb + 2 * nb + small + cumb + stb,
+                                   ops_cb + 2 * (ops_w + ops_c))}
+    per_launch = []
+    for k in SSD_LAUNCHES:
+        t = per[k]
+        row = dict(name=k, ms=float(np.mean(t)), turns=t, bound_ms=own[k][0],
+                   bound_by=own[k][1])
+        if k != "state_pass_kernel":
+            sib = SSD_CUDA_CORE[k == SSD_WGMMA_KERNEL]
+            row.update(cuda_core=sib, cuda_core_ms=float(np.mean(per[sib])),
+                       cuda_core_turns=per[sib])
+        per_launch.append(row)
+        log(f"ssd_scan launch {k}: {' / '.join(f'{v:.4f}' for v in t)} ms in "
+            f"turns (profiler, 5 calls each), bound {own[k][0]:.5f} ms "
+            f"({own[k][1]}), {row['ms'] / own[k][0]:.2f}x"
+            + (f"; {row['cuda_core']} on the same inputs "
+               f"{' / '.join(f'{v:.4f}' for v in row['cuda_core_turns'])} ms"
+               if "cuda_core" in row else ""))
+    log(f"ssd_scan main path: kernel {ms:.4f} ms (launches 1 and 3 on the "
+        f"tensor cores; in turns {' / '.join(f'{t:.4f}' for t in tc_ms)}), "
+        f"both on CUDA cores {' / '.join(f'{t:.4f}' for t in cc_ms)} ms; "
+        f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.5f} ms "
+        f"({nbytes} bytes at 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.5f}"
+        f" ms; {ops_cb} flops of C.B^T and 2 x {ops_f32} of hi + lo products "
+        f"at 989 TFLOP/s = {(ops_cb + 2 * ops_f32) / rate * 1e3:.5f} ms); the "
+        f"old count, the f32-operand products at the f32 rate of 67 TFLOP/s: "
         f"{old_ms:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by=bound_by, cuda_core_ms=float(np.mean(cc_ms)),
+                per_launch=per_launch)
 
 
 def flash_inputs(B, Hq, Hkv, Sq, D, dtype, seed, Sk=None):
@@ -739,6 +891,25 @@ def check_flash_attention():
         "(tol 1e-5)")
     if diff > 1e-5:
         raise AssertionError("window = Sk differs from causal")
+
+
+def ptxas_entries(text, kernel):
+    """(instance, registers, spill report) of every entry function whose
+    name holds ``kernel`` in ``nvcc -Xptxas -v`` output; the instance is
+    its template arguments as the mangled name gives them."""
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+ bytes stack frame, \d+ bytes spill stores, "
+                          r"\d+ bytes spill loads)", block)
+        args = re.search(r"ILi(\d+)ELi(\d+)E", name)
+        out.append((f"<{args.group(1)}, {args.group(2)}>" if args else name,
+                    regs.group(1) if regs else "?",
+                    spill.group(1) if spill else "no spill report"))
+    return out
 
 
 def check_wgmma_sass(source, kernel, other, operand):
@@ -913,6 +1084,60 @@ def measure_flash_attention():
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out[0], launches
+
+
+def measure_flash_d256():
+    """``ops.mha`` at FLASH_D256, which runs ``flash_fwd_kernel`` on CUDA
+    cores (one counted launch, neither tensor-core kernel), against
+    ``mha_ref`` at the bf16 tolerance, then timed beside the plain version
+    and SDPA ``is_causal``.  The bound counts what the bf16 row counts (q.k
+    once, p.v twice as p_hi + p_lo, at 989 TFLOP/s) against the bytes of
+    q, k, v and o; the f32 rate of the CUDA cores is logged beside it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    name, B, S, Hq, Hkv, D = FLASH_D256
+    q, k, v = flash_full_inputs(B, S, Hq, Hkv, D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.COUNT.reset()
+    o = ops.mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32,
+              fa.COUNT.plain)
+    if counts != (1, 0, 0, 0):
+        raise AssertionError(f"ops.mha at {name}: (launches, wgmma, tf32, "
+                             f"plain) = {counts}, not one {F32_FLASH_KERNEL} "
+                             "launch")
+    ref = mha_ref(qt, kt, vt, causal=True).transpose(1, 2)
+    err = (o.float() - ref.float()).abs().max().item()
+    if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
+            not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
+                               rtol=TOL[q.dtype]):
+        raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
+    del o, ref
+    ms = time_ms(lambda: ops.mha(q, k, v, causal=True), reps=10)
+    plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True), reps=5)
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=10)
+    pairs = B * Hq * _pairs(S, 0)
+    flops = 2 * D * pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * flops / PEAK_OPS[torch.bfloat16] * 1e3
+    f32_rate_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}, "
+        f"causal, ops.mha bf16, {F32_FLASH_KERNEL}): max_abs_err={err:.3e} "
+        f"(tol {TOL[q.dtype]:g} abs+rel); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} "
+        f"ms ({pairs} kept pairs: {flops} flops of q.k and 2 x {flops} of "
+        f"p.v at 989 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s "
+        f"= {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
+        f"kernel/sdpa {ms / library_ms:.2f}, {2 * flops / ms / 1e9:.1f} "
+        f"TFLOP/s of q.k and p.v; both products at the f32 rate of 67 "
+        f"TFLOP/s: {f32_rate_ms:.5f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(shape=name, kernel=F32_FLASH_KERNEL, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def tf32_gate(name, out, ref, q, k, v, *, causal=True, window=0, bq=128,
@@ -1275,10 +1500,11 @@ def ssm_forward_full_width():
             f"{wall * 1e3:.3f} ms/forward, {tokens / wall:.0f} tokens/s; "
             f"ssd_scan launches {launches} = {cfg.n_layers} x "
             f"{SSM_FORWARDS} forwards, {wgmma} of them with "
-            f"{SSD_WGMMA_KERNEL}; plain-version calls {plain}")
+            f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}; plain-version calls "
+            f"{plain}")
         if not launches == wgmma == cfg.n_layers * SSM_FORWARDS or plain:
             raise AssertionError("the ssm forward did not go through the "
-                                 "tensor-core kernel on every layer")
+                                 "tensor-core kernels on every layer")
         t0 = time.perf_counter()
         loss_p = model.loss(params, batch, opts=popts)
         torch.cuda.synchronize()
@@ -1292,6 +1518,12 @@ def ssm_forward_full_width():
             f"{k} {sum(r[0] for r in rows if k in r[1]):.3f} ms "
             f"({sum(r[0] for r in rows if k in r[1]) / busy:.1%} of device "
             f"busy)" for k in SSD_LAUNCHES))
+        shown = {k: sum(r[2] for r in rows if k in r[1])
+                 for k in SSD_LAUNCHES + SSD_CUDA_CORE}
+        if any(shown[k] != cfg.n_layers for k in SSD_LAUNCHES) or any(
+                shown[k] for k in SSD_CUDA_CORE):
+            raise AssertionError(f"the profiled forward shows {shown}, not "
+                                 f"each of {SSD_LAUNCHES} once a layer")
 
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32 = build_model(cfg32)
@@ -1495,6 +1727,9 @@ def main() -> None:
         for line in text.splitlines():    # wgmma serialised, setmaxnreg
             if "Performance Loss" in line or "setmaxnreg" in line:
                 log(f"    {line.strip()[:160]}")
+        if name == "ssd_scan":
+            for kname, regs, spill in ptxas_entries(text, SSD_STATE_KERNEL):
+                log(f"    {kname}: {regs} registers, {spill}")
         if name == "decode_attention":    # its instances must not spill
             reports = re.findall(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
@@ -1513,6 +1748,8 @@ def main() -> None:
     timing = {key: readings[0][key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
 
+    check_wgmma_sass("ssd_scan", SSD_STATE_KERNEL, "chunk_state_kernel",
+                     "BF16")
     check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel",
                      "BF16")
     ssd_err = check_ssd_scan()
@@ -1525,6 +1762,7 @@ def main() -> None:
     check_flash_attention()
     tf32_gate_presets()
     flash_timing, flash_launches = measure_flash_attention()
+    flash_d256 = measure_flash_d256()
     flash_f32_timing = measure_flash_f32()
 
     model, server, launches, run = serve_full_width()
@@ -1539,6 +1777,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     domain_launches = kernel_domain_phase()
+    if ssd.COUNT.wgmma:
+        raise AssertionError(f"the float32 kernel search made {ssd.COUNT.wgmma}"
+                             " ssd_scan launches on the tensor cores")
     if fa.COUNT.wgmma or fa.COUNT.tf32 != fa.COUNT.launches:
         raise AssertionError(f"the float32 kernel search made {fa.COUNT.tf32}"
                              f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
@@ -1557,7 +1798,8 @@ def main() -> None:
         name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
-        launches=flash_launches, **flash_timing), dict(
+        launches=flash_launches, **flash_timing,
+        readings=[flash_d256]), dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",

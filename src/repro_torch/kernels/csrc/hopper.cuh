@@ -131,6 +131,28 @@ __host__ __device__ constexpr uint32_t swizzle(uint32_t off, int sw) {
   return off ^ (((off >> 7) & (uint32_t)(sw / 16 - 1)) << 4);
 }
 
+// Four 8x8 bf16 matrices from shared memory, transposed: lanes 8m .. 8m+7
+// give the addresses of matrix m's eight 16-byte rows, and thread t gets
+// r[m] = {M[2(t%4)][t/4], M[2(t%4)+1][t/4]} (row, element of the row; the
+// lower row in the low half).  Reading a (k, m) tile with k in the rows,
+// that is the wgmma A fragment of its transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// fetches `map` into the cache the TMA unit reads descriptors from
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // a 4-D box of `map` at coordinates (c0, c1, c2, c3), innermost first,
 // into shared memory at dst; completes `bytes` on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

@@ -15,9 +15,24 @@
 // rather than one block walking all the chunks of a (b, h) as the TPU grid
 // does (that gives B*H blocks: 192 at the model's B=8, 24 at B=1, on 132
 // SMs):
-//   1. chunk_state_kernel, grid (chunks, H, B): cum of the chunk (a warp
-//      scan), written out, and the chunk's own (P,N) contribution to the
-//      state at its end.  CUDA cores, f32 sums, every dtype.
+//   1. cum of the chunk (a warp scan), written out, and the chunk's own
+//      (P,N) contribution to the state at its end,
+//      sum_q (x[q] exp(cum[Q-1]-cum[q]) dt[q]) B[q]^T.  Two instances,
+//      chosen with those of launch 3, by the same rule:
+//       * chunk_state_wgmma_kernel (bf16, the shapes of
+//         chunk_scan_wgmma_kernel below), grid (chunks, H/G, B): a block
+//         takes a group of G = 4 heads of one (b, chunk).  Its producer
+//         warp loads the chunk's Bm rows by TMA once for all of them and
+//         streams each head's x in 64-row pieces through a ring on
+//         mbarriers; its consumer warpgroup computes cum and w = dt
+//         exp(cum[Q-1]-cum) of the group, then per k16 step builds A =
+//         (x o w)^T in registers (ldmatrix.trans of the swizzled x rows,
+//         times w), splits it into bf16 hi and lo, and adds A_hi.Bm +
+//         A_lo.Bm into acc (P rows, zero up to 64, by N), Bm MN-major: x
+//         and Bm exact bf16 operands, the f32 product kept to about 16
+//         significant bits.  Two blocks share an SM.
+//       * chunk_state_kernel (f32, and every other bf16 shape), grid
+//         (chunks, H, B): CUDA cores, 4x8 register tiles, f32 FMAs.
 //   2. state_pass_kernel, grid (P*N/256, H, B): one thread per state
 //      element walks the chunks in order, replacing each contribution by
 //      the state entering that chunk, and writes the final state.
@@ -63,11 +78,14 @@
 // incoming state is not zero 12.1, each chunk's own state 12.9), each
 // twice as bf16 hi + lo: 76.9 GFLOP, 78 us at the bf16 rate.  So the
 // function is bound by operations, at 78 us, near its bytes.  (Counted at
-// the f32 rate, as before the tensor-core instance, the products with an
-// f32 operand would take 0.566 ms.)  Launch 1 still runs its product on
-// CUDA cores, and the chunk states (B,H,n,P,N) f32, 100.7 MB, go through
-// device memory between the launches.
-// The tensor-core instance computes C.B^T per head and visits the
+// the f32 rate, as before the tensor-core instances, the products with an
+// f32 operand would take 0.566 ms.)  The chunk states (B,H,n,P,N) f32,
+// 100.7 MB, go through device memory between the launches: launch 1 alone
+// moves 216 MB (x and the chunk states 100.7 MB each, Bm 8.4, dt and cum
+// 3.1 each), 64.5 us, against 25.8 GFLOP of hi + lo products, 26 us: it is
+// bound by bytes, so chunk_state_wgmma_kernel reads x once, Bm once for a
+// group of heads, and writes the states in whole 32-byte sectors.
+// chunk_scan_wgmma_kernel computes C.B^T per head and visits the
 // diagonal tiles whole (10 of 16 tile pairs per (b, chunk, head) at
 // Q = 256): about 90 GFLOP.
 
@@ -113,6 +131,34 @@ __device__ void warp_cumsum(float* v, int Q, int lane) {
   }
   const float before = incl - run;
   for (int i = lo; i < hi; ++i) v[i] += before;
+}
+
+// a * v[0..Q) replaced by its inclusive running sum, by one warp, Q % 32 ==
+// 0: lane l holds v[32 k + l] of eight rows k at a time (no two lanes on
+// one bank), scans each row with shuffles and adds the totals of the rows
+// before it.
+__device__ void warp_cumsum_rows(float* v, float a, int Q, int lane) {
+  float carry = 0.f;
+  for (int k0 = 0; k0 < Q / 32; k0 += 8) {
+    float r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      r[k] = k0 + k < Q / 32 ? v[32 * (k0 + k) + lane] * a : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float t = __shfl_up_sync(0xffffffffu, r[k], o);
+        if (lane >= o) r[k] += t;
+      }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float total = __shfl_sync(0xffffffffu, r[k], 31);
+      r[k] += carry;
+      carry += total;
+      if (k0 + k < Q / 32) v[32 * (k0 + k) + lane] = r[k];
+    }
+  }
 }
 
 // Kernel 1.  grid (n_chunks, H, B).  cum_out (B,H,n_chunks,Q);
@@ -639,12 +685,312 @@ __global__ void __launch_bounds__(kWgThreads) chunk_scan_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 1, bfloat16 on the tensor cores: chunk_state_wgmma_kernel
+// ---------------------------------------------------------------------------
+constexpr int kStateRing = 4;    // x pieces (64 rows of one head) in flight
+// heads of one block: with 4, two blocks fit an SM (of 2, 3, 4, 6 and 8
+// heads timed on an H100, 4 and 6 came out best and changed places between
+// runs; at 8 one block fits)
+constexpr int kStateGroup = 4;
+static_assert(kStateGroup <= 32, "A of the group is loaded by one warp");
+// the chunk's Bm rows stay in shared memory for all the block's heads; above
+// this many bytes a block takes half of the N columns (N = 128, Q > 512)
+constexpr size_t kStateBmBytes = 128 * 1024;
+
+// Shared memory of one block: 1024 bytes of alignment slack; the chunk's
+// Bm (Q rows of the block's NB columns, as 128-byte column blocks); a ring
+// of kStateRing x pieces; dt (then w) and cum of the group's heads; A of
+// the group (two floats for each head to keep 8-byte alignment);
+// the barriers.
+template <int P, int NB>
+struct StateSmem {
+  static constexpr uint32_t X = kRows * P * 2;
+  static __host__ __device__ constexpr size_t bytes(int Q) {
+    return 1024 + (size_t)Q * NB * 2 + kStateRing * X +
+           (size_t)8 * kStateGroup * Q + 8 * kStateGroup +
+           8 * (1 + 2 * kStateRing);
+  }
+};
+
+constexpr int kStateThreads = kWgThreads + 32;   // consumers, producer warp
+constexpr int kDtLoads = 8;    // dt loads of a consumer thread in flight
+
+// grid (n_chunks, n_groups * n_slices, B); block 160 threads: one consumer
+// warpgroup and a producer warp, for G = kStateGroup heads of one
+// (b, chunk) and NB =
+// N / n_slices columns of their states.  Maps: x (P, L, H, B) in boxes of
+// (P, 64); Bm (N, L, B, 1) in boxes of (row_bytes(NB)/2, 64): the maps of
+// kernel 3.  Writes cum (B,H,n_chunks,Q) and each chunk's own contribution
+// to the state at its end, states (B,H,n_chunks,P,N) f32:
+//   states[p, n] = sum_q (x[q, p] w[q]) Bm[q, n],
+//   w[q] = dt[q] exp(cum[Q-1] - cum[q]),
+// as acc (P rows, zero up to 64) x NB = sum over k16 steps of A . Bm with
+// A = (x o w)^T built in registers from the x piece (ldmatrix.trans of its
+// swizzled rows), split into bf16 hi and lo: two wgmmas per step, Bm the
+// MN-major operand, the same descriptor for both.  x and Bm are exact bf16
+// operands; only the f32 product x o w is split.  The producer warp loads
+// the chunk's Bm once and streams the x pieces of the group's heads
+// through the ring; a slot is free again as soon as every consumer warp
+// holds its A fragments.
+template <int P, int NB>
+__global__ void __launch_bounds__(kStateThreads) chunk_state_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap bmap, const float* __restrict__ dt,
+    const float* __restrict__ A, float* __restrict__ cum_out,
+    float* __restrict__ states, int H, int N, int Q, int n_slices,
+    int64_t dt_sb, int64_t dt_sl, int64_t dt_sh) {
+  using SM = StateSmem<P, NB>;
+  constexpr int G = kStateGroup;
+  constexpr int SWN = row_bytes(NB), SWP = row_bytes(P);
+  constexpr int SWZN = hopper::desc_swizzle(SWN);
+  constexpr int NBN = NB * 2 / SWN;        // 128-byte column blocks of Bm
+  constexpr int kWarps = kWgThreads / 32;  // consumer warps
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* b_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = b_s + (size_t)Q * NB * 2;
+  float* w_s = reinterpret_cast<float*>(ring + kStateRing * SM::X);  // (G,Q)
+  float* cum_s = w_s + G * Q;                                        // (G,Q)
+  float* a_s = cum_s + G * Q;                                        // (G,)
+  uint64_t* b_full = reinterpret_cast<uint64_t*>(a_s + 2 * G);
+  uint64_t* full = b_full + 1;
+  uint64_t* empty = full + kStateRing;
+
+  const int c = blockIdx.x, n_chunks = gridDim.x;
+  const int h0 = blockIdx.y / n_slices * G, ns = blockIdx.y % n_slices;
+  const int b = blockIdx.z;
+  const int nh = min(G, H - h0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int l0 = c * Q;
+  const int n_pieces = Q / kRows, n_items = nh * n_pieces, n_dt = nh * Q;
+
+  // dt of the group's heads, element i = (q = i / nh, head i % nh): dt's
+  // rows hold the heads side by side.  The first kDtLoads of a consumer
+  // thread go out before anything else.
+  const float* dtb = dt + b * dt_sb + h0 * dt_sh;
+  auto dt_at = [&](int i) {
+    return dtb[(int64_t)(l0 + i / nh) * dt_sl + i % nh * dt_sh];
+  };
+  float dv[kDtLoads];
+  if (warp < kWarps) {
+#pragma unroll
+    for (int u = 0; u < kDtLoads; ++u) {
+      const int i = u * kWgThreads + tid;
+      dv[u] = i < n_dt ? dt_at(i) : 0.f;
+    }
+  }
+  if (warp == kWarps && lane < nh) a_s[lane] = A[h0 + lane];
+  if (tid == kWgThreads) {
+    hopper::prefetch_map(&xmap);
+    hopper::prefetch_map(&bmap);
+    hopper::mbar_init(b_full, 1);
+    for (int s = 0; s < kStateRing; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The producer: Bm once, then item i (rows [64 (i % n_pieces), +64) of
+  // the chunk for head i / n_pieces) into slot i % kStateRing once the
+  // consumers have taken item i - kStateRing from it.
+  if (warp == kWarps) {
+    if (lane == 0) {
+      hopper::mbar_expect_tx(b_full, (uint32_t)Q * NB * 2);
+      for (int cb = 0; cb < NBN; ++cb)
+        for (int j = 0; j < n_pieces; ++j)
+          hopper::tma_load_4d(b_s + ((size_t)cb * Q + j * kRows) * SWN,
+                              &bmap, b_full, ns * NB + cb * (SWN / 2),
+                              l0 + j * kRows, b, 0);
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % kStateRing;
+        if (i >= kStateRing)
+          hopper::mbar_wait(empty + s, (i / kStateRing - 1) & 1);
+        hopper::mbar_expect_tx(full + s, SM::X);
+        hopper::tma_load_4d(ring + s * SM::X, &xmap, full + s, 0,
+                            l0 + (i % n_pieces) * kRows, h0 + i / n_pieces,
+                            b);
+      }
+    }
+    return;
+  }
+
+  // cum of each head (a warp scan), then w = dt exp(cum[Q-1] - cum) in
+  // place of dt
+#pragma unroll
+  for (int u = 0; u < kDtLoads; ++u) {
+    const int i = u * kWgThreads + tid;
+    if (i < n_dt) w_s[i % nh * Q + i / nh] = cum_s[i % nh * Q + i / nh] = dv[u];
+  }
+  for (int i = kDtLoads * kWgThreads + tid; i < n_dt; i += kWgThreads)
+    w_s[i % nh * Q + i / nh] = cum_s[i % nh * Q + i / nh] = dt_at(i);
+  hopper::named_sync<1, kWgThreads>();
+  for (int g = warp; g < nh; g += kWarps)
+    warp_cumsum_rows(cum_s + g * Q, a_s[g], Q, lane);
+  hopper::named_sync<1, kWgThreads>();
+  for (int g = 0; g < nh; ++g) {
+    const float end = cum_s[g * Q + Q - 1];
+    for (int q = tid; q < Q; q += kWgThreads)
+      w_s[g * Q + q] *= expf(end - cum_s[g * Q + q]);
+  }
+  hopper::named_sync<1, kWgThreads>();
+
+  // A fragments: warp w holds rows p in [16 w, 16 w + 16) (zero at p >= P);
+  // ldmatrix matrix m = lane / 8 is rows k + 8 (m / 2) of the step and
+  // columns p + 8 (m % 2) of the piece
+  const bool live = warp * 16 < P;
+  const int m = lane / 8;
+  const uint32_t row_off = ((m / 2) * 8 + lane % 8) * SWP;
+  const uint32_t col_off = (warp * 16 + (m % 2) * 8) * 2;
+  const int kq = 2 * (lane % 4);
+  const uint32_t b_addr = hopper::smem_u32(b_s);
+  const uint32_t ring_addr = hopper::smem_u32(ring);
+  const int r_in = warp * 16 + lane / 4;   // acc rows r_in, r_in + 8
+
+  hopper::mbar_wait(b_full, 0);
+  for (int g = 0; g < nh; ++g) {
+    const float* w = w_s + g * Q;
+    float acc[NB / 2];
+#pragma unroll
+    for (int e = 0; e < NB / 2; ++e) acc[e] = 0.f;
+    for (int j = 0; j < n_pieces; ++j) {
+      const int i = g * n_pieces + j, s = i % kStateRing;
+      hopper::mbar_wait(full + s, (i / kStateRing) & 1);
+      const uint32_t x_addr = ring_addr + s * SM::X;
+
+      // A = (x o w)^T for the piece's four k16 steps, as hi and lo
+      uint32_t a_hi[kRows / 16][4], a_lo[kRows / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks) {
+        if (!live) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a_hi[ks][r] = a_lo[ks][r] = 0u;
+          continue;
+        }
+        uint32_t xr[4];
+        hopper::ldmatrix_x4_trans(
+            x_addr + hopper::swizzle(ks * 16 * SWP + row_off + col_off, SWP),
+            xr);
+        const int k = j * kRows + ks * 16 + kq;
+        const float2 wk[2] = {*reinterpret_cast<const float2*>(w + k),
+                              *reinterpret_cast<const float2*>(w + k + 8)};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 xv =
+              __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&xr[r]));
+          split2(xv.x * wk[r / 2].x, xv.y * wk[r / 2].y, a_hi[ks][r],
+                 a_lo[ks][r]);
+        }
+      }
+      __syncwarp();       // the warp's ldmatrix reads are done: free the slot
+      if (lane == 0) hopper::mbar_arrive(empty + s);
+
+      // acc += A_hi . Bm + A_lo . Bm, Bm MN-major (N contiguous)
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks) {
+        const uint64_t bd =
+            hopper::make_desc(b_addr + (j * kRows + ks * 16) * SWN, Q * SWN,
+                              8 * SWN, SWZN);
+        Wgmma<NB>::rs_tb(acc, a_hi[ks], bd);
+        Wgmma<NB>::rs_tb(acc, a_lo[ks], bd);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < kRows / 16; ++ks) {
+        hopper::fence_regs(a_hi[ks]);
+        hopper::fence_regs(a_lo[ks]);
+      }
+    }
+
+    // rows r_in and r_in + 8, columns 8 jj + kq and + 1: 8-byte stores, a
+    // warp's 32-byte row segments whole sectors
+    float* st = states +
+                (((int64_t)b * H + h0 + g) * n_chunks + c) * P * N + ns * NB;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = r_in + 8 * i;
+      if (p >= P) continue;
+#pragma unroll
+      for (int jj = 0; jj < NB / 8; ++jj)
+        *reinterpret_cast<float2*>(st + p * N + jj * 8 + kq) =
+            make_float2(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+    }
+  }
+
+  // cum, written out by slice 0 once the products are done
+  if (ns == 0)
+    for (int i = tid; i < n_dt; i += kWgThreads)
+      cum_out[(((int64_t)b * H + h0 + i / Q) * n_chunks + c) * Q + i % Q] =
+          cum_s[i];
+}
+
+template <int P, int NB>
+int launch_state(const CUtensorMap maps[3], const float* dt, const float* A,
+                 float* cum, float* states, int B, int L, int H, int N, int Q,
+                 int n_slices, int64_t dt_sb, int64_t dt_sl, int64_t dt_sh,
+                 cudaStream_t st) {
+  auto kernel = chunk_state_wgmma_kernel<P, NB>;
+  const size_t smem = StateSmem<P, NB>::bytes(Q);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_groups = (H + kStateGroup - 1) / kStateGroup;
+  if ((int64_t)n_groups * n_slices > 65535) return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(L / Q, n_groups * n_slices, B), kStateThreads, smem, st>>>(
+      maps[0], maps[1], dt, A, cum, states, H, N, Q, n_slices, dt_sb, dt_sl,
+      dt_sh);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int dispatch_state(int NB, const CUtensorMap maps[3], const float* dt,
+                   const float* A, float* cum, float* states, int B, int L,
+                   int H, int N, int Q, int n_slices, int64_t dt_sb,
+                   int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
+  switch (NB) {
+#define REPRO_SSD_ST_N(NN)                                                  \
+  case NN:                                                                  \
+    return launch_state<P, NN>(maps, dt, A, cum, states, B, L, H, N, Q,     \
+                               n_slices, dt_sb, dt_sl, dt_sh, st);
+    REPRO_SSD_ST_N(16)
+    REPRO_SSD_ST_N(32)
+    REPRO_SSD_ST_N(64)
+    REPRO_SSD_ST_N(128)
+#undef REPRO_SSD_ST_N
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The first launch for bf16 on the tensor cores.  The maps are make_maps'.
+int chunk_state(const CUtensorMap maps[3], const float* dt, const float* A,
+                float* cum, float* states, int B, int L, int H, int P, int N,
+                int Q, int64_t dt_sb, int64_t dt_sl, int64_t dt_sh,
+                cudaStream_t st) {
+  const int n_slices = (size_t)Q * N * 2 <= kStateBmBytes ? 1 : 2;
+  const int NB = N / n_slices;
+#define REPRO_SSD_ST_ARGS                                                   \
+  NB, maps, dt, A, cum, states, B, L, H, N, Q, n_slices, dt_sb, dt_sl, \
+      dt_sh, st
+  if (P == 16) return dispatch_state<16>(REPRO_SSD_ST_ARGS);
+  if (P == 32) return dispatch_state<32>(REPRO_SSD_ST_ARGS);
+  return dispatch_state<64>(REPRO_SSD_ST_ARGS);
+#undef REPRO_SSD_ST_ARGS
+}
+
 template <int P, int N>
-int launch(const CUtensorMap maps[3], const void* x, const float* dt,
-           const void* D, int d_bf16, const float* cum, const float* states,
-           void* y, int B, int L, int H, int Q, int64_t x_sb, int64_t x_sl,
-           int64_t x_sh, int64_t dt_sb, int64_t dt_sl, int64_t dt_sh,
-           cudaStream_t st) {
+int launch_scan(const CUtensorMap maps[3], const void* x, const float* dt,
+                const void* D, int d_bf16, const float* cum,
+                const float* states, void* y, int B, int L, int H, int Q,
+                int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
+                int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
   auto kernel = chunk_scan_wgmma_kernel<P, N>;
   const size_t smem = Smem<P, N>::bytes(Q);
   cudaError_t e = cudaFuncSetAttribute(
@@ -659,16 +1005,17 @@ int launch(const CUtensorMap maps[3], const void* x, const float* dt,
 }
 
 template <int P>
-int dispatch_n(int N, const CUtensorMap maps[3], const void* x,
-               const float* dt, const void* D, int d_bf16, const float* cum,
-               const float* states, void* y, int B, int L, int H, int Q,
-               int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
-               int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
+int dispatch_scan(int N, const CUtensorMap maps[3], const void* x,
+                  const float* dt, const void* D, int d_bf16, const float* cum,
+                  const float* states, void* y, int B, int L, int H, int Q,
+                  int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t dt_sb,
+                  int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
   switch (N) {
 #define REPRO_SSD_WG_N(NN)                                                  \
   case NN:                                                                  \
-    return launch<P, NN>(maps, x, dt, D, d_bf16, cum, states, y, B, L, H,   \
-                         Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, st);
+    return launch_scan<P, NN>(maps, x, dt, D, d_bf16, cum, states, y, B, L, \
+                              H, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh,  \
+                              st);
     REPRO_SSD_WG_N(16)
     REPRO_SSD_WG_N(32)
     REPRO_SSD_WG_N(64)
@@ -679,34 +1026,42 @@ int dispatch_n(int N, const CUtensorMap maps[3], const void* x,
   }
 }
 
-// The third launch for bf16 on the tensor cores: P in {16, 32, 64}, N in
-// {16, 32, 64, 128}, Q % 64 == 0, x, Bm and Cm at 16-byte aligned bases
-// and strides (the wrapper decides this before any launch).
-int run(const void* x, const float* dt, const void* Bm, const void* Cm,
-        const void* D, int d_bf16, const float* cum, const float* states,
-        void* y, int B, int L, int H, int P, int N, int Q, int64_t x_sb,
-        int64_t x_sl, int64_t x_sh, int64_t dt_sb, int64_t dt_sl,
-        int64_t dt_sh, int64_t b_sb, int64_t b_sl, int64_t c_sb,
-        int64_t c_sl, cudaStream_t st) {
-  if (Q % kRows || (P != 16 && P != 32 && P != 64))
+// The third launch for bf16 on the tensor cores.  The maps are make_maps'.
+int chunk_scan(const CUtensorMap maps[3], const void* x, const float* dt,
+               const void* D, int d_bf16, const float* cum,
+               const float* states, void* y, int B, int L, int H, int P,
+               int N, int Q, int64_t x_sb, int64_t x_sl, int64_t x_sh,
+               int64_t dt_sb, int64_t dt_sl, int64_t dt_sh, cudaStream_t st) {
+#define REPRO_SSD_WG_ARGS                                                   \
+  N, maps, x, dt, D, d_bf16, cum, states, y, B, L, H, Q, x_sb, x_sl, x_sh,  \
+      dt_sb, dt_sl, dt_sh, st
+  if (P == 16) return dispatch_scan<16>(REPRO_SSD_WG_ARGS);
+  if (P == 32) return dispatch_scan<32>(REPRO_SSD_WG_ARGS);
+  return dispatch_scan<64>(REPRO_SSD_WG_ARGS);
+#undef REPRO_SSD_WG_ARGS
+}
+
+// The tensor-core instances take P in {16, 32, 64}, N in {16, 32, 64, 128},
+// Q % 64 == 0, x, Bm and Cm at 16-byte aligned bases and strides (the
+// wrapper decides this before any launch).  Their TMA maps: x (P, L, H, B)
+// in boxes of (P, 64); Bm and Cm (N, L, B, 1) in boxes of
+// (row_bytes(N)/2, 64).
+int make_maps(CUtensorMap maps[3], const void* x, const void* Bm,
+              const void* Cm, int B, int L, int H, int P, int N, int Q,
+              int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t b_sb,
+              int64_t b_sl, int64_t c_sb, int64_t c_sl) {
+  if (Q % kRows || (P != 16 && P != 32 && P != 64) ||
+      (N != 16 && N != 32 && N != 64 && N != 128))
     return (int)cudaErrorInvalidValue;
   const int64_t xdims[4] = {P, L, H, B}, xs[3] = {x_sl, x_sh, x_sb};
   const int64_t ndims[4] = {N, L, B, 1};
   const int64_t bs[3] = {b_sl, b_sb, b_sb * B}, cs[3] = {c_sl, c_sb, c_sb * B};
-  CUtensorMap maps[3];
   int rc = hopper::make_map_bf16_4d(&maps[0], x, xdims, xs, P, kRows);
   if (!rc) rc = hopper::make_map_bf16_4d(&maps[1], Bm, ndims, bs,
                                          row_bytes(N) / 2, kRows);
   if (!rc) rc = hopper::make_map_bf16_4d(&maps[2], Cm, ndims, cs,
                                          row_bytes(N) / 2, kRows);
-  if (rc) return rc;
-#define REPRO_SSD_WG_ARGS                                                   \
-  N, maps, x, dt, D, d_bf16, cum, states, y, B, L, H, Q, x_sb, x_sl, x_sh,  \
-      dt_sb, dt_sl, dt_sh, st
-  if (P == 16) return dispatch_n<16>(REPRO_SSD_WG_ARGS);
-  if (P == 32) return dispatch_n<32>(REPRO_SSD_WG_ARGS);
-  return dispatch_n<64>(REPRO_SSD_WG_ARGS);
-#undef REPRO_SSD_WG_ARGS
+  return rc;
 }
 
 }  // namespace wg
@@ -722,13 +1077,25 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
   const T* ct = static_cast<const T*>(Cm);
+  cudaError_t e;
 
-  const size_t smem1 = (size_t)(Q + kStateRows * P + kStateRows * N) * 4;
-  chunk_state_kernel<T><<<dim3(n_chunks, H, B), kThreads, smem1, st>>>(
-      xt, dt, A, bt, cum, states, P, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl,
-      dt_sh, b_sb, b_sl);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  CUtensorMap maps[3];
+  if (tensor_core) {
+    if (sizeof(T) != 2) return (int)cudaErrorInvalidValue;
+    int rc = wg::make_maps(maps, x, Bm, Cm, B, L, H, P, N, Q, x_sb, x_sl,
+                           x_sh, b_sb, b_sl, c_sb, c_sl);
+    if (!rc)
+      rc = wg::chunk_state(maps, dt, A, cum, states, B, L, H, P, N, Q, dt_sb,
+                           dt_sl, dt_sh, st);
+    if (rc) return rc;
+  } else {
+    const size_t smem1 = (size_t)(Q + kStateRows * P + kStateRows * N) * 4;
+    chunk_state_kernel<T><<<dim3(n_chunks, H, B), kThreads, smem1, st>>>(
+        xt, dt, A, bt, cum, states, P, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl,
+        dt_sh, b_sb, b_sl);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
 
   const int PN = P * N;
   state_pass_kernel<<<dim3((PN + kThreads - 1) / kThreads, H, B), kThreads,
@@ -736,12 +1103,10 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  if (tensor_core) {
-    if (sizeof(T) != 2) return (int)cudaErrorInvalidValue;
-    return wg::run(x, dt, Bm, Cm, D, sizeof(TD) == 2, cum, states, y, B, L, H,
-                   P, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl,
-                   c_sb, c_sl, st);
-  }
+  if (tensor_core)
+    return wg::chunk_scan(maps, x, dt, D, sizeof(TD) == 2, cum, states, y, B,
+                          L, H, P, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl,
+                          dt_sh, st);
   const int n_qtiles = (Q + kTile - 1) / kTile;
   const size_t smem3 =
       (size_t)(Q + 2 * kTile * (N + 1) + kTile * P + kTile * (kTile + 1)) * 4;
@@ -769,8 +1134,9 @@ extern "C" {
 // strides (sb, sl, 1); D: (H,).  y: contiguous (B,L,H,P); final_state:
 // contiguous (B,H,P,N) f32; cum: f32 scratch (B,H,L/Q,Q); states: f32
 // scratch (B,H,L/Q,P,N).  L % Q == 0, P <= 64, N <= 128, Q <= 1024.
-// tensor_core = 1 runs the third launch as chunk_scan_wgmma_kernel (bf16
-// only, at the shapes wg::run names), 0 as chunk_scan_kernel.
+// tensor_core = 1 runs the first launch as chunk_state_wgmma_kernel and the
+// third as chunk_scan_wgmma_kernel (bf16 only, at the shapes wg::make_maps
+// names), 0 as chunk_state_kernel and chunk_scan_kernel.
 // Returns cudaGetLastError() after the launches (0 on success), or 10000 +
 // the CUresult of cuTensorMapEncodeTiled where a TMA tensor map cannot be
 // encoded.

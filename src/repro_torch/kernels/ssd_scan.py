@@ -17,20 +17,25 @@ Where the Pallas kernel walks the chunks of one (b, h) in order, the CUDA
 kernel takes the chunked decomposition of the Mamba2 paper (arXiv
 2405.21060) in three launches: each chunk's cumulative decay and its own
 state contribution; the state passed from chunk to chunk; each chunk's
-output.  The third launch has two instances.  For bfloat16 x, Bm and Cm at
-the shapes :func:`uses_tensor_cores` names (the model's among them) it is
-``chunk_scan_wgmma_kernel`` on the tensor cores: C.B^T of exact bf16
-values, and the two products with an f32 operand (the decay-weighted
-W = (C.B^T) o L o dt, and the carried state) each as two bf16 products,
-``bf16(v)`` and ``bf16(v - bf16(v))``, into f32 sums.  Every other shape,
-and float32, runs ``chunk_scan_kernel`` on CUDA cores.  The choice is made
-from shape and alignment before the launch; a failed launch raises and
-never falls back.  Its plain version is ``kernels.ref.ssd_ref``, the model
-layer's chunked reference (``models.ssm.ssd_reference``).
+output.  The first and third launches have two instances each.  For
+bfloat16 x, Bm and Cm at the shapes :func:`uses_tensor_cores` names (the
+model's among them) both run on the tensor cores, every product with an
+f32 operand as two bf16 products, ``bf16(v)`` and ``bf16(v - bf16(v))``,
+into f32 sums: ``chunk_state_wgmma_kernel`` computes each chunk's state
+contribution as (x o w)^T . Bm, w the decay-weighted dt, splitting x o w
+and reading the chunk's Bm once for a group of heads;
+``chunk_scan_wgmma_kernel`` computes C.B^T of exact bf16 values and splits
+W = (C.B^T) o L o dt and the carried state.  Every other shape, and
+float32, runs ``chunk_state_kernel`` and ``chunk_scan_kernel`` on CUDA
+cores.  One rule picks both launches (:func:`uses_tensor_cores`), from
+shape and alignment before the launch; a failed launch raises and never
+falls back.  Its plain version is ``kernels.ref.ssd_ref``, the model layer's
+chunked reference (``models.ssm.ssd_reference``).
 
 On CPU tensors the wrapper runs the plain version at any P, N and chunk,
 and counts that in ``COUNT.plain``; on CUDA tensors it launches the kernel
-(``COUNT.launches``; ``COUNT.wgmma`` counts those on the tensor cores) or
+(``COUNT.launches``; ``COUNT.wgmma`` counts those whose first and third
+launches ran on the tensor cores) or
 raises.  It raises when autograd would need its gradient: the reference
 cannot differentiate its kernel either, and the kernel has no backward
 yet.
@@ -60,7 +65,7 @@ _TMA_ALIGN = 16
 @dataclasses.dataclass
 class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
-    wgmma: int = 0           # of them, with the tensor-core third launch
+    wgmma: int = 0           # of them, launches 1 and 3 on the tensor cores
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
@@ -141,7 +146,9 @@ def _strides(t):
 
 
 def uses_tensor_cores(x, Bm, Cm, chunk: int) -> bool:
-    """Whether the third launch runs on the tensor cores for these inputs:
+    """Whether the first and third launches run on the tensor cores for
+    these inputs (``chunk_state_wgmma_kernel`` and
+    ``chunk_scan_wgmma_kernel``; both or neither):
     bfloat16, P in ``WGMMA_HEAD_DIMS``, N in ``WGMMA_STATES``, the chunk
     ``Q = min(chunk, L)`` a multiple of 64, and the base addresses and the
     strides of x, Bm and Cm multiples of 16 bytes (TMA reads them).  Decided
@@ -163,13 +170,16 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
         COUNT.plain += 1
         return ssd_ref(x, dt, A, Bm, Cm, D, chunk)
     return _launch(x, dt, A, Bm, Cm, D, Q,
-                   uses_tensor_cores(x, Bm, Cm, chunk))
+                   uses_tensor_cores(x, Bm, Cm, chunk))[:2]
 
 
 def _ssd_scan_instance(x, dt, A, Bm, Cm, D, *, chunk: int, tensor_core: bool):
-    """:func:`ssd_scan` on the card with its third launch on the named
-    instance (a bfloat16 shape on CUDA cores, to time the two instances
-    side by side); raises where the tensor cores do not take the shape."""
+    """:func:`ssd_scan` on the card with its first and third launches on
+    the named instances (a bfloat16 shape on CUDA cores, to time the two
+    side by side); raises where the tensor cores do not take the shape.
+    Returns y, the final state and the states entering each chunk
+    (B, H, L/Q, P, N) f32, which hold every chunk's own state from the
+    first launch."""
     Q = _check(x, dt, A, Bm, Cm, D, chunk)
     if tensor_core and not uses_tensor_cores(x, Bm, Cm, chunk):
         raise ValueError("the tensor-core instance does not take these "
@@ -209,4 +219,4 @@ def _launch(x, dt, A, Bm, Cm, D, Q: int, tensor_core: bool):
                            f"CUresult n)")
     COUNT.launches += 1
     COUNT.wgmma += bool(tensor_core)
-    return y, state
+    return y, state, chunk_states
