@@ -36,12 +36,16 @@ really ran there:
   ``mha_ref`` at every block of both presets and at the qwen1.5-4b
   prefill shape in float32, which its two controls (one tf32 product;
   bf16 hi + lo, both emulated by ``flash_tf32x3_ref``) fail;
-* bf16 prefill attention: ``ops.mha`` at two full-width shapes (qwen1.5-4b;
-  a gemma3-27b local layer) on the tensor-core ``flash_attention`` kernel,
-  whose SASS must hold ``HGMMA`` instructions and which must be the only
-  attention kernel in a profiler window around ``ops.mha``.  Its output
-  must pass a gate against ``mha_ref`` that two controls keeping p in
-  bf16 (SDPA, ``mha_p_bf16``) fail, so p.v is held to p_hi + p_lo.
+* bf16 prefill attention: ``ops.mha`` at three full-width shapes
+  (qwen1.5-4b; a gemma3-27b local layer; gemma-7b, head dim 256) on the
+  tensor-core ``flash_attention`` kernel, whose SASS must hold ``HGMMA``
+  instructions in every instance (four at D = 256), whose instances ptxas
+  must build without a spill, and which must be the only attention
+  kernel in a profiler window around ``ops.mha``.  Its output must pass a
+  gate against ``mha_ref`` that two controls keeping p in bf16 (SDPA,
+  ``mha_p_bf16``) fail, so p.v is held to p_hi + p_lo.  At head dim 256
+  the CUDA-core kernel is timed in turns with it on the same inputs, and
+  float32 runs the CUDA-core kernel beside SDPA in float32.
 
 Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
@@ -122,8 +126,8 @@ SSM_SERVE_SEQ = 128
 # name, B, S (the train_4k length), Hq, Hkv, D, window
 FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
               ("gemma3-27b local layer", 1, 4096, 32, 16, 128, 1024)]
-# the CUDA-core flash kernel's own shape: gemma-7b prefill (head dim 256,
-# configs/gemma_7b.py), bf16 through ops.mha, causal
+# head dim 256: gemma-7b prefill (configs/gemma_7b.py) through ops.mha,
+# causal; bf16 on the tensor-core kernel, f32 on CUDA cores
 FLASH_D256 = ("gemma-7b prefill", 1, 4096, 16, 16, 256)
 # the split-p gate at those shapes, bf16 outputs against mha_ref: the
 # largest abs error (atol only) and the share of outputs that differ
@@ -783,6 +787,22 @@ def _flash_compare(name, q, k, v, causal, window, bq, bk, kernel=None):
     return out
 
 
+def _check_dead_rows(out, v, window):
+    """Where Sq > Sk, rows Sk + window - 1 .. of ``out`` keep no key: each
+    must be the mean of v over the Sk keys (of its kv head)."""
+    Sq, Sk = out.shape[2], v.shape[2]
+    if Sq <= Sk:
+        return
+    dead = Sk + window - 1
+    mean = v.float().mean(dim=2).repeat_interleave(
+        out.shape[1] // v.shape[1], dim=1)
+    if not torch.allclose(out[:, :, dead:].float(),
+                          mean[:, :, None].expand_as(out[:, :, dead:]),
+                          atol=TOL[out.dtype]):
+        raise AssertionError("a row with every key masked is not the mean "
+                             "of v over Sk keys")
+
+
 def check_flash_attention():
     """Kernel vs plain (``mha_ref``) on the card, in float32 and in
     bfloat16 (each on its tensor-core kernel, every call counted): the
@@ -791,9 +811,12 @@ def check_flash_attention():
     256-row tiles, q tiles that are not whole warpgroups, MQA, a window,
     rows with every key masked (Sq > Sk with a window: the mean of v), bk
     outside the domain's widths and q tiles of many passes, head dims
-    padded to an instance (48, 80, 112) and the D = 256 instance (CUDA
-    cores in both dtypes), float32 that TMA cannot read (CUDA cores), and
-    the window = Sk == causal property."""
+    padded to an instance (48, 80, 112, 200) and the D = 256 instance
+    (bf16 on the tensor cores at every bq of one and two warpgroups and
+    passes against every domain bk and bk = 100, with a window, GQA, MQA
+    and rows that keep no key; f32 on CUDA cores), float32 and bf16 at
+    D = 256 that TMA cannot read (CUDA cores), and the window = Sk ==
+    causal property."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
         (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
@@ -850,26 +873,54 @@ def check_flash_attention():
                 (2, 1, 4096, 4096, 128, 0, 1024, 128))):
         q, k, v = flash_inputs(1, Hq, Hkv, Sq, D, dt, seed=76 + i, Sk=Sk)
         out = _flash_compare("any bk, any bq", q, k, v, True, window, bq, bk)
-        if Sq > Sk:     # rows Sk + window - 1 .. keep no key: the mean of v
-            dead = Sk + window - 1
-            mean = v.float().mean(dim=2).repeat_interleave(Hq // Hkv, dim=1)
-            if not torch.allclose(out[:, :, dead:].float(), mean[:, :, None]
-                                  .expand_as(out[:, :, dead:]),
-                                  atol=TOL[dt]):
-                raise AssertionError("a row with every key masked is not "
-                                     "the mean of v over Sk keys")
+        _check_dead_rows(out, v, window)
     # head dims outside the instances: zero-padded to the next one (48 ->
-    # 64, 80 and 112 -> 128: the tensor cores in both dtypes), and the
-    # D = 256 instance (CUDA cores in both dtypes); each one launch
+    # 64, 80 and 112 -> 128: the tensor cores in both dtypes; 200 -> 256),
+    # and the D = 256 instance (bf16 on the tensor cores, f32 on CUDA
+    # cores); each one launch
     for i, (D, dt) in enumerate((
             (48, f32), (48, bf16), (80, f32), (80, bf16), (112, f32),
-            (112, bf16), (256, f32), (256, bf16))):
+            (112, bf16), (200, f32), (200, bf16), (256, f32), (256, bf16))):
         q, k, v = flash_inputs(1, 4, 2, 256, D, dt, seed=90 + i)
-        kernel = (F32_FLASH_KERNEL if D > 128 else
-                  TF32_KERNEL if dt == f32 else WGMMA_KERNEL)
+        kernel = (WGMMA_KERNEL if dt == bf16 else
+                  F32_FLASH_KERNEL if D > 128 else TF32_KERNEL)
         for bq, bk in ((128, 128), (64, 32)):
             _flash_compare(f"D={D} (instance {fa.instance_dim(D)})", q, k, v,
                            True, 0, bq, bk, kernel)
+    # bf16 at D = 256 on the tensor cores: q tiles of one warpgroup, two
+    # and two passes against a 32-key piece (bk = 32), 64-key pieces of
+    # 64, 128 and 256, and bk = 100 (Sk = 500: a 64-key piece padded past
+    # its tile)
+    q, k, v = flash_inputs(1, 4, 2, 512, 256, bf16, seed=110)
+    _, k100, v100 = flash_inputs(1, 4, 2, 512, 256, bf16, seed=111, Sk=500)
+    for bq in (64, 128, 256):
+        for bk in (32, 64, 128, 256, 100):
+            kk, vv = (k100, v100) if bk == 100 else (k, v)
+            _flash_compare("D=256", q, kk, vv, True, 0, bq, bk)
+    for i, (name, Hq, Hkv, Sq, Sk, causal, window, bq, bk) in enumerate((
+            ("D=256 window", 4, 2, 512, 512, True, 100, 128, 64),
+            ("D=256 GQA", 8, 2, 256, 256, True, 0, 128, 128),
+            ("D=256 MQA", 4, 1, 256, 256, True, 0, 64, 32),
+            ("D=256 bidirectional", 4, 4, 256, 256, False, 0, 64, 256),
+            ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64, True,
+             32, 64, 32),
+            ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64, False,
+             32, 128, 64))):
+        q, k, v = flash_inputs(1, Hq, Hkv, Sq, 256, bf16, seed=112 + i,
+                               Sk=Sk)
+        out = _flash_compare(name, q, k, v, causal, window, bq, bk)
+        _check_dead_rows(out, v, window)
+    # bf16 at D = 256 that TMA cannot read (k's and v's rows 257 elements,
+    # 514 bytes, apart): the CUDA-core kernel
+    q, k, v = flash_inputs(1, 4, 2, 256, 256, bf16, seed=118)
+    wide = [torch.zeros(1, 2, 256, 257, dtype=bf16, device="cuda")
+            for _ in range(2)]
+    for t, src in zip(wide, (k, v)):
+        t[..., :256] = src
+    for bq, bk in ((128, 128), (64, 32)):
+        _flash_compare("bf16 D=256 rows 257 elements apart", q,
+                       wide[0][..., :256], wide[1][..., :256], True, 0, bq,
+                       bk, F32_FLASH_KERNEL)
     # float32 that TMA cannot read (k's and v's rows 65 floats apart, q 4
     # bytes past an aligned address): the CUDA-core kernel
     q, k, v = flash_inputs(1, 4, 2, 256, 64, f32, seed=98)
@@ -905,8 +956,9 @@ def ptxas_entries(text, kernel):
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+ bytes stack frame, \d+ bytes spill stores, "
                           r"\d+ bytes spill loads)", block)
-        args = re.search(r"ILi(\d+)ELi(\d+)E", name)
-        out.append((f"<{args.group(1)}, {args.group(2)}>" if args else name,
+        args = re.search(r"kernelI((?:Li\d+E)+)E", name)
+        args = re.findall(r"\d+", args.group(1)) if args else None
+        out.append((f"<{', '.join(args)}>" if args else name,
                     regs.group(1) if regs else "?",
                     spill.group(1) if spill else "no spill report"))
     return out
@@ -941,6 +993,7 @@ def check_wgmma_sass(source, kernel, other, operand):
                              f"instruction on {operand}")
     if sib:
         raise AssertionError(f"{other} holds HGMMA instructions")
+    return wg
 
 
 def _pairs(S, window):
@@ -986,116 +1039,153 @@ def split_p_gate(out, ref):
     return err, share, err <= SPLIT_MAX_ABS and share <= SPLIT_DIFF_SHARE
 
 
-def measure_flash_attention():
-    """``ops.mha`` at the full-width shapes, (B,S,H,D) bf16, each call with
-    the counts set to 0 just before and read just after (the main path:
-    one tensor-core launch, no plain call); kernel vs plain at the bf16
+def flash_bf16_reading(name, B, S, Hq, Hkv, D, window):
+    """``ops.mha`` at one full-width bf16 shape, (B,S,H,D), with the counts
+    set to 0 just before and read just after (the main path: one launch of
+    the tensor-core kernel, no plain call); kernel vs plain at the bf16
     tolerance and at the split-p gate, which two bf16-p controls (SDPA,
     ``mha_p_bf16``) must fail; the kernels in a profiler window; then the
     times of the kernel, the plain version and SDPA (the library
-    yardstick; the port never calls it).  Returns the error and times of
-    the first shape and the launches of all."""
+    yardstick; the port never calls it).  At head dim 256 the CUDA-core
+    kernel runs on the same inputs too, held to ``mha_ref`` and timed in
+    turns with the kernel (kernel, CUDA cores, CUDA cores, kernel)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out, launches = [], 0
-    for name, B, S, Hq, Hkv, D, window in FLASH_FULL:
-        q, k, v = flash_full_inputs(B, S, Hq, Hkv, D)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fa.COUNT.reset()
-        o = ops.mha(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.plain)
-        if counts != (1, 1, 0):
-            raise AssertionError(f"ops.mha at {name}: (launches, wgmma, "
-                                 f"plain) = {counts}, not one tensor-core "
-                                 "launch")
-        launches += counts[1]
-        ref = mha_ref(qt, kt, vt, causal=True, window=window).transpose(1, 2)
-        if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
-                not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
-                                   rtol=TOL[q.dtype]):
-            raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
-        err, share, ok = split_p_gate(o, ref)
-        if window:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - window)
-            lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
-                                  enable_gqa=True)
-        else:
-            lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
-        controls = {
-            "sdpa": lib_fn().transpose(1, 2),
-            "mha_p_bf16": mha_p_bf16(qt, kt, vt, causal=True,
-                                     window=window).transpose(1, 2)}
-        # SDPA rounds p to bf16 for p.v: the same function at 4x the tolerance
-        lib_err = (controls["sdpa"].float() - ref.float()).abs().max().item()
-        if lib_err > 4 * TOL[q.dtype]:
-            raise AssertionError("SDPA yardstick computes another function")
-        gate = [f"{WGMMA_KERNEL} {err:.3e} / {share:.4%}"]
-        for cname, c in controls.items():
-            c_err, c_share, c_ok = split_p_gate(c, ref)
-            gate.append(f"{cname} {c_err:.3e} / {c_share:.4%}")
-            if c_ok:
-                raise AssertionError(f"the split-p gate passes {cname}, "
-                                     "which keeps p in bf16")
-        log(f"flash_attention {name}: split-p gate (max abs err <= "
-            f"{SPLIT_MAX_ABS:g}, outputs that differ from mha_ref <= "
-            f"{SPLIT_DIFF_SHARE:.0%}): {'; '.join(gate)}")
-        if not ok:
-            raise AssertionError(f"ops.mha at {name} fails the split-p gate: "
-                                 "p.v is not kept to p_hi + p_lo")
-        del o, ref, controls
-        rows = profile_window(lambda: ops.mha(q, k, v, causal=True,
-                                              window=window), 3, "call")
-        names = [r[1] for r in rows]
-        if not any(WGMMA_KERNEL in n for n in names) or any(
-                F32_FLASH_KERNEL in n for n in names):
-            raise AssertionError(f"the profiler window around ops.mha shows "
-                                 f"{names}, not {WGMMA_KERNEL} alone")
-        ms = time_ms(lambda: ops.mha(q, k, v, causal=True, window=window))
-        plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True,
-                                           window=window), reps=10)
-        library_ms = time_ms(lib_fn)
-        pairs = B * Hq * _pairs(S, window)
-        flops = 2 * D * pairs                  # each of q.k and p.v
-        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q,o,k,v
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # q.k once and p.v twice (p_hi.v + p_lo.v, held by the gate), all
-        # bf16 operands with f32 sums, at the bf16 rate
-        ops_ms = 3 * flops / PEAK_OPS[torch.bfloat16] * 1e3
-        f32_rate_ms = (flops / PEAK_OPS[torch.bfloat16]
-                       + flops / PEAK_OPS[torch.float32]) * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-            f"window={window}, ops.mha bf16, {WGMMA_KERNEL}): max_abs_err="
-            f"{err:.3e} (tol {TOL[q.dtype]:g} abs+rel; split-p gate "
-            f"{SPLIT_MAX_ABS:g}), sdpa vs plain {lib_err:.3e}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms,"
-            f" bound {bound_ms:.5f} ms ({pairs} kept pairs: {flops} flops of "
-            f"q.k and 2 x {flops} of p.v at 989 TFLOP/s = {ops_ms:.5f} ms; "
-            f"{nbytes} bytes at 3.35 TB/s = {bytes_ms:.5f} ms); kernel/bound "
-            f"{ms / bound_ms:.2f}, kernel/sdpa {ms / library_ms:.2f}, "
-            f"{3 * flops / ms / 1e9:.1f} TFLOP/s; the old count, p.v at the "
-            f"f32 rate of 67 TFLOP/s: {f32_rate_ms:.5f} ms")
-        out.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound_ms,
-                        bound_by="bytes" if bytes_ms >= ops_ms
-                        else "operations"))
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
-    return out[0], launches
+    q, k, v = flash_full_inputs(B, S, Hq, Hkv, D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa.COUNT.reset()
+    o = ops.mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32,
+              fa.COUNT.plain)
+    if counts != (1, 1, 0, 0):
+        raise AssertionError(f"ops.mha at {name}: (launches, wgmma, tf32, "
+                             f"plain) = {counts}, not one {WGMMA_KERNEL} "
+                             "launch")
+    ref = mha_ref(qt, kt, vt, causal=True, window=window).transpose(1, 2)
+    if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
+            not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
+                               rtol=TOL[q.dtype]):
+        raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
+    err, share, ok = split_p_gate(o, ref)
+    if window:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                              enable_gqa=True)
+    else:
+        lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+    controls = {
+        "sdpa": lib_fn().transpose(1, 2),
+        "mha_p_bf16": mha_p_bf16(qt, kt, vt, causal=True,
+                                 window=window).transpose(1, 2)}
+    # SDPA rounds p to bf16 for p.v: the same function at 4x the tolerance
+    lib_err = (controls["sdpa"].float() - ref.float()).abs().max().item()
+    if lib_err > 4 * TOL[q.dtype]:
+        raise AssertionError("SDPA yardstick computes another function")
+    gate = [f"{WGMMA_KERNEL} {err:.3e} / {share:.4%}"]
+    for cname, c in controls.items():
+        c_err, c_share, c_ok = split_p_gate(c, ref)
+        gate.append(f"{cname} {c_err:.3e} / {c_share:.4%}")
+        if c_ok:
+            raise AssertionError(f"the split-p gate passes {cname} at {name},"
+                                 " which keeps p in bf16")
+    log(f"flash_attention {name}: split-p gate (max abs err <= "
+        f"{SPLIT_MAX_ABS:g}, outputs that differ from mha_ref <= "
+        f"{SPLIT_DIFF_SHARE:.0%}): {'; '.join(gate)}")
+    if not ok:
+        raise AssertionError(f"ops.mha at {name} fails the split-p gate: "
+                             "p.v is not kept to p_hi + p_lo")
+    cuda_core = None
+    if D == 256:
+        cuda_core = lambda: fa._flash_attention_instance(  # noqa: E731
+            qt, kt, vt, kernel=F32_FLASH_KERNEL, causal=True, window=window)
+        cc_err = (cuda_core().transpose(1, 2).float() - ref.float()
+                  ).abs().max().item()
+        if cc_err > TOL[q.dtype]:
+            raise AssertionError(f"{F32_FLASH_KERNEL} disagrees with mha_ref "
+                                 f"at {name}: {cc_err:.3e}")
+    del o, ref, controls
+    rows = profile_window(lambda: ops.mha(q, k, v, causal=True,
+                                          window=window), 3, "call")
+    names = [r[1] for r in rows]
+    if not any(WGMMA_KERNEL in n for n in names) or any(
+            F32_FLASH_KERNEL in n for n in names):
+        raise AssertionError(f"the profiler window around ops.mha shows "
+                             f"{names}, not {WGMMA_KERNEL} alone")
+    mha = lambda: ops.mha(q, k, v, causal=True, window=window)  # noqa: E731
+    ms = time_ms(mha)
+    turns = ""
+    if cuda_core is not None:
+        cc_ms = [time_ms(cuda_core, reps=10) for _ in range(2)]
+        ms_again = time_ms(mha)
+        turns = (f"; in turns: kernel {ms:.4f}, {F32_FLASH_KERNEL} "
+                 f"{cc_ms[0]:.4f}, {cc_ms[1]:.4f}, kernel {ms_again:.4f} ms "
+                 f"({F32_FLASH_KERNEL} vs mha_ref {cc_err:.3e})")
+        # the kernel at other blocks on the same inputs (ops.mha: 128, 128)
+        blocks = []
+        for bq in (64, 128, 256):
+            for bk in (32, 64, 128):
+                t = time_ms(lambda: fa.flash_attention(  # noqa: B023
+                    qt, kt, vt, causal=True, window=window, bq=bq, bk=bk))
+                blocks.append(f"({bq}, {bk}) {t:.4f}")
+        log(f"flash_attention {name}, {WGMMA_KERNEL} by (bq, bk), ms: "
+            + ", ".join(blocks))
+    plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True,
+                                       window=window), reps=10)
+    library_ms = time_ms(lib_fn)
+    pairs = B * Hq * _pairs(S, window)
+    flops = 2 * D * pairs                  # each of q.k and p.v
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)  # q,o,k,v
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # q.k once and p.v twice (p_hi.v + p_lo.v, held by the gate), all
+    # bf16 operands with f32 sums, at the bf16 rate
+    ops_ms = 3 * flops / PEAK_OPS[torch.bfloat16] * 1e3
+    f32_rate_ms = (flops / PEAK_OPS[torch.bfloat16]
+                   + flops / PEAK_OPS[torch.float32]) * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+        f"window={window}, ops.mha bf16, {WGMMA_KERNEL}): max_abs_err="
+        f"{err:.3e} (tol {TOL[q.dtype]:g} abs+rel; split-p gate "
+        f"{SPLIT_MAX_ABS:g}), sdpa vs plain {lib_err:.3e}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms,"
+        f" bound {bound_ms:.5f} ms ({pairs} kept pairs: {flops} flops of "
+        f"q.k and 2 x {flops} of p.v at 989 TFLOP/s = {ops_ms:.5f} ms; "
+        f"{nbytes} bytes at 3.35 TB/s = {bytes_ms:.5f} ms); kernel/bound "
+        f"{ms / bound_ms:.2f}, kernel/sdpa {ms / library_ms:.2f}, "
+        f"{3 * flops / ms / 1e9:.1f} TFLOP/s; the old count, p.v at the "
+        f"f32 rate of 67 TFLOP/s: {f32_rate_ms:.5f} ms{turns}")
+    reading = dict(shape=name, kernel=WGMMA_KERNEL, launches=counts[1],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if cuda_core is not None:
+        reading.update(ms_in_turns=[ms, ms_again], cuda_core_ms=cc_ms)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return reading
 
 
-def measure_flash_d256():
-    """``ops.mha`` at FLASH_D256, which runs ``flash_fwd_kernel`` on CUDA
-    cores (one counted launch, neither tensor-core kernel), against
-    ``mha_ref`` at the bf16 tolerance, then timed beside the plain version
-    and SDPA ``is_causal``.  The bound counts what the bf16 row counts (q.k
-    once, p.v twice as p_hi + p_lo, at 989 TFLOP/s) against the bytes of
-    q, k, v and o; the f32 rate of the CUDA cores is logged beside it."""
+def measure_flash_attention():
+    """The bf16 readings through ``ops.mha``: the two FLASH_FULL shapes and
+    FLASH_D256 (head dim 256), each one launch of the tensor-core kernel
+    (:func:`flash_bf16_reading`).  Returns them, the first shape's first."""
+    return [flash_bf16_reading(*shape) for shape in FLASH_FULL] + [
+        flash_bf16_reading(*FLASH_D256, 0)]
+
+
+def measure_flash_f32_d256():
+    """float32 at FLASH_D256 through ``ops.mha``: one counted launch of
+    ``flash_fwd_kernel`` (the CUDA cores take float32 at head dim 256),
+    held to f32 ``mha_ref`` at the f32 tolerance and timed beside the
+    plain version and SDPA in float32 (``allow_tf32`` off).  The bound
+    counts what the float32 row counts (q.k and p.v as three tf32 products
+    each at 495 TFLOP/s) against the bytes of q, k, v and o; both products
+    at the f32 CUDA-core rate are logged beside it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     name, B, S, Hq, Hkv, D = FLASH_D256
-    q, k, v = flash_full_inputs(B, S, Hq, Hkv, D)
+    name = f"{name} float32"
+    q, k, v = flash_full_inputs(B, S, Hq, Hkv, D, torch.float32)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fa.COUNT.reset()
     o = ops.mha(q, k, v, causal=True)
@@ -1107,36 +1197,40 @@ def measure_flash_d256():
                              f"plain) = {counts}, not one {F32_FLASH_KERNEL} "
                              "launch")
     ref = mha_ref(qt, kt, vt, causal=True).transpose(1, 2)
-    err = (o.float() - ref.float()).abs().max().item()
-    if o.shape != q.shape or not torch.isfinite(o.float()).all() or \
-            not torch.allclose(o.float(), ref.float(), atol=TOL[q.dtype],
-                               rtol=TOL[q.dtype]):
+    err = (o - ref).abs().max().item()
+    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+               - ref).abs().max().item()
+    if o.shape != q.shape or not torch.isfinite(o).all() or \
+            not torch.allclose(o, ref, atol=TOL[q.dtype], rtol=TOL[q.dtype]):
         raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
+    if lib_err > 4 * TOL[q.dtype]:
+        raise AssertionError("SDPA float32 computes another function")
     del o, ref
     ms = time_ms(lambda: ops.mha(q, k, v, causal=True), reps=10)
     plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True), reps=5)
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=10)
     pairs = B * Hq * _pairs(S, 0)
-    flops = 2 * D * pairs
-    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    flops = 2 * D * pairs                  # each of q.k and p.v
+    nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * flops / PEAK_OPS[torch.bfloat16] * 1e3
+    ops_ms = 6 * flops / TF32_OPS * 1e3
     f32_rate_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}, "
-        f"causal, ops.mha bf16, {F32_FLASH_KERNEL}): max_abs_err={err:.3e} "
-        f"(tol {TOL[q.dtype]:g} abs+rel); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} "
-        f"ms ({pairs} kept pairs: {flops} flops of q.k and 2 x {flops} of "
-        f"p.v at 989 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s "
-        f"= {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
+        f"causal, ops.mha, {F32_FLASH_KERNEL}): max_abs_err={err:.3e} (tol "
+        f"{TOL[q.dtype]:g} abs+rel), sdpa {lib_err:.3e}; kernel {ms:.4f} ms,"
+        f" plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({pairs} kept pairs: 6 x {flops} flops of tf32 "
+        f"products at 495 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35"
+        f" TB/s = {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
         f"kernel/sdpa {ms / library_ms:.2f}, {2 * flops / ms / 1e9:.1f} "
         f"TFLOP/s of q.k and p.v; both products at the f32 rate of 67 "
         f"TFLOP/s: {f32_rate_ms:.5f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return dict(shape=name, kernel=F32_FLASH_KERNEL, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+    return dict(shape=name, kernel=F32_FLASH_KERNEL, launches=counts[0],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -1730,6 +1824,17 @@ def main() -> None:
         if name == "ssd_scan":
             for kname, regs, spill in ptxas_entries(text, SSD_STATE_KERNEL):
                 log(f"    {kname}: {regs} registers, {spill}")
+        if name == "flash_attention":    # no wgmma instance may spill
+            entries = ptxas_entries(text, WGMMA_KERNEL)
+            for kname, regs, spill in entries:
+                log(f"    {WGMMA_KERNEL}{kname}: {regs} registers, {spill}")
+            spilled = [e for e in entries
+                       if "0 bytes spill stores, 0 bytes spill loads"
+                       not in e[2]]
+            if not entries or spilled:
+                raise AssertionError(
+                    f"{WGMMA_KERNEL}: ptxas reports spills (or no report) in "
+                    f"{spilled or 'no instance'}")
         if name == "decode_attention":    # its instances must not spill
             reports = re.findall(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
@@ -1756,14 +1861,21 @@ def main() -> None:
     ssd_gate_phase()
     ssd_timing = measure_ssd_scan()
 
-    check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL,
-                     "BF16")
+    wg = check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL,
+                          "BF16")
+    d256 = [c[1] for n, c in wg.items() if f"{WGMMA_KERNEL}ILi256E" in n]
+    log(f"  D = 256: {len(d256)} instances of {WGMMA_KERNEL}, HGMMA on BF16 "
+        f"{min(d256, default=0)}-{max(d256, default=0)} each")
+    if len(d256) != 4:
+        raise AssertionError(f"{len(d256)} D = 256 instances of "
+                             f"{WGMMA_KERNEL}, not 4 (bk 32 or 64-key "
+                             "pieces, one or two warpgroups)")
     check_wgmma_sass("flash_attention", TF32_KERNEL, F32_FLASH_KERNEL, "TF32")
     check_flash_attention()
     tf32_gate_presets()
-    flash_timing, flash_launches = measure_flash_attention()
-    flash_d256 = measure_flash_d256()
+    flash_readings = measure_flash_attention()
     flash_f32_timing = measure_flash_f32()
+    flash_f32_timing["readings"].append(measure_flash_f32_d256())
 
     model, server, launches, run = serve_full_width()
     profile_steps(model, server)
@@ -1785,6 +1897,9 @@ def main() -> None:
                              f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
                              f", {fa.COUNT.wgmma} bf16 launches")
 
+    flash_timing = {key: flash_readings[0][key] for key in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")}
     kernels = [dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1798,8 +1913,8 @@ def main() -> None:
         name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
-        launches=flash_launches, **flash_timing,
-        readings=[flash_d256]), dict(
+        launches=sum(r["launches"] for r in flash_readings), **flash_timing,
+        readings=flash_readings[1:]), dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",

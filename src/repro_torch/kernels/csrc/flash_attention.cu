@@ -8,14 +8,15 @@
 // Three kernels.  The caller (kernels/flash_attention.py) names one, by
 // dtype, head dim D (32, 64, 128 or 256; the wrapper pads any other D up
 // to 256 with zero columns) and alignment:
-//  * bfloat16 at D <= 128: flash_fwd_wgmma_kernel, on the tensor cores
-//    (below);
-//  * float32 at D <= 128 whose q, k, v and o have 16-byte aligned base
-//    addresses and strides: flash_fwd_tf32_kernel, on the tensor cores as
-//    three tf32 products (below);
-//  * either dtype at D = 256, and float32 that TMA cannot read:
-//    flash_fwd_kernel, f32 FMAs on CUDA cores (at D = 256 every (bq, bk)
-//    fits a block's shared memory, at most 198 KB).
+//  * bfloat16 at D <= 128, and at D = 256 where TMA can read q, k, v and
+//    o (16-byte aligned base addresses and strides): flash_fwd_wgmma_kernel,
+//    on the tensor cores (below);
+//  * float32 at D <= 128 that TMA can read: flash_fwd_tf32_kernel, on the
+//    tensor cores as three tf32 products (below);
+//  * float32 at D = 256, float32 that TMA cannot read, and bfloat16 at
+//    D = 256 that TMA cannot read: flash_fwd_kernel, f32 FMAs on CUDA
+//    cores (at D = 256 every (bq, bk) fits a block's shared memory, at
+//    most 198 KB).
 //
 // Semantics kept from the reference by all three: scores are f32 sums
 // times the scale; masked scores are the finite -1e30; the softmax state
@@ -53,14 +54,17 @@
 //    warpgroups is walked in passes; a q tile under 64 rows is padded to
 //    64 (the padded rows are computed, never stored, and cannot reach a
 //    real row: rows of a product are independent).
-//  * bk of 32, 64, 128 or 256 (the search domain's, and ops.mha's 128)
-//    has instances of its own, with the tile known to the compiler.  Any
-//    other bk is walked in pieces of 64 keys, each one softmax update (as
-//    the f32 kernel does per 256 keys).  Keys of a piece past the end of
-//    its tile are padding with the score -inf, so p = 0 and they change
-//    neither m, l nor acc, whatever they hold (the next tile's keys, or
-//    TMA's zero fill past Sk); a row that keeps no key still averages v
-//    over its Sk keys only.
+//  * bk of 32, 64 or 128 (the search domain's, and ops.mha's 128) has
+//    instances of its own, with the tile known to the compiler, and a
+//    multiple of 128 (the domain's 256) is walked as tiles of 128 keys:
+//    at 256-key pieces a lone warpgroup's scores and p fragments spilled.
+//    Any other bk is walked in pieces of 64 keys, each one softmax update
+//    (as the f32 kernel does per 256 keys).  At D = 256 only bk = 32 has
+//    its own instances: every other bk takes the 64-key pieces (below).
+//    Keys of a piece past the end of its tile are padding with the score
+//    -inf, so p = 0 and they change neither m, l nor acc, whatever they
+//    hold (the next tile's keys, or TMA's zero fill past Sk); a row that
+//    keeps no key still averages v over its Sk keys only.
 //  * The producer warp loads a pass's q rows by TMA (a q_empty barrier
 //    frees the buffer for the next pass), then keeps K and V sub-tiles of
 //    N = min(piece, 64) keys in flight through a ring of `stages`
@@ -77,6 +81,14 @@
 //    A fragment's), and acc += p.V is wgmma m64nDk16 with A in registers
 //    and V as the B operand, MN-major (transposed) in shared memory.
 //  * The output is divided by l in registers and stored through strides.
+//  * D = 256.  The accumulator alone is D/2 = 128 f32 registers a thread;
+//    beside it a 64-key piece's scores take 32 and p_hi and p_lo 16 + 16
+//    (the scores die into the p fragments), within the 240 registers of
+//    two consumer warpgroups.  So a piece is 64 keys at most (32 at bk =
+//    32): q.k runs per 64-key sub-tile as m64n64k16 over 16 k16 steps,
+//    p.v as m64n256k16 with A from registers.  Shared memory: a pass of
+//    q is 64 KB (two warpgroups), one K + V slot of 64 keys 64 KB, so
+//    the ring holds two slots (197,696 bytes of the 232,448).
 // The wgmma, TMA and mbarrier helpers are in hopper.cuh.
 //
 // --- float32: flash_fwd_tf32_kernel ---------------------------------------
@@ -140,7 +152,7 @@
 //
 // --- flash_fwd_kernel (first design, CUDA cores) --------------------------
 // float32 at D = 256 or with a base or stride TMA cannot read, bfloat16 at
-// D = 256.
+// D = 256 with a base or stride TMA cannot read.
 //  * One block per (b, h, q tile); 256 threads as a 16 x 16 grid, each
 //    holding a register tile of 2 or 4 query rows (the block walks its
 //    q tile in passes of 32 or 64 rows) by D/16 output columns and by
@@ -438,12 +450,18 @@ constexpr int kRows = 64;                     // q rows of one warpgroup
 constexpr size_t kMaxSmem = 232448;           // bytes a block can use
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The kernel's tile parameter BK for a bk (see the header): bk itself
-// where it is 32, 64, 128 or 256, else 0 (any bk, in 64-key pieces); the
-// keys of a piece; keys per K/V sub-tile of a piece; bytes of a swizzled
-// row of q, k or v
-__host__ __device__ constexpr int kernel_bk(int bk) {
-  return bk == 32 || bk == 64 || bk == 128 || bk == 256 ? bk : 0;
+// The kernel's tile parameter BK for a bk at head dim D (see the header):
+// tiles of BK keys known to the compiler, each one piece, or 0 (tiles of
+// bk keys, in 64-key pieces).  D <= 128: bk itself at 32, 64 or 128, 128
+// at any multiple of 128 (a tile of bk keys is bk / 128 tiles of 128),
+// else 0; D = 256: 32 at bk = 32, else 0 (a piece of 64 keys at most).
+// Then the keys of a piece; keys per K/V sub-tile of a piece; bytes of a
+// swizzled row of q, k or v
+__host__ __device__ constexpr int kernel_bk(int D, int bk) {
+  return bk == 32 ? 32
+         : D == 256 ? 0
+         : bk == 64 ? 64
+         : bk > 0 && bk % 128 == 0 ? 128 : 0;
 }
 __host__ __device__ constexpr int piece_width(int BK) { return BK ? BK : 64; }
 __host__ __device__ constexpr int sub_keys(int bkc) { return bkc < 64 ? bkc : 64; }
@@ -451,12 +469,9 @@ __host__ __device__ constexpr int row_bytes(int D) {
   return (D < 64 ? D : 64) * 2;
 }
 
-// consumer warpgroups: two for a q tile above 64 rows, except at
-// BKC = 256, whose score tile and p fragments (BKC/2 registers a thread
-// each) beside the accumulator (D/2) need the 255 registers a thread of
-// a lone warpgroup may hold
-__host__ __device__ constexpr int warpgroups(int bq, int bkc) {
-  return bq > kRows && bkc <= 128 ? 2 : 1;
+// consumer warpgroups: two for a q tile above 64 rows
+__host__ __device__ constexpr int warpgroups(int bq) {
+  return bq > kRows ? 2 : 1;
 }
 
 // Threads of a block.  One consumer warpgroup: 160, the producer warp
@@ -481,7 +496,7 @@ struct Plan {
 // slots), or the plan does not fit (smem > kMaxSmem).
 __host__ inline Plan plan(int D, int bq, int bkc) {
   Plan p;
-  p.nwg = warpgroups(bq, bkc);
+  p.nwg = warpgroups(bq);
   const int n = sub_keys(bkc), nsub = bkc / n;
   const size_t q_bytes = (size_t)kRows * p.nwg * D * 2;
   const size_t kv_bytes = (size_t)n * D * 2;   // one K (or V) sub-tile
@@ -803,11 +818,9 @@ int dispatch_nwg(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
                  int Sq, int Sk, int bq, int bk, int causal, int window,
                  const int64_t* st, float scale, const Plan& p,
                  cudaStream_t stream) {
-  if constexpr (warpgroups(2 * kRows, piece_width(BK)) == 2) {
-    if (p.nwg == 2)
-      return launch<D, BK, 2>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
-                              window, st, scale, p, stream);
-  }
+  if (p.nwg == 2)
+    return launch<D, BK, 2>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                            window, st, scale, p, stream);
   return launch<D, BK, 1>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
                           st, scale, p, stream);
 }
@@ -817,31 +830,34 @@ int dispatch_bk(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
                 int Sq, int Sk, int bq, int bk, int causal, int window,
                 const int64_t* st, float scale, const Plan& p,
                 cudaStream_t stream) {
-  switch (kernel_bk(bk)) {
+  // only the instances kernel_bk can give at D are compiled (two at D = 256)
+  switch (kernel_bk(D, bk)) {
 #define REPRO_WG_BK(BB)                                                      \
   case BB:                                                                   \
-    return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,    \
-                               window, st, scale, p, stream);
+    if constexpr (kernel_bk(D, BB) == BB)                                    \
+      return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,  \
+                                 window, st, scale, p, stream);              \
+    break;
     REPRO_WG_BK(32)
     REPRO_WG_BK(64)
     REPRO_WG_BK(128)
-    REPRO_WG_BK(256)
     REPRO_WG_BK(0)
 #undef REPRO_WG_BK
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool supported(int D, int bq, int bk) {
-  return (D == 32 || D == 64 || D == 128) && bq >= 1 && bk >= 1;
+  return (D == 32 || D == 64 || D == 128 || D == 256) && bq >= 1 && bk >= 1;
 }
 
 int run(int D, const void* q, const void* k, const void* v, void* o, int B,
         int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
         int window, const int64_t* st, float scale, cudaStream_t stream) {
   if (!supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
-  const int bkc = piece_width(kernel_bk(bk));
+  const int bkc = piece_width(kernel_bk(D, bk));
   const Plan p = plan(D, bq, bkc);
   if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int box = row_bytes(D) / 2;
@@ -862,8 +878,11 @@ int run(int D, const void* q, const void* k, const void* v, void* o, int B,
     case 64:
       return dispatch_bk<64>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                               window, st, scale, p, stream);
-    default:
+    case 128:
       return dispatch_bk<128>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, p, stream);
+    default:
+      return dispatch_bk<256>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                                window, st, scale, p, stream);
   }
 }
@@ -1305,10 +1324,14 @@ int dispatch_bkc(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
   }
 }
 
+bool supported(int D, int bq, int bk) {
+  return (D == 32 || D == 64 || D == 128) && bq >= 1 && bk >= 1;
+}
+
 int run(int D, const void* q, const void* k, const void* v, void* o, int B,
         int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
         int window, const int64_t* st, float scale, cudaStream_t stream) {
-  if (!wg::supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
+  if (!supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
   const int bkc = piece_width(bk);
   const Plan p = plan(D, bq, bkc);
   if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1343,21 +1366,23 @@ extern "C" {
 
 // kernel: 0 = flash_fwd_kernel (CUDA cores: float32 at D = 32, 64, 128,
 // 256, bfloat16 at D = 256), 1 = flash_fwd_wgmma_kernel (bfloat16, D = 32,
-// 64, 128), 2 = flash_fwd_tf32_kernel (float32, D = 32, 64, 128); dtype: 0
-// = float32, 1 = bfloat16.  The caller names the kernel: nothing here
-// picks one.
+// 64, 128, 256), 2 = flash_fwd_tf32_kernel (float32, D = 32, 64, 128);
+// dtype: 0 = float32, 1 = bfloat16.  The caller names the kernel: nothing
+// here picks one.
 
 // Bytes of dynamic shared memory one block of `kernel` takes for (dtype,
 // D, bq, bk), or -1 for what that kernel does not take (a dtype or head
 // dim it has no instance for; a block under one row).
 long long flash_attention_smem_bytes(int kernel, int dtype, int D, int bq,
                                      int bk) {
-  if (kernel == 1 || kernel == 2) {   // bfloat16 or float32, D <= 128
-    if (dtype != (kernel == 1) || !wg::supported(D, bq, bk)) return -1;
-    return kernel == 1
-               ? (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(bk)))
-                     .smem
-               : (long long)tf::plan(D, bq, tf::piece_width(bk)).smem;
+  if (kernel == 1) {   // bfloat16, D <= 256
+    if (dtype != 1 || !wg::supported(D, bq, bk)) return -1;
+    return (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(D, bk)))
+        .smem;
+  }
+  if (kernel == 2) {   // float32, D <= 128
+    if (dtype != 0 || !tf::supported(D, bq, bk)) return -1;
+    return (long long)tf::plan(D, bq, tf::piece_width(bk)).smem;
   }
   const bool f32 = dtype == 0 && (D == 32 || D == 64 || D == 128 || D == 256);
   if (kernel != 0 || !(f32 || (dtype == 1 && D == 256))) return -1;

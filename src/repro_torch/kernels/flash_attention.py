@@ -7,16 +7,19 @@ built with ``nvcc`` at first use and bound with ``ctypes``.  The instance
 rule :func:`kernel_for` names one from dtype, head dim and alignment
 alone, before any launch: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the
 tensor cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p))
-in f32); float32 runs ``flash_fwd_tf32_kernel`` on the tensor cores, each
-f32 product as three tf32 products (big.big + big.small + small.big, big
-= tf32(x), small = tf32(x - big); :func:`flash_tf32x3_ref` emulates it),
-where TMA can read q, k, v and out (16-byte aligned base addresses and
-strides); head dim 256, and float32 that TMA cannot read, run
-``flash_fwd_kernel`` on CUDA cores.  The kernels have head dims 32, 64, 128
-and 256; any other D up to 256 is padded with zero columns to the next of
-them, scaled by ``1/sqrt(D)`` of the true D and sliced back, which leaves
-every score and output unchanged.  A bfloat16 call that the tensor-core
-kernel cannot take raises; nothing falls back or is retried.
+in f32); float32 up to head dim 128 runs ``flash_fwd_tf32_kernel`` on the
+tensor cores, each f32 product as three tf32 products (big.big +
+big.small + small.big, big = tf32(x), small = tf32(x - big);
+:func:`flash_tf32x3_ref` emulates it).  Both need TMA to read q, k, v and
+out (16-byte aligned base addresses and strides), except where the head
+dim is padded into new tensors.  float32 at head dim 256, float32 that
+TMA cannot read and bfloat16 at head dim 256 that TMA cannot read run
+``flash_fwd_kernel`` on CUDA cores.  The kernels have head dims 32, 64,
+128 and 256; any other D up to 256 is padded with zero columns to the
+next of them, scaled by ``1/sqrt(D)`` of the true D and sliced back,
+which leaves every score and output unchanged.  A bfloat16 call at head
+dim 128 or below that the tensor-core kernel cannot take raises; nothing
+falls back or is retried.
 
 :func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
 k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
@@ -149,26 +152,33 @@ def _check_wgmma(q, k, v, out) -> None:
 
 def kernel_for(q, k, v, out=None) -> str:
     """The kernel a call on the card runs for these tensors (the instance
-    rule), from dtype, head dim and alignment alone, before any launch:
+    rule), from dtype, head dim and alignment alone, before any launch.
+    "TMA can read" means: q, k, v and ``out`` (if given) have 16-byte
+    aligned base addresses and strides, or the head dim is padded (the
+    launch then takes new contiguous tensors).
 
     * bfloat16 at an instance head dim up to 128: ``flash_fwd_wgmma_kernel``
       (which raises on a layout TMA cannot read);
-    * float32 there whose q, k, v and ``out`` (if given) TMA can read, or
-      whose head dim is padded (the launch then takes new contiguous
-      tensors): ``flash_fwd_tf32_kernel``;
-    * anything else, head dim 256 in either dtype and float32 that TMA
-      cannot read: ``flash_fwd_kernel`` on CUDA cores.
+    * bfloat16 at instance head dim 256 that TMA can read:
+      ``flash_fwd_wgmma_kernel``;
+    * float32 at an instance head dim up to 128 that TMA can read:
+      ``flash_fwd_tf32_kernel``;
+    * anything else, float32 at head dim 256 and whatever TMA cannot read
+      but bfloat16 below 256: ``flash_fwd_kernel`` on CUDA cores.
 
-    Every float32 call thus has a kernel: the rule narrows nothing."""
+    Every float32 call and every bfloat16 call at head dim 256 thus has a
+    kernel: at those the rule narrows nothing."""
     D = q.shape[3]
     Dk = instance_dim(D)
-    if Dk > 128:
-        return CUDA_CORE_KERNEL
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and Dk <= 128:
         return WGMMA_KERNEL
     tensors = (q, k, v) if out is None else (q, k, v, out)
     if Dk != D or all(_tma_aligned(t) for t in tensors):
-        return TF32_KERNEL
+        if bf16:
+            return WGMMA_KERNEL
+        if Dk <= 128:
+            return TF32_KERNEL
     return CUDA_CORE_KERNEL
 
 
@@ -231,9 +241,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def _flash_attention_instance(q, k, v, *, kernel: str, causal: bool = True,
                               window: int = 0, bq: int = 128, bk: int = 128):
     """:func:`flash_attention` on the card through the named kernel, at an
-    instance head dim (float32 on CUDA cores where the rule picks the tf32
-    kernel, to time the two side by side); raises where that kernel does
-    not take the inputs."""
+    instance head dim (on CUDA cores where the rule picks a tensor-core
+    kernel, float32 or bfloat16 at head dim 256, to time the two side by
+    side); raises where that kernel does not take the inputs."""
     bq, bk = _check(q, k, v, window, bq, bk)
     if q.device.type != "cuda" or instance_dim(q.shape[3]) != q.shape[3]:
         raise ValueError("want CUDA tensors at an instance head dim")
@@ -303,10 +313,15 @@ def _product(a, b, split: str):
     return a_big @ b_big + a_big @ b_small + a_small @ b_big
 
 
-def piece_width(bk: int) -> int:
-    """Keys per softmax update of the float32 tensor-core kernel for a KV
-    tile of ``bk`` keys: bk at 32, 64 or 128; 128 where bk is a multiple
-    of 128; else 64 (the last piece of a tile cut at its end)."""
+def piece_width(bk: int, D: int = 128) -> int:
+    """Keys per softmax update of the tensor-core kernels for a KV tile of
+    ``bk`` keys at instance head dim ``D``: bk at 32, 64 or 128; 128 where
+    bk is a multiple of 128; else 64 (the last piece of a tile cut at its
+    end).  At D = 256 (bfloat16 only) 32 at bk = 32, else 64: the
+    accumulator takes 128 registers a thread, so a piece is 64 keys at
+    most."""
+    if D == 256:
+        return 32 if bk == 32 else 64
     return bk if bk in (32, 64) else 128 if bk % 128 == 0 else 64
 
 

@@ -199,12 +199,14 @@ def test_kernel_source_keeps_the_reference_numerics():
     kernel forms q.k and p.v each as three tf32 products into one f32
     accumulator (big.big + big.small + small.big, big = tf32(x) by
     cvt.rna, small = tf32(x - big)), p.v per piece in an accumulator of
-    its own that an f32 FMA adds to acc.  The CUDA-core kernel (D = 256,
-    float32 that TMA cannot read) keeps p f32, unchanged.  The caller
-    names the kernel and the C side only checks it; the instance rule
-    ``kernel_for`` picks it from dtype, head dim and alignment, and there
-    is no bfloat16 instance of the CUDA-core kernel below D = 256; the
-    plain version is ``mha_ref``."""
+    its own that an f32 FMA adds to acc.  The CUDA-core kernel (float32
+    at D = 256, and what TMA cannot read) keeps p f32, unchanged.  The
+    caller names the kernel and the C side only checks it; the instance
+    rule ``kernel_for`` picks it from dtype, head dim and alignment.  The
+    bfloat16 kernel has a D = 256 instance (p.v as m64n256k16 with p from
+    registers); the CUDA-core kernel keeps its bfloat16 instance at
+    D = 256 alone, for layouts TMA cannot read; the plain version is
+    ``mha_ref``."""
     src = CSRC.read_text()
     hopper = (CSRC.parent / "hopper.cuh").read_text()
     assert "constexpr float kNegInf = -1e30f;" in src
@@ -246,17 +248,27 @@ def test_kernel_source_keeps_the_reference_numerics():
     assert "if (dtype == 0)\n    return dispatch<float>(" in src
     assert "  return launch_d<__nv_bfloat16, 256>(" in src
     assert "dispatch<__nv_bfloat16>" not in src
+    # bfloat16 at D = 256 on the tensor cores: its instances, its wgmma
+    assert "return (D == 32 || D == 64 || D == 128 || D == 256) && bq >= 1" \
+        in src
+    assert re.search(r"default:\s*return dispatch_bk<256>\(", src)
+    assert "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16" in hopper
+    assert "rs_tb(float (&d)[128]," in hopper
     assert "mha_ref(q, k, v, causal=causal, window=window)" in \
         inspect.getsource(fa.flash_attention)
     assert "kernel_for(q, k, v, out)" in inspect.getsource(fa.flash_attention)
 
 
-def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True):
+def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True,
+                   width=None):
     """The bfloat16 kernel's numerics, emulated in float32 on the CPU:
     q.k of bf16 values with f32 sums, the reference's online softmax per
-    (bq, bk) tile with the finite -1e30 mask, and p.v as bf16(p).v +
-    bf16(p - bf16(p)).v into an f32 accumulator (``split=False``: bf16(p)
-    alone).  Returns the output before its rounding to bf16."""
+    (bq, bk) tile with the finite -1e30 mask (``width``: once per piece of
+    that many keys of each tile instead, the last piece cut at the tile's
+    end, as ``fa.piece_width`` gives the kernel's), and p.v as
+    bf16(p).v + bf16(p - bf16(p)).v into an f32 accumulator
+    (``split=False``: bf16(p) alone).  Returns the output before its
+    rounding to bf16."""
     B, Hq, Sq, D = q.shape
     Sk, G = k.shape[2], Hq // k.shape[1]
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
@@ -267,11 +279,14 @@ def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True):
         acc = torch.zeros(B, Hq, bq, D)
         m = torch.full((B, Hq, bq, 1), -1e30)
         l = torch.zeros(B, Hq, bq, 1)
-        for k0 in range(0, Sk, bk):
-            kpos = torch.arange(k0, k0 + bk)[None, :]
-            s = q[:, :, q0:q0 + bq] @ k[:, :, k0:k0 + bk].transpose(2, 3)
+        pieces = [(c0, min(c0 + (width or bk), t0 + bk))
+                  for t0 in range(0, Sk, bk)
+                  for c0 in range(t0, t0 + bk, width or bk)]
+        for k0, k1 in pieces:
+            kpos = torch.arange(k0, k1)[None, :]
+            s = q[:, :, q0:q0 + bq] @ k[:, :, k0:k1].transpose(2, 3)
             s = s * (1.0 / np.sqrt(D))
-            keep = torch.ones(bq, bk, dtype=torch.bool)
+            keep = torch.ones(bq, k1 - k0, dtype=torch.bool)
             if causal:
                 keep = kpos <= qpos
             if window:
@@ -282,7 +297,7 @@ def _split_p_flash(q, k, v, *, causal, window, bq, bk, split=True):
             p = torch.exp(s - m_new)
             l = l * alpha + p.sum(-1, keepdim=True)
             p_hi = p.bfloat16().float()
-            vt = v[:, :, k0:k0 + bk]
+            vt = v[:, :, k0:k1]
             acc = acc * alpha + p_hi @ vt
             if split:
                 acc = acc + (p - p_hi).bfloat16().float() @ vt
@@ -331,6 +346,40 @@ def test_split_p_numerics_contract(Sq, Sk, causal, window):
     ref = jax_flash(_jax(q, "bfloat16"), _jax(k, "bfloat16"),
                     _jax(v, "bfloat16"), bq=64, bk=32, interpret=True, **kw)
     _close(out.float(), ref, "bfloat16")
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,bq,bk", [
+    (256, 256, True, 0, 128, 128), (256, 256, True, 48, 64, 64),
+    (128, 200, False, 0, 64, 100), (256, 64, True, 32, 128, 32)])
+def test_split_p_numerics_at_head_dim_256(Sq, Sk, causal, window, bq, bk):
+    """The bfloat16 kernel at D = 256 updates the softmax once per piece
+    of ``fa.piece_width(bk, 256)`` keys (64 at most; bk = 100 is a 64-key
+    piece and a 36-key one): that split-p output, before rounding, is
+    within SPLIT_BOUND of the exact function, and bf16 p alone misses by
+    over ten times that; rounded to bf16 it agrees with ``mha_ref`` at
+    the bf16 tolerance and in all but SPLIT_DIFF_SHARE of its outputs."""
+    q, k, v = _inputs(1, 2, 1, Sq, 256, "bfloat16", seed=Sq + Sk + bk,
+                      Sk=Sk)
+    kw = dict(causal=causal, window=window)
+    width = fa.piece_width(bk, 256)
+    assert width == (32 if bk == 32 else 64)
+    exact = _exact(q, k, v, **kw)
+    split = _split_p_flash(q, k, v, bq=bq, bk=bk, width=width, **kw)
+    assert (split.double() - exact).abs().max().item() < SPLIT_BOUND
+    hi_only = _split_p_flash(q, k, v, bq=bq, bk=bk, width=width,
+                             split=False, **kw)
+    assert (hi_only.double() - exact).abs().max().item() > 10 * SPLIT_BOUND
+    plain = mha_ref(_torch(q, "bfloat16"), _torch(k, "bfloat16"),
+                    _torch(v, "bfloat16"), **kw).float()
+    out = split.bfloat16().float()
+    _close(out, plain, "bfloat16")
+    assert (out != plain).float().mean().item() <= SPLIT_DIFF_SHARE
+    if Sq > Sk:     # rows Sk + window - 1 .. keep no key: the mean of v
+        dead = Sk + window - 1
+        mean = np.repeat(v.mean(axis=2), 2, axis=1)[:, :, None]
+        np.testing.assert_allclose(
+            split[:, :, dead:].numpy(),
+            np.broadcast_to(mean, split[:, :, dead:].shape), atol=1e-5)
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -486,6 +535,14 @@ def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
     (1, 2, 1, 1024, 1024, 128, True, 0, 128, 512, "bfloat16"),
     # a q tile of many passes: q is loaded per pass
     (1, 2, 1, 2048, 2048, 128, True, 0, 1024, 128, "bfloat16"),
+    # bfloat16 at D = 256: a 32-key piece, 64-key pieces of wider tiles,
+    # a piece padded past its tile, a window, GQA and q tiles of one
+    # warpgroup, two and two passes
+    (1, 2, 1, 256, 256, 256, True, 0, 64, 32, "bfloat16"),
+    (1, 4, 2, 512, 512, 256, True, 0, 128, 128, "bfloat16"),
+    (1, 2, 2, 512, 500, 256, True, 0, 256, 100, "bfloat16"),
+    (1, 4, 1, 512, 512, 256, True, 100, 128, 256, "bfloat16"),
+    (1, 2, 2, 256, 64, 256, False, 32, 64, 64, "bfloat16"),
 ])
 def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                       bq, bk, dt):

@@ -152,6 +152,17 @@ def test_piece_width_follows_bk():
         [32, 64, 128, 128, 128, 64, 64, 64, 64]
 
 
+def test_piece_width_at_head_dim_256():
+    """At D = 256 (bfloat16 on the tensor cores) a piece is 64 keys at
+    most: one 32-key piece at bk = 32, 64-key pieces of every other bk;
+    the head dims below keep the rule above."""
+    bks = (32, 64, 128, 256, 512, 16, 48, 96, 100)
+    assert [fa.piece_width(bk, 256) for bk in bks] == \
+        [32, 64, 64, 64, 64, 64, 64, 64, 64]
+    assert [fa.piece_width(bk, D) for D in (32, 64) for bk in bks] == \
+        2 * [fa.piece_width(bk) for bk in bks]
+
+
 def test_emulation_rejects_an_unknown_split():
     q = torch.zeros(1, 1, 32, 32)
     with pytest.raises(ValueError, match="split"):
@@ -177,13 +188,21 @@ def _aligned(dt, D, device):
     (torch.float32, 200, "contiguous", fa.CUDA_CORE_KERNEL),  # padded to 256
     (torch.bfloat16, 64, "contiguous", fa.WGMMA_KERNEL),
     (torch.bfloat16, 64, "k rows 65 apart", fa.WGMMA_KERNEL),  # raises later
-    (torch.bfloat16, 256, "contiguous", fa.CUDA_CORE_KERNEL),
+    (torch.bfloat16, 256, "contiguous", fa.WGMMA_KERNEL),
+    (torch.bfloat16, 256, "mha view", fa.WGMMA_KERNEL),
+    (torch.bfloat16, 256, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
+    (torch.bfloat16, 256, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
+    (torch.bfloat16, 200, "contiguous", fa.WGMMA_KERNEL),     # padded to 256
+    (torch.bfloat16, 200, "k rows 65 apart", fa.WGMMA_KERNEL),  # padded: new
 ])
 def test_instance_rule(device, dt, D, layout, kernel):
     """dtype, head dim and alignment name the kernel, before any launch:
     float32 runs the tf32 kernel where TMA can read q, k, v and out (or
     the head dim is padded into new tensors), else the CUDA-core kernel,
-    so no float32 call is refused; bfloat16 at D <= 128 runs wgmma."""
+    so no float32 call is refused; bfloat16 at D <= 128 runs wgmma;
+    bfloat16 at D = 256 runs wgmma where TMA can read (or D is padded),
+    else the CUDA-core kernel, so no bfloat16 call at D = 256 is refused.
+    (``k rows 65 apart`` is k with D + 1 elements a row.)"""
     q, k, v = _aligned(dt, D, device)
     out = None
     if layout == "mha view":
