@@ -32,10 +32,11 @@ really ran there:
   block size the domain offers (``flash_attention`` in float32, on its
   tensor-core kernel ``flash_fwd_tf32_kernel``: every launch of the search
   must be one of it).  That kernel's SASS must hold tf32 ``HGMMA``
-  instructions, and its output must pass a 3xTF32 gate against
-  ``mha_ref`` at every block of both presets and at the qwen1.5-4b
-  prefill shape in float32, which its two controls (one tf32 product;
-  bf16 hi + lo, both emulated by ``flash_tf32x3_ref``) fail;
+  instructions (two instances at D = 256, which ptxas must build without
+  a spill), and its output must pass a 3xTF32 gate against ``mha_ref`` at
+  every block of both presets and at the qwen1.5-4b and gemma-7b prefill
+  shapes in float32, which its two controls (one tf32 product; bf16 hi +
+  lo, both emulated by ``flash_tf32x3_ref``) fail;
 * bf16 prefill attention: ``ops.mha`` at three full-width shapes
   (qwen1.5-4b; a gemma3-27b local layer; gemma-7b, head dim 256) on the
   tensor-core ``flash_attention`` kernel, whose SASS must hold ``HGMMA``
@@ -45,7 +46,8 @@ really ran there:
   gate against ``mha_ref`` that two controls keeping p in bf16 (SDPA,
   ``mha_p_bf16``) fail, so p.v is held to p_hi + p_lo.  At head dim 256
   the CUDA-core kernel is timed in turns with it on the same inputs, and
-  float32 runs the CUDA-core kernel beside SDPA in float32.
+  float32 runs ``flash_fwd_tf32_kernel``, timed in turns with the
+  CUDA-core kernel beside SDPA in float32.
 
 Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
@@ -94,7 +96,7 @@ TF32_OPS = 495e12                                   # tensor cores, dense
 SPIN_CYCLES = 2_000_000   # ~1 ms of the card's clock queued before each rep
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
 TF32_KERNEL = "flash_fwd_tf32_kernel"             # f32 flash attention
-F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores: D = 256, unaligned f32
+F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores: what TMA cannot read
 SSD_STATE_KERNEL = "chunk_state_wgmma_kernel"     # bf16 ssd_scan, launch 1
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
 SSD_LAUNCHES = (SSD_STATE_KERNEL, "state_pass_kernel",
@@ -127,7 +129,7 @@ SSM_SERVE_SEQ = 128
 FLASH_FULL = [("qwen1.5-4b prefill", 1, 4096, 20, 20, 128, 0),
               ("gemma3-27b local layer", 1, 4096, 32, 16, 128, 1024)]
 # head dim 256: gemma-7b prefill (configs/gemma_7b.py) through ops.mha,
-# causal; bf16 on the tensor-core kernel, f32 on CUDA cores
+# causal; bf16 and f32 each on its tensor-core kernel
 FLASH_D256 = ("gemma-7b prefill", 1, 4096, 16, 16, 256)
 # the split-p gate at those shapes, bf16 outputs against mha_ref: the
 # largest abs error (atol only) and the share of outputs that differ
@@ -812,9 +814,9 @@ def check_flash_attention():
     rows with every key masked (Sq > Sk with a window: the mean of v), bk
     outside the domain's widths and q tiles of many passes, head dims
     padded to an instance (48, 80, 112, 200) and the D = 256 instance
-    (bf16 on the tensor cores at every bq of one and two warpgroups and
-    passes against every domain bk and bk = 100, with a window, GQA, MQA
-    and rows that keep no key; f32 on CUDA cores), float32 and bf16 at
+    (bf16 and f32 each on its tensor-core kernel at every bq of one and
+    two warpgroups and passes against every domain bk and bk = 100, with
+    a window, GQA, MQA and rows that keep no key), float32 and bf16 at
     D = 256 that TMA cannot read (CUDA cores), and the window = Sk ==
     causal property."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -875,52 +877,54 @@ def check_flash_attention():
         out = _flash_compare("any bk, any bq", q, k, v, True, window, bq, bk)
         _check_dead_rows(out, v, window)
     # head dims outside the instances: zero-padded to the next one (48 ->
-    # 64, 80 and 112 -> 128: the tensor cores in both dtypes; 200 -> 256),
-    # and the D = 256 instance (bf16 on the tensor cores, f32 on CUDA
-    # cores); each one launch
+    # 64, 80 and 112 -> 128, 200 -> 256), and the D = 256 instance: the
+    # tensor cores in both dtypes; each one launch
     for i, (D, dt) in enumerate((
             (48, f32), (48, bf16), (80, f32), (80, bf16), (112, f32),
             (112, bf16), (200, f32), (200, bf16), (256, f32), (256, bf16))):
         q, k, v = flash_inputs(1, 4, 2, 256, D, dt, seed=90 + i)
-        kernel = (WGMMA_KERNEL if dt == bf16 else
-                  F32_FLASH_KERNEL if D > 128 else TF32_KERNEL)
         for bq, bk in ((128, 128), (64, 32)):
             _flash_compare(f"D={D} (instance {fa.instance_dim(D)})", q, k, v,
-                           True, 0, bq, bk, kernel)
-    # bf16 at D = 256 on the tensor cores: q tiles of one warpgroup, two
-    # and two passes against a 32-key piece (bk = 32), 64-key pieces of
-    # 64, 128 and 256, and bk = 100 (Sk = 500: a 64-key piece padded past
-    # its tile)
-    q, k, v = flash_inputs(1, 4, 2, 512, 256, bf16, seed=110)
-    _, k100, v100 = flash_inputs(1, 4, 2, 512, 256, bf16, seed=111, Sk=500)
-    for bq in (64, 128, 256):
-        for bk in (32, 64, 128, 256, 100):
-            kk, vv = (k100, v100) if bk == 100 else (k, v)
-            _flash_compare("D=256", q, kk, vv, True, 0, bq, bk)
-    for i, (name, Hq, Hkv, Sq, Sk, causal, window, bq, bk) in enumerate((
-            ("D=256 window", 4, 2, 512, 512, True, 100, 128, 64),
-            ("D=256 GQA", 8, 2, 256, 256, True, 0, 128, 128),
-            ("D=256 MQA", 4, 1, 256, 256, True, 0, 64, 32),
-            ("D=256 bidirectional", 4, 4, 256, 256, False, 0, 64, 256),
-            ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64, True,
-             32, 64, 32),
-            ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64, False,
-             32, 128, 64))):
-        q, k, v = flash_inputs(1, Hq, Hkv, Sq, 256, bf16, seed=112 + i,
-                               Sk=Sk)
-        out = _flash_compare(name, q, k, v, causal, window, bq, bk)
-        _check_dead_rows(out, v, window)
-    # bf16 at D = 256 that TMA cannot read (k's and v's rows 257 elements,
-    # 514 bytes, apart): the CUDA-core kernel
-    q, k, v = flash_inputs(1, 4, 2, 256, 256, bf16, seed=118)
-    wide = [torch.zeros(1, 2, 256, 257, dtype=bf16, device="cuda")
-            for _ in range(2)]
-    for t, src in zip(wide, (k, v)):
-        t[..., :256] = src
-    for bq, bk in ((128, 128), (64, 32)):
-        _flash_compare("bf16 D=256 rows 257 elements apart", q,
-                       wide[0][..., :256], wide[1][..., :256], True, 0, bq,
-                       bk, F32_FLASH_KERNEL)
+                           True, 0, bq, bk)
+    # D = 256 on the tensor cores, in both dtypes: q tiles of one
+    # warpgroup, two and two passes (bf16; f32 runs one block a 64-row
+    # pass) against a 32-key piece (bk = 32), 64-key pieces of 64, 128 and
+    # 256, and bk = 100 (Sk = 500: a 64-key piece padded past its tile)
+    for j, dt in enumerate((bf16, f32)):
+        q, k, v = flash_inputs(1, 4, 2, 512, 256, dt, seed=110 + 20 * j)
+        _, k100, v100 = flash_inputs(1, 4, 2, 512, 256, dt,
+                                     seed=111 + 20 * j, Sk=500)
+        for bq in (64, 128, 256):
+            for bk in (32, 64, 128, 256, 100):
+                kk, vv = (k100, v100) if bk == 100 else (k, v)
+                _flash_compare("D=256", q, kk, vv, True, 0, bq, bk)
+        for i, (name, Hq, Hkv, Sq, Sk, causal, window, bq, bk) in enumerate((
+                ("D=256 window", 4, 2, 512, 512, True, 100, 128, 64),
+                ("D=256 GQA", 8, 2, 256, 256, True, 0, 128, 128),
+                ("D=256 MQA", 4, 1, 256, 256, True, 0, 64, 32),
+                ("D=256 bidirectional", 4, 4, 256, 256, False, 0, 64, 256),
+                ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64,
+                 True, 32, 64, 32),
+                ("D=256 Sq > Sk, rows 95.. keep no key", 4, 2, 256, 64,
+                 False, 32, 128, 64),
+                ("D=256 bq = 96, not whole passes", 4, 2, 384, 384, True, 0,
+                 96, 64))):
+            q, k, v = flash_inputs(1, Hq, Hkv, Sq, 256, dt,
+                                   seed=112 + i + 20 * j, Sk=Sk)
+            out = _flash_compare(name, q, k, v, causal, window, bq, bk)
+            _check_dead_rows(out, v, window)
+    # D = 256 that TMA cannot read (k's and v's rows 257 elements apart:
+    # 514 bytes in bf16, 1028 in f32): the CUDA-core kernel, in both dtypes
+    for j, dt in enumerate((bf16, f32)):
+        q, k, v = flash_inputs(1, 4, 2, 256, 256, dt, seed=118 + 20 * j)
+        wide = [torch.zeros(1, 2, 256, 257, dtype=dt, device="cuda")
+                for _ in range(2)]
+        for t, src in zip(wide, (k, v)):
+            t[..., :256] = src
+        for bq, bk in ((128, 128), (64, 32)):
+            _flash_compare(f"{str(dt)[6:]} D=256 rows 257 elements apart", q,
+                           wide[0][..., :256], wide[1][..., :256], True, 0,
+                           bq, bk, F32_FLASH_KERNEL)
     # float32 that TMA cannot read (k's and v's rows 65 floats apart, q 4
     # bytes past an aligned address): the CUDA-core kernel
     q, k, v = flash_inputs(1, 4, 2, 256, 64, f32, seed=98)
@@ -1176,12 +1180,14 @@ def measure_flash_attention():
 
 def measure_flash_f32_d256():
     """float32 at FLASH_D256 through ``ops.mha``: one counted launch of
-    ``flash_fwd_kernel`` (the CUDA cores take float32 at head dim 256),
-    held to f32 ``mha_ref`` at the f32 tolerance and timed beside the
-    plain version and SDPA in float32 (``allow_tf32`` off).  The bound
-    counts what the float32 row counts (q.k and p.v as three tf32 products
-    each at 495 TFLOP/s) against the bytes of q, k, v and o; both products
-    at the f32 CUDA-core rate are logged beside it."""
+    ``flash_fwd_tf32_kernel`` (the tensor cores take float32 at head dim
+    256), held to the 3xTF32 gate against f32 ``mha_ref`` (both controls
+    outside it) and timed in turns on the same inputs with
+    ``flash_fwd_kernel`` (kernel, CUDA cores, CUDA cores, kernel), beside
+    the plain version and SDPA in float32 (``allow_tf32`` off).  The bound
+    counts q.k and p.v as three tf32 products each at 495 TFLOP/s against
+    the bytes of q, k, v and o; both products at the f32 CUDA-core rate
+    are logged beside it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     name, B, S, Hq, Hkv, D = FLASH_D256
     name = f"{name} float32"
@@ -1192,21 +1198,28 @@ def measure_flash_f32_d256():
     torch.cuda.synchronize()
     counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32,
               fa.COUNT.plain)
-    if counts != (1, 0, 0, 0):
+    if counts != (1, 0, 1, 0):
         raise AssertionError(f"ops.mha at {name}: (launches, wgmma, tf32, "
-                             f"plain) = {counts}, not one {F32_FLASH_KERNEL} "
+                             f"plain) = {counts}, not one {TF32_KERNEL} "
                              "launch")
+    if o.shape != q.shape or not torch.isfinite(o).all():
+        raise AssertionError(f"ops.mha at {name}: bad output")
     ref = mha_ref(qt, kt, vt, causal=True).transpose(1, 2)
-    err = (o - ref).abs().max().item()
+    err = tf32_gate(name, o, ref, qt, kt, vt)
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
                - ref).abs().max().item()
-    if o.shape != q.shape or not torch.isfinite(o).all() or \
-            not torch.allclose(o, ref, atol=TOL[q.dtype], rtol=TOL[q.dtype]):
-        raise AssertionError(f"ops.mha disagrees with mha_ref at {name}")
-    if lib_err > 4 * TOL[q.dtype]:
-        raise AssertionError("SDPA float32 computes another function")
+    cuda_core = lambda: fa._flash_attention_instance(  # noqa: E731
+        qt, kt, vt, kernel=F32_FLASH_KERNEL, causal=True)
+    cc_err = (cuda_core().transpose(1, 2) - ref).abs().max().item()
+    if lib_err > 4 * TOL[q.dtype] or cc_err > TOL[q.dtype]:
+        raise AssertionError(f"at {name}, SDPA ({lib_err:.3e}) or "
+                             f"{F32_FLASH_KERNEL} ({cc_err:.3e}) computes "
+                             "another function")
     del o, ref
-    ms = time_ms(lambda: ops.mha(q, k, v, causal=True), reps=10)
+    mha = lambda: ops.mha(q, k, v, causal=True)  # noqa: E731
+    ms = time_ms(mha, reps=20)
+    cc_ms = [time_ms(cuda_core, reps=10) for _ in range(2)]
+    ms_again = time_ms(mha, reps=20)
     plain_ms = time_ms(lambda: mha_ref(qt, kt, vt, causal=True), reps=5)
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=10)
     pairs = B * Hq * _pairs(S, 0)
@@ -1217,19 +1230,23 @@ def measure_flash_f32_d256():
     f32_rate_ms = 2 * flops / PEAK_OPS[torch.float32] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"flash_attention {name} (B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}, "
-        f"causal, ops.mha, {F32_FLASH_KERNEL}): max_abs_err={err:.3e} (tol "
-        f"{TOL[q.dtype]:g} abs+rel), sdpa {lib_err:.3e}; kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({pairs} kept pairs: 6 x {flops} flops of tf32 "
-        f"products at 495 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35"
-        f" TB/s = {bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, "
-        f"kernel/sdpa {ms / library_ms:.2f}, {2 * flops / ms / 1e9:.1f} "
-        f"TFLOP/s of q.k and p.v; both products at the f32 rate of 67 "
-        f"TFLOP/s: {f32_rate_ms:.5f} ms")
+        f"causal, ops.mha, {TF32_KERNEL}): max_abs_err={err:.3e} (3xTF32 "
+        f"gate {TF32_GATE:g}), {F32_FLASH_KERNEL} {cc_err:.3e}, sdpa "
+        f"{lib_err:.3e}; in turns: kernel {ms:.4f}, {F32_FLASH_KERNEL} "
+        f"{cc_ms[0]:.4f}, {cc_ms[1]:.4f}, kernel {ms_again:.4f} ms; plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f}"
+        f" ms ({pairs} kept pairs: 6 x {flops} flops of tf32 products at "
+        f"495 TFLOP/s = {ops_ms:.5f} ms; {nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.5f} ms); kernel/bound {ms / bound_ms:.2f}, kernel/sdpa"
+        f" {ms / library_ms:.2f}, {F32_FLASH_KERNEL}/kernel "
+        f"{np.mean(cc_ms) / ms:.2f}, {6 * flops / ms / 1e9:.1f} TFLOP/s of "
+        f"tf32 products; both products at the f32 rate of 67 TFLOP/s: "
+        f"{f32_rate_ms:.5f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return dict(shape=name, kernel=F32_FLASH_KERNEL, launches=counts[0],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(shape=name, kernel=TF32_KERNEL, launches=counts[0],
+                max_abs_err=err, ms=ms, ms_in_turns=[ms, ms_again],
+                cuda_core_ms=cc_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -1824,16 +1841,24 @@ def main() -> None:
         if name == "ssd_scan":
             for kname, regs, spill in ptxas_entries(text, SSD_STATE_KERNEL):
                 log(f"    {kname}: {regs} registers, {spill}")
-        if name == "flash_attention":    # no wgmma instance may spill
+        if name == "flash_attention":
+            # no wgmma instance and no D = 256 tf32 instance may spill;
+            # the tf32 instances below 256 are logged (PERF.md names
+            # those that spill)
             entries = ptxas_entries(text, WGMMA_KERNEL)
-            for kname, regs, spill in entries:
-                log(f"    {WGMMA_KERNEL}{kname}: {regs} registers, {spill}")
-            spilled = [e for e in entries
+            tf32 = ptxas_entries(text, TF32_KERNEL)
+            for kernel, found in ((WGMMA_KERNEL, entries),
+                                  (TF32_KERNEL, tf32)):
+                for kname, regs, spill in found:
+                    log(f"    {kernel}{kname}: {regs} registers, {spill}")
+            held = entries + [e for e in tf32 if e[0].startswith("<256,")]
+            spilled = [e for e in held
                        if "0 bytes spill stores, 0 bytes spill loads"
                        not in e[2]]
-            if not entries or spilled:
+            if not entries or len(held) == len(entries) or spilled:
                 raise AssertionError(
-                    f"{WGMMA_KERNEL}: ptxas reports spills (or no report) in "
+                    f"{WGMMA_KERNEL} or {TF32_KERNEL} at D = 256: ptxas "
+                    f"reports spills (or no report) in "
                     f"{spilled or 'no instance'}")
         if name == "decode_attention":    # its instances must not spill
             reports = re.findall(
@@ -1870,7 +1895,14 @@ def main() -> None:
         raise AssertionError(f"{len(d256)} D = 256 instances of "
                              f"{WGMMA_KERNEL}, not 4 (bk 32 or 64-key "
                              "pieces, one or two warpgroups)")
-    check_wgmma_sass("flash_attention", TF32_KERNEL, F32_FLASH_KERNEL, "TF32")
+    tf = check_wgmma_sass("flash_attention", TF32_KERNEL, F32_FLASH_KERNEL,
+                          "TF32")
+    d256 = [c[1] for n, c in tf.items() if f"{TF32_KERNEL}ILi256E" in n]
+    log(f"  D = 256: {len(d256)} instances of {TF32_KERNEL}, HGMMA on TF32 "
+        f"{min(d256, default=0)}-{max(d256, default=0)} each")
+    if len(d256) != 2:
+        raise AssertionError(f"{len(d256)} D = 256 instances of "
+                             f"{TF32_KERNEL}, not 2 (32- or 64-key pieces)")
     check_flash_attention()
     tf32_gate_presets()
     flash_readings = measure_flash_attention()

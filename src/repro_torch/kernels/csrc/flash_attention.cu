@@ -11,12 +11,11 @@
 //  * bfloat16 at D <= 128, and at D = 256 where TMA can read q, k, v and
 //    o (16-byte aligned base addresses and strides): flash_fwd_wgmma_kernel,
 //    on the tensor cores (below);
-//  * float32 at D <= 128 that TMA can read: flash_fwd_tf32_kernel, on the
-//    tensor cores as three tf32 products (below);
-//  * float32 at D = 256, float32 that TMA cannot read, and bfloat16 at
-//    D = 256 that TMA cannot read: flash_fwd_kernel, f32 FMAs on CUDA
-//    cores (at D = 256 every (bq, bk) fits a block's shared memory, at
-//    most 198 KB).
+//  * float32 that TMA can read: flash_fwd_tf32_kernel, on the tensor
+//    cores as three tf32 products (below);
+//  * float32 that TMA cannot read, and bfloat16 at D = 256 that TMA
+//    cannot read: flash_fwd_kernel, f32 FMAs on CUDA cores (at D = 256
+//    every (bq, bk) fits a block's shared memory, at most 198 KB).
 //
 // Semantics kept from the reference by all three: scores are f32 sums
 // times the scale; masked scores are the finite -1e30; the softmax state
@@ -149,10 +148,32 @@
 //    thread holds acc and pv (D/2 each), the piece's scores (64 registers
 //    at 128 keys) and one sub-tile's big and small p; at D = 128 that
 //    spills (PERF.md).
+//  * D = 256 (tf32_cols).  acc and pv would each take 128 registers a
+//    thread of one warpgroup, and one 64-row pass of q, big and small, is
+//    128 KB of the 227.  So the two consumer warpgroups share each pass's
+//    64 rows and split D: warpgroup w owns columns [128 w, 128 w + 128),
+//    its acc 64 registers and its pv 32 (one 64-column pair at a time).
+//    For q.k each forms the partial S over its own 128 columns of D
+//    (m64n64k8, three products per k8 step); the two partial sums meet in
+//    shared memory (16 KB each a 64-key piece, two named barriers) and
+//    each warpgroup adds the other's to its own, so both hold the same S
+//    (a + b is b + a exactly) and run the same softmax.  A piece is 32
+//    keys at bk = 32, else 64.  Slots are 2048 floats: a K slot the
+//    piece's keys of one 32-column block (two at 32-key pieces), the q.k
+//    B operand; a V slot 32 keys of a 64-column pair (two TMA boxes),
+//    transposed into V^T by split_vt (16-byte reads and writes; p.v as
+//    m64n64k8 with p from registers).  The producer loads each piece's K
+//    slots, then its V slots, the two warpgroups' in turn, so each
+//    warpgroup keeps half of the ring of 4 slots (5 did not run faster at
+//    32-key pieces, scripts/flash_tf32_d256_parts.py): 1,024 + 131,072
+//    (q) + 4 x 16,384 (slots) + 32,768 (partial S; 16,384 at 32-key
+//    pieces) + 80 = 230,480 bytes.  The grid has one block per 64-row
+//    pass: a q tile of whole passes is cut into blocks, as nothing of one
+//    pass serves the next.
 //
 // --- flash_fwd_kernel (first design, CUDA cores) --------------------------
-// float32 at D = 256 or with a base or stride TMA cannot read, bfloat16 at
-// D = 256 with a base or stride TMA cannot read.
+// float32 with a base or stride TMA cannot read, bfloat16 at D = 256 with
+// a base or stride TMA cannot read.
 //  * One block per (b, h, q tile); 256 threads as a 16 x 16 grid, each
 //    holding a register tile of 2 or 4 query rows (the block walks its
 //    q tile in passes of 32 or 64 rows) by D/16 output columns and by
@@ -903,22 +924,27 @@ constexpr int kSyncId = 1;                    // named barrier of the consumers
 
 // Keys per softmax update (the kernel's piece, BKC): bk where it is 32, 64
 // or 128; 128-key pieces of a bk that is a multiple of 128; 64-key pieces
-// of any other bk (the last piece of a tile padded past it).
-__host__ __device__ constexpr int piece_width(int bk) {
-  return bk == 32 || bk == 64 ? bk : bk % 128 == 0 ? 128 : 64;
+// of any other bk (the last piece of a tile padded past it).  D = 256:
+// 32 at bk = 32, else 64-key pieces (shared memory; see the header).
+__host__ __device__ constexpr int piece_width(int D, int bk) {
+  return D == 256 ? (bk == 32 ? 32 : 64)
+         : bk == 32 || bk == 64 ? bk : bk % 128 == 0 ? 128 : 64;
 }
 // keys per K or V sub-tile: 32 at D = 128 (shared memory), else the piece
-// up to 64
+// up to 64 (at D = 256 a slot holds the piece's keys of 32 columns of D)
 __host__ __device__ constexpr int sub_keys(int D, int bkc) {
   return D == 128 ? 32 : bkc < 64 ? bkc : 64;
 }
-__host__ __device__ constexpr int warpgroups(int bq) {
-  return bq > kRows ? 2 : 1;
+// consumer warpgroups: two for a q tile above 64 rows, and always two at
+// D = 256 (they share a pass's 64 rows and split D)
+__host__ __device__ constexpr int warpgroups(int D, int bq) {
+  return D == 256 || bq > kRows ? 2 : 1;
 }
 __host__ __device__ constexpr int block_threads(int nwg) {
   return nwg == 2 ? 384 : 160;
 }
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages256 = 4;                 // ring slots at D = 256
 
 struct Plan {
   int nwg, stages;
@@ -928,10 +954,21 @@ struct Plan {
 // Shared memory: 1024 bytes of alignment slack, one pass of q rows twice
 // (the TMA tile, rounded in place to big, and small), `stages` slots of
 // one K or V sub-tile twice (see the header), and the barriers.  As many
-// slots as fit, up to two pieces' K and V; at least two.
+// slots as fit, up to two pieces' K and V; at least two.  D = 256: a pass
+// is 64 rows (128 KB), a slot 2048 floats twice, and the two warpgroups'
+// partial scores of a piece sit beside the ring of kStages256 slots: as
+// the producer alternates between the warpgroups, each keeps two (it
+// frees a slot once its next one is issued); a fifth fits only beside
+// 32-key pieces' partial scores, and ran no faster there.
 __host__ inline Plan plan(int D, int bq, int bkc) {
   Plan p;
-  p.nwg = warpgroups(bq);
+  p.nwg = warpgroups(D, bq);
+  if (D == 256) {
+    p.stages = kStages256;
+    p.smem = 1024 + 2 * (size_t)kRows * D * 4 + 2 * 2048 * 4 * p.stages +
+             2 * (size_t)kRows * bkc * 4 + 8 * (2 + 2 * p.stages);
+    return p;
+  }
   const int n = sub_keys(D, bkc), nsub = bkc / n;
   const size_t q_bytes = 2 * (size_t)kRows * p.nwg * D * 4;
   const size_t slot = 2 * (size_t)n * D * 4;
@@ -1004,16 +1041,23 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
   return hopper::make_desc(addr, 16, 8 * 128, hopper::desc_swizzle(128));
 }
 
-// grid (Sq / bq, Hq, B); block block_threads(NWG).  Maps: q (D, Sq, Hq, B)
-// in boxes of (32, 64); k and v (D, Sk, Hkv, B) in boxes of (32, N).  BKC:
-// keys per piece (piece_width(bk)); tiles of bk keys.
+// x, opaque to the compiler: descriptors derived from it are formed where
+// they are used instead of being hoisted out of the loop and held in
+// registers (at D = 256, q's 32 of them spilled)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// D <= 128: each consumer warpgroup holds its own 64 q rows of a pass.
+// Maps: q (D, Sq, Hq, B) in boxes of (32, 64); k and v (D, Sk, Hkv, B) in
+// boxes of (32, N).  BKC: keys per piece (piece_width); tiles of bk keys.
 template <int D, int BKC, int NWG>
-__global__ void __launch_bounds__(block_threads(NWG), 1) flash_fwd_tf32_kernel(
-    const __grid_constant__ CUtensorMap qmap,
-    const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int Sk,
-    int G, int bq, int bk, int causal, int window, int stages, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, float scale_log2) {
+__device__ __forceinline__ void tf32_rows(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    float* __restrict__ o, int Sk, int G, int bq, int bk, int causal,
+    int window, int stages, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+    float scale_log2) {
   constexpr int N = sub_keys(D, BKC);
   constexpr int NSUB = BKC / N;
   constexpr int CB = D / 32;                 // 128-byte column blocks of a row
@@ -1278,6 +1322,386 @@ __global__ void __launch_bounds__(block_threads(NWG), 1) flash_fwd_tf32_kernel(
   }
 }
 
+// D = 256, a V slot: 32 keys x 64 columns as TMA wrote them (two column
+// blocks of 32 keys' 128-byte rows, swizzled) becomes V^T big in the
+// slot's second half and V^T small over the first: 64 rows of the 32
+// keys, K-major, one column block, each 8-key group in the key order (0,
+// 2, 4, 6, 1, 3, 5, 7) of the A fragments that p is (as split_v lays it
+// out).  Thread i of the warpgroup moves keys (par, par + 2, par + 4,
+// par + 6) of 8-key group g8 in the four columns of float4 dg: four
+// 16-byte reads, then per column one 16-byte write of big and one of
+// small.  The lanes are laid out so that no read or write conflicts in a
+// bank.  The warpgroup meets at named barrier `bar`.
+__device__ __forceinline__ void split_vt(uint8_t* vs, int i, int bar) {
+  constexpr uint32_t HALF = 32 * 64 * 4;
+  const int x = i % 8, t = i / 8;
+  const int g8 = x >> 1, par = x & 1;
+  const int dg = 2 * ((g8 + (t >> 1)) & 3) + (t & 1) + 8 * (t >> 3);
+  float4 r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = 8 * g8 + par + 2 * j;
+    r[j] = *reinterpret_cast<const float4*>(
+        vs + (dg / 8) * 4096 + row * 128 + (((dg % 8) ^ (row % 8)) << 4));
+  }
+  hopper::named_sync<128>(bar);   // the raw tile is overwritten below
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d = 4 * dg + c;
+    const uint32_t off = d * 128 + (((2 * g8 + par) ^ (d % 8)) << 4);
+    const float e[4] = {(&r[0].x)[c], (&r[1].x)[c], (&r[2].x)[c],
+                        (&r[3].x)[c]};
+    uint4 big, small;
+    hopper::split_tf32(e[0], big.x, small.x);
+    hopper::split_tf32(e[1], big.y, small.y);
+    hopper::split_tf32(e[2], big.z, small.z);
+    hopper::split_tf32(e[3], big.w, small.w);
+    *reinterpret_cast<uint4*>(vs + HALF + off) = big;
+    *reinterpret_cast<uint4*>(vs + off) = small;
+  }
+}
+
+// D = 256: the two consumer warpgroups share each pass's 64 q rows, and
+// warpgroup w owns columns [128 w, 128 w + 128) of D (see the header).
+// Maps: q (D, Sq, Hq, B) in boxes of (32, 64); k (D, Sk, Hkv, B) in boxes
+// of (32, BKC), v in boxes of (32, 32).  Tiles of bk keys in pieces of
+// BKC (32 or 64).  A slot holds 2048 floats: KCB column blocks of the
+// piece's keys of K, or 32 keys of a 64-column pair of V.
+template <int BKC>
+__device__ __forceinline__ void tf32_cols(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    float* __restrict__ o, int Sk, int G, int bq, int bk, int causal,
+    int window, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+    float scale_log2) {
+  constexpr int D = 256, ST = kStages256;
+  constexpr int CB = D / 32;                 // 128-byte column blocks of a row
+  constexpr int CBW = CB / 2;                // of them, one warpgroup's
+  constexpr int KCB = 64 / BKC;              // column blocks of a K slot
+  constexpr int KU = CBW / KCB;              // a warpgroup's K slots a piece
+  constexpr int VH = BKC / 32;               // 32-key halves of a piece
+  constexpr int VU = 2 * VH;                 // a warpgroup's V slots a piece
+  constexpr int NT = 128;                    // threads of a warpgroup
+  constexpr int XN = BKC / 2;                // a thread's scores of a piece
+  constexpr uint32_t Q_BYTES = kRows * D * 4;
+  constexpr uint32_t BOX_Q = kRows * 128;    // one (32, 64) q box
+  constexpr uint32_t BOX_K = BKC * 128;      // one (32, BKC) k box
+  constexpr uint32_t BOX_V = 32 * 128;       // one (32, 32) v box
+  constexpr uint32_t HALF = 2048 * 4;        // a slot's TMA bytes
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* slots = q_s + 2 * Q_BYTES;        // q big, q small, then the ring
+  float4* xchg = reinterpret_cast<float4*>(slots + 2 * HALF * ST);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(xchg + 2 * (XN / 4) * NT);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + ST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // most keys first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * bq, q_end = q0 + bq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 8);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 4);       // one warpgroup reads a slot
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: per pass its q rows, then per piece the K slots and
+    // the V slots, the two warpgroups' in turn: use u of K (or of V) is
+    // warpgroup u % 2's slot u / 2
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    const int hkv = h / G;
+    int it = 0, pass = 0;
+    for (int p0 = q0; p0 < q_end; p0 += kRows, ++pass) {
+      if (pass > 0) hopper::mbar_wait(q_empty, (pass - 1) & 1);
+      hopper::mbar_expect_tx(q_full, Q_BYTES);
+      for (int cb = 0; cb < CB; ++cb)
+        hopper::tma_load_4d(q_s + cb * BOX_Q, &qmap, q_full, cb * 32, p0, h,
+                            b);
+      int lo, hi;
+      wg::tile_range(p0, min(p0 + kRows, q_end) - 1, Sk, bk, causal, window,
+                     lo, hi);
+      for (int t = lo; t < hi; ++t)
+        for (int c0 = t * bk; c0 < (t + 1) * bk; c0 += BKC)
+          for (int u = 0; u < 2 * (KU + VU); ++u, ++it) {
+            const int s = it % ST, lap = it / ST;
+            if (lap > 0) hopper::mbar_wait(empty + s, (lap - 1) & 1);
+            hopper::mbar_expect_tx(full + s, HALF);
+            uint8_t* dst = slots + s * 2 * HALF;
+            if (u < 2 * KU) {    // K: w's column blocks KCB (u / 2) ..
+              const int col = 128 * (u % 2) + 32 * KCB * (u / 2);
+              for (int j = 0; j < KCB; ++j)
+                hopper::tma_load_4d(dst + j * BOX_K, &kmap, full + s,
+                                    col + 32 * j, c0, hkv, b);
+            } else {             // V: w's pair v / VH, keys 32 (v % VH) on
+              const int v = (u - 2 * KU) / 2;
+              const int col = 128 * (u % 2) + 64 * (v / VH);
+              const int key = c0 + 32 * (v % VH);
+              hopper::tma_load_4d(dst, &vmap, full + s, col, key, hkv, b);
+              hopper::tma_load_4d(dst + BOX_V, &vmap, full + s, col + 32, key,
+                                  hkv, b);
+            }
+          }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wgi holds columns [128 wgi, 128 wgi + 128)
+  // of D for all 64 q rows of a pass; this thread rows r_in and r_in + 8
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int wgi = warp / 4, ct = threadIdx.x % NT;
+  const int bar = kSyncId + 1 + wgi;   // named barrier of this warpgroup
+  const int r_in = (warp % 4) * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;       // first of its 2 columns per 8
+  uint8_t* q_mine = q_s + wgi * CBW * BOX_Q;
+  const uint32_t qb_addr = hopper::smem_u32(q_mine);
+  const uint32_t qs_addr = qb_addr + Q_BYTES;
+  float4* x_mine = xchg + wgi * (XN / 4) * NT;
+  const float4* x_other = xchg + (1 - wgi) * (XN / 4) * NT;
+
+  int it = 0, pass = 0;    // slot uses so far (both warpgroups'), passes
+  for (int p0 = q0; p0 < q_end; p0 += kRows, ++pass) {
+    int lo, hi;
+    wg::tile_range(p0, min(p0 + kRows, q_end) - 1, Sk, bk, causal, window,
+                   lo, hi);
+    const int qpos[2] = {p0 + r_in, p0 + r_in + 8};
+
+    float acc[2][32];      // columns 128 wgi + 64 pair + (0 .. 63)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[u][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    hopper::mbar_wait(q_full, pass & 1);
+    split_tile<CBW * BOX_Q / 16, NT>(q_mine, q_mine + Q_BYTES, ct);
+    hopper::fence_proxy_async();
+    hopper::named_sync<NT>(bar);
+
+    // the pieces of each tile in [lo, hi): BKC keys loaded from c0, the
+    // first `valid` of them in the tile
+    for (int t = lo; t < hi; ++t) {
+      for (int c0 = t * bk; c0 < (t + 1) * bk; c0 += BKC) {
+        const int valid = min(BKC, (t + 1) * bk - c0);
+        // this warpgroup's part of S = Q.K^T (its 128 columns of D), one
+        // K slot at a time: split it, issue its wgmmas, then free the
+        // previous slot.  Its slots are uses it + 2u + wgi.
+        float s[XN];
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+          const int use = it + 2 * u + wgi, slot = use % ST;
+          hopper::mbar_wait(full + slot, (use / ST) & 1);
+          uint8_t* ks = slots + slot * 2 * HALF;
+          split_tile<HALF / 16, NT>(ks, ks + HALF, ct);
+          hopper::fence_proxy_async();
+          hopper::named_sync<NT>(bar);
+          const uint32_t kb_addr = hopper::smem_u32(ks);
+          const uint32_t ks_addr = kb_addr + HALF;
+          const uint32_t qb_u = opaque(qb_addr + KCB * u * BOX_Q);
+          const uint32_t qs_u = opaque(qs_addr + KCB * u * BOX_Q);
+          hopper::fence_regs(s);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4 * KCB; ++kk) {
+            const uint32_t qo = (kk / 4) * BOX_Q + (kk % 4) * 32;
+            const uint32_t ko = (kk / 4) * BOX_K + (kk % 4) * 32;
+            WgmmaTf32<BKC>::ss(s, kmajor(qb_u + qo), kmajor(kb_addr + ko),
+                               u > 0 || kk > 0);
+            WgmmaTf32<BKC>::ss(s, kmajor(qb_u + qo), kmajor(ks_addr + ko),
+                               1);
+            WgmmaTf32<BKC>::ss(s, kmajor(qs_u + qo), kmajor(kb_addr + ko),
+                               1);
+          }
+          hopper::wgmma_commit();
+          if (u > 0) {
+            hopper::wgmma_wait<1>();
+            if (lane == 0) hopper::mbar_arrive(empty + (use - 2) % ST);
+          }
+        }
+        hopper::wgmma_wait<0>();
+        if (lane == 0)
+          hopper::mbar_arrive(empty + (it + 2 * (KU - 1) + wgi) % ST);
+        hopper::fence_regs(s);
+        it += 2 * KU;
+
+        // S = the two warpgroups' parts added, in both: a + b is b + a
+        // exactly, so both hold the same scores and the same softmax.  The
+        // first barrier waits until the other has read the last piece's.
+        hopper::named_sync<kSyncId, 2 * NT>();
+#pragma unroll
+        for (int j = 0; j < XN / 4; ++j)
+          x_mine[j * NT + ct] =
+              make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        hopper::named_sync<kSyncId, 2 * NT>();
+#pragma unroll
+        for (int j = 0; j < XN / 4; ++j) {
+          const float4 y = x_other[j * NT + ct];
+          s[4 * j] += y.x;
+          s[4 * j + 1] += y.y;
+          s[4 * j + 2] += y.z;
+          s[4 * j + 3] += y.w;
+        }
+
+        // scale, mask, and the online softmax over the whole piece
+        const bool kept_all = (!causal || c0 + BKC - 1 <= p0) &&
+                              (!window || c0 > p0 + kRows - 1 - window);
+#pragma unroll
+        for (int e = 0; e < XN; ++e) {
+          const int i = (e / 2) % 2;
+          float x = s[e] * scale_log2;
+          if (!kept_all) {
+            const int key = c0 + (e / 4) * 8 + cq + e % 2;
+            bool keep = true;
+            if (causal) keep = key <= qpos[i];
+            if (window) keep = keep && key > qpos[i] - window;
+            if (!keep) x = kNegInf;
+          }
+          s[e] = x;
+        }
+        if (valid < BKC) {   // keys past the tile: -inf, so p = 0
+#pragma unroll
+          for (int e = 0; e < XN; ++e)
+            if ((e / 4) * 8 + cq + e % 2 >= valid) s[e] = -CUDART_INF_F;
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int e = 0; e < XN; ++e)
+          mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[e]);
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          alpha[i] = exp2f(m[i] - mx[i]);
+          m[i] = mx[i];
+        }
+        float sum[2] = {0.f, 0.f};
+        uint32_t pb[BKC / 8][4], ps[BKC / 8][4];
+#pragma unroll
+        for (int e = 0; e < XN; ++e) {
+          const int i = (e / 2) % 2;
+          s[e] = exp2f(s[e] - m[i]);
+          sum[i] += s[e];
+        }
+#pragma unroll
+        for (int ks = 0; ks < BKC / 8; ++ks) {   // the A fragments of p
+          const float* x = &s[4 * ks];
+          hopper::split_tf32(x[0], pb[ks][0], ps[ks][0]);  // r, 2q
+          hopper::split_tf32(x[2], pb[ks][1], ps[ks][1]);  // r+8, 2q
+          hopper::split_tf32(x[1], pb[ks][2], ps[ks][2]);  // r, 2q+1
+          hopper::split_tf32(x[3], pb[ks][3], ps[ks][3]);  // r+8, 2q+1
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+
+        // pv = P.V = Pb.Vb + Pb.Vs + Ps.Vb for each of this warpgroup's two
+        // 64-column pairs, over the piece's 32-key halves (slots v = VH
+        // pair + half), in an accumulator of its own (see the header);
+        // acc = acc * alpha + pv once a pair's halves have run.  A slot's
+        // V^T split overlaps the previous slot's wgmmas.
+        float pv[32];
+#pragma unroll
+        for (int v = 0; v < VU; ++v) {
+          const int use = it + 2 * v + wgi, slot = use % ST;
+          hopper::mbar_wait(full + slot, (use / ST) & 1);
+          uint8_t* vs = slots + slot * 2 * HALF;
+          split_vt(vs, ct, bar);
+          hopper::fence_proxy_async();
+          hopper::named_sync<NT>(bar);
+          if (v > 0 && v % VH == 0) {   // pair 0 done: into acc
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(pv);
+            if (lane == 0) hopper::mbar_arrive(empty + (use - 2) % ST);
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              acc[0][e] = fmaf(acc[0][e], alpha[(e / 2) % 2], pv[e]);
+          }
+          const uint32_t vb_addr = hopper::smem_u32(vs) + HALF;
+          const uint32_t vsm_addr = hopper::smem_u32(vs);
+          hopper::fence_regs(pv);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            const uint32_t vo = ks * 32;
+            const uint32_t(&big)[4] = pb[4 * (v % VH) + ks];
+            const uint32_t(&sml)[4] = ps[4 * (v % VH) + ks];
+            WgmmaTf32<64>::rs(pv, big[0], big[1], big[2], big[3],
+                              kmajor(vb_addr + vo), v % VH > 0 || ks > 0);
+            WgmmaTf32<64>::rs(pv, big[0], big[1], big[2], big[3],
+                              kmajor(vsm_addr + vo), 1);
+            WgmmaTf32<64>::rs(pv, sml[0], sml[1], sml[2], sml[3],
+                              kmajor(vb_addr + vo), 1);
+          }
+          hopper::wgmma_commit();
+          if (v % VH > 0) {    // the slot before this one (same pair) ran
+            hopper::wgmma_wait<1>();
+            if (lane == 0) hopper::mbar_arrive(empty + (use - 2) % ST);
+          }
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(pv);
+#pragma unroll
+        for (int ks = 0; ks < BKC / 8; ++ks) {
+          hopper::fence_regs(pb[ks]);
+          hopper::fence_regs(ps[ks]);
+        }
+        if (lane == 0)
+          hopper::mbar_arrive(empty + (it + 2 * (VU - 1) + wgi) % ST);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          acc[1][e] = fmaf(acc[1][e], alpha[(e / 2) % 2], pv[e]);
+        it += 2 * VU;
+      }
+    }
+    if (lane == 0) hopper::mbar_arrive(q_empty);   // q read for the pass
+
+    // o = acc / max(l, 1e-30) in this warpgroup's columns; l summed over
+    // the row's 4 threads
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (qpos[i] >= q_end) continue;
+      const float li = fmaxf(l[i], 1e-30f);
+      float* orow =
+          o + b * o_sb + h * o_sh + (int64_t)qpos[i] * o_ss + wgi * 128;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(orow + u * 64 + j * 8 + cq) =
+              make_float2(acc[u][4 * j + 2 * i] / li,
+                          acc[u][4 * j + 2 * i + 1] / li);
+    }
+  }
+}
+
+// grid (Sq / bq, Hq, B); block block_threads(NWG).  D <= 128: tf32_rows;
+// D = 256: tf32_cols (NWG = 2; a ring of kStages256 slots).
+template <int D, int BKC, int NWG>
+__global__ void __launch_bounds__(block_threads(NWG), 1) flash_fwd_tf32_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int Sk,
+    int G, int bq, int bk, int causal, int window, int stages, int64_t o_sb,
+    int64_t o_sh, int64_t o_ss, float scale_log2) {
+  if constexpr (D == 256)
+    tf32_cols<BKC>(qmap, kmap, vmap, o, Sk, G, bq, bk, causal, window, o_sb,
+                   o_sh, o_ss, scale_log2);
+  else
+    tf32_rows<D, BKC, NWG>(qmap, kmap, vmap, o, Sk, G, bq, bk, causal,
+                           window, stages, o_sb, o_sh, o_ss, scale_log2);
+}
+
 template <int D, int BKC, int NWG>
 int launch(const CUtensorMap maps[3], void* o, int B, int Hq, int G, int Sq,
            int Sk, int bq, int bk, int causal, int window, const int64_t* st,
@@ -1286,9 +1710,12 @@ int launch(const CUtensorMap maps[3], void* o, int B, int Hq, int G, int Sq,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(Sq / bq, Hq, B);
+  // D = 256: a q tile of whole passes is one block a pass (a block walks
+  // its passes in series, and nothing of one pass serves the next)
+  const int rows = D == 256 && bq % kRows == 0 ? kRows : bq;
+  dim3 grid(Sq / rows, Hq, B);
   kernel<<<grid, block_threads(NWG), p.smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<float*>(o), Sk, G, bq, bk,
+      maps[0], maps[1], maps[2], static_cast<float*>(o), Sk, G, rows, bk,
       causal, window, p.stages, st[9], st[10], st[11], scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -1301,8 +1728,10 @@ int dispatch_nwg(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
   if (p.nwg == 2)
     return launch<D, BKC, 2>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                              window, st, scale, p, stream);
-  return launch<D, BKC, 1>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal, window,
-                           st, scale, p, stream);
+  if constexpr (D != 256)   // D = 256 has two warpgroups at every bq
+    return launch<D, BKC, 1>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                             window, st, scale, p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -1310,40 +1739,46 @@ int dispatch_bkc(const CUtensorMap maps[3], void* o, int B, int Hq, int G,
                  int Sq, int Sk, int bq, int bk, int causal, int window,
                  const int64_t* st, float scale, const Plan& p,
                  cudaStream_t stream) {
-  switch (piece_width(bk)) {
+  // only the pieces piece_width can give at D are compiled (two at D = 256)
+  switch (piece_width(D, bk)) {
 #define REPRO_TF_BKC(BB)                                                     \
   case BB:                                                                   \
-    return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,    \
-                               window, st, scale, p, stream);
+    if constexpr (piece_width(D, BB) == BB)                                  \
+      return dispatch_nwg<D, BB>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,  \
+                                 window, st, scale, p, stream);              \
+    break;
     REPRO_TF_BKC(32)
     REPRO_TF_BKC(64)
     REPRO_TF_BKC(128)
 #undef REPRO_TF_BKC
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool supported(int D, int bq, int bk) {
-  return (D == 32 || D == 64 || D == 128) && bq >= 1 && bk >= 1;
+  return (D == 32 || D == 64 || D == 128 || D == 256) && bq >= 1 && bk >= 1;
 }
 
 int run(int D, const void* q, const void* k, const void* v, void* o, int B,
         int Hq, int G, int Sq, int Sk, int bq, int bk, int causal,
         int window, const int64_t* st, float scale, cudaStream_t stream) {
   if (!supported(D, bq, bk)) return (int)cudaErrorInvalidValue;
-  const int bkc = piece_width(bk);
+  const int bkc = piece_width(D, bk);
   const Plan p = plan(D, bq, bkc);
   if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int64_t qdims[4] = {D, Sq, Hq, B}, kdims[4] = {D, Sk, Hq / G, B};
   const int64_t qs[3] = {st[2], st[1], st[0]}, ks[3] = {st[5], st[4], st[3]},
                 vs[3] = {st[8], st[7], st[6]};
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const int n = sub_keys(D, bkc);
+  // rows of a k and a v box: a sub-tile's keys; at D = 256 a k box holds
+  // the piece's keys of one column block, a v box 32 keys of one
+  const int n = sub_keys(D, bkc), nv = D == 256 ? 32 : n;
   CUtensorMap maps[3];
   int rc = hopper::make_map_4d(&maps[0], f32, 4, q, qdims, qs, 32, kRows);
   if (!rc) rc = hopper::make_map_4d(&maps[1], f32, 4, k, kdims, ks, 32, n);
-  if (!rc) rc = hopper::make_map_4d(&maps[2], f32, 4, v, kdims, vs, 32, n);
+  if (!rc) rc = hopper::make_map_4d(&maps[2], f32, 4, v, kdims, vs, 32, nv);
   if (rc) return rc;
   switch (D) {
     case 32:
@@ -1352,8 +1787,11 @@ int run(int D, const void* q, const void* k, const void* v, void* o, int B,
     case 64:
       return dispatch_bkc<64>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                               window, st, scale, p, stream);
-    default:
+    case 128:
       return dispatch_bkc<128>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
+                               window, st, scale, p, stream);
+    default:
+      return dispatch_bkc<256>(maps, o, B, Hq, G, Sq, Sk, bq, bk, causal,
                                window, st, scale, p, stream);
   }
 }
@@ -1366,7 +1804,8 @@ extern "C" {
 
 // kernel: 0 = flash_fwd_kernel (CUDA cores: float32 at D = 32, 64, 128,
 // 256, bfloat16 at D = 256), 1 = flash_fwd_wgmma_kernel (bfloat16, D = 32,
-// 64, 128, 256), 2 = flash_fwd_tf32_kernel (float32, D = 32, 64, 128);
+// 64, 128, 256), 2 = flash_fwd_tf32_kernel (float32, D = 32, 64, 128,
+// 256);
 // dtype: 0 = float32, 1 = bfloat16.  The caller names the kernel: nothing
 // here picks one.
 
@@ -1380,9 +1819,9 @@ long long flash_attention_smem_bytes(int kernel, int dtype, int D, int bq,
     return (long long)wg::plan(D, bq, wg::piece_width(wg::kernel_bk(D, bk)))
         .smem;
   }
-  if (kernel == 2) {   // float32, D <= 128
+  if (kernel == 2) {   // float32, D <= 256
     if (dtype != 0 || !tf::supported(D, bq, bk)) return -1;
-    return (long long)tf::plan(D, bq, tf::piece_width(bk)).smem;
+    return (long long)tf::plan(D, bq, tf::piece_width(D, bk)).smem;
   }
   const bool f32 = dtype == 0 && (D == 32 || D == 64 || D == 128 || D == 256);
   if (kernel != 0 || !(f32 || (dtype == 1 && D == 256))) return -1;

@@ -107,6 +107,12 @@ template <int ID, int COUNT>
 __device__ __forceinline__ void named_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
 }
+// named_sync with the barrier's id known only at run time (the same for
+// every thread of a warp)
+template <int COUNT>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
+}
 
 // x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
 // its 13 low bits zero: what a tf32 wgmma reads of it, exactly

@@ -7,13 +7,13 @@ built with ``nvcc`` at first use and bound with ``ctypes``.  The instance
 rule :func:`kernel_for` names one from dtype, head dim and alignment
 alone, before any launch: bfloat16 runs ``flash_fwd_wgmma_kernel`` on the
 tensor cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p))
-in f32); float32 up to head dim 128 runs ``flash_fwd_tf32_kernel`` on the
-tensor cores, each f32 product as three tf32 products (big.big +
-big.small + small.big, big = tf32(x), small = tf32(x - big);
-:func:`flash_tf32x3_ref` emulates it).  Both need TMA to read q, k, v and
-out (16-byte aligned base addresses and strides), except where the head
-dim is padded into new tensors.  float32 at head dim 256, float32 that
-TMA cannot read and bfloat16 at head dim 256 that TMA cannot read run
+in f32); float32 runs ``flash_fwd_tf32_kernel`` on the tensor cores, each
+f32 product as three tf32 products (big.big + big.small + small.big, big
+= tf32(x), small = tf32(x - big); at head dim 256 q.k as the sum of its
+two 128-column halves; :func:`flash_tf32x3_ref` emulates it).  Both need
+TMA to read q, k, v and out (16-byte aligned base addresses and strides),
+except where the head dim is padded into new tensors.  float32 that TMA
+cannot read and bfloat16 at head dim 256 that TMA cannot read run
 ``flash_fwd_kernel`` on CUDA cores.  The kernels have head dims 32, 64,
 128 and 256; any other D up to 256 is padded with zero columns to the
 next of them, scaled by ``1/sqrt(D)`` of the true D and sliced back,
@@ -161,10 +161,10 @@ def kernel_for(q, k, v, out=None) -> str:
       (which raises on a layout TMA cannot read);
     * bfloat16 at instance head dim 256 that TMA can read:
       ``flash_fwd_wgmma_kernel``;
-    * float32 at an instance head dim up to 128 that TMA can read:
+    * float32 at any instance head dim that TMA can read:
       ``flash_fwd_tf32_kernel``;
-    * anything else, float32 at head dim 256 and whatever TMA cannot read
-      but bfloat16 below 256: ``flash_fwd_kernel`` on CUDA cores.
+    * anything else, whatever TMA cannot read but bfloat16 below 256:
+      ``flash_fwd_kernel`` on CUDA cores.
 
     Every float32 call and every bfloat16 call at head dim 256 thus has a
     kernel: at those the rule narrows nothing."""
@@ -175,10 +175,7 @@ def kernel_for(q, k, v, out=None) -> str:
         return WGMMA_KERNEL
     tensors = (q, k, v) if out is None else (q, k, v, out)
     if Dk != D or all(_tma_aligned(t) for t in tensors):
-        if bf16:
-            return WGMMA_KERNEL
-        if Dk <= 128:
-            return TF32_KERNEL
+        return WGMMA_KERNEL if bf16 else TF32_KERNEL
     return CUDA_CORE_KERNEL
 
 
@@ -242,8 +239,9 @@ def _flash_attention_instance(q, k, v, *, kernel: str, causal: bool = True,
                               window: int = 0, bq: int = 128, bk: int = 128):
     """:func:`flash_attention` on the card through the named kernel, at an
     instance head dim (on CUDA cores where the rule picks a tensor-core
-    kernel, float32 or bfloat16 at head dim 256, to time the two side by
-    side); raises where that kernel does not take the inputs."""
+    kernel, float32 at any head dim or bfloat16 at head dim 256, to time
+    the two side by side); raises where that kernel does not take the
+    inputs."""
     bq, bk = _check(q, k, v, window, bq, bk)
     if q.device.type != "cuda" or instance_dim(q.shape[3]) != q.shape[3]:
         raise ValueError("want CUDA tensors at an instance head dim")
@@ -317,12 +315,35 @@ def piece_width(bk: int, D: int = 128) -> int:
     """Keys per softmax update of the tensor-core kernels for a KV tile of
     ``bk`` keys at instance head dim ``D``: bk at 32, 64 or 128; 128 where
     bk is a multiple of 128; else 64 (the last piece of a tile cut at its
-    end).  At D = 256 (bfloat16 only) 32 at bk = 32, else 64: the
-    accumulator takes 128 registers a thread, so a piece is 64 keys at
-    most."""
+    end).  At D = 256, in both dtypes, 32 at bk = 32, else 64: the bf16
+    kernel's accumulator takes 128 registers a thread, and the f32
+    kernel's shared memory holds one piece's partial scores per
+    warpgroup beside q's 128 KB, so a piece is 64 keys at most."""
     if D == 256:
         return 32 if bk == 32 else 64
     return bk if bk in (32, 64) else 128 if bk % 128 == 0 else 64
+
+
+def pieces(Sk: int, bk: int, D: int):
+    """The ``[c0, c1)`` key ranges of the tensor-core kernels' softmax
+    updates over ``Sk`` keys in tiles of ``bk`` (``min(bk, Sk)``) at head
+    dim ``D``: pieces of :func:`piece_width` keys of the instance head
+    dim, the last piece of a tile cut at its end."""
+    bk = min(bk, Sk)
+    width = piece_width(bk, instance_dim(D))
+    return [(c0, min(c0 + width, t0 + bk)) for t0 in range(0, Sk, bk)
+            for c0 in range(t0, t0 + bk, width)]
+
+
+def _scores(q, k, split: str):
+    """q.k^T as the kernel forms it: at instance head dim 256 each of the
+    two warpgroups sums its own 128 columns of D, and the two partial
+    sums are added."""
+    if instance_dim(q.shape[-1]) != 256:
+        return _product(q, k.transpose(2, 3), split)
+    lo, hi = (_product(q[..., cols], k[..., cols].transpose(2, 3), split)
+              for cols in (slice(0, 128), slice(128, None)))
+    return lo + hi
 
 
 def flash_tf32x3_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -330,17 +351,16 @@ def flash_tf32x3_ref(q, k, v, *, causal: bool = True, window: int = 0,
     """``flash_fwd_tf32_kernel``'s function in plain torch, float32 in and
     out: q.k and p.v as :func:`_product` of ``split`` (``tf32x3`` the
     kernel's; ``tf32`` and ``bf16x3`` the two controls its gate must tell
-    apart), the online softmax in base 2 (scores times
-    ``f32(1/sqrt(D)) * f32(log2 e)``, ``exp2``) once per piece of
-    :func:`piece_width` keys of each bk tile, the finite -1e30 mask, keys
-    of a piece past its tile at -inf, l the f32 sum of f32 p, acc /
+    apart; q.k at head dim 256 as :func:`_scores` sums it), the online
+    softmax in base 2 (scores times ``f32(1/sqrt(D)) * f32(log2 e)``,
+    ``exp2``) once per piece of :func:`pieces`, the finite -1e30 mask,
+    keys of a piece past its tile at -inf, l the f32 sum of f32 p, acc /
     max(l, 1e-30).  ``bq`` changes nothing: the kernel skips only tiles
     whose skipping is exact."""
     if split not in SPLITS:
         raise ValueError(f"split must be one of {SPLITS}; got {split!r}")
     B, Hq, Sq, D = q.shape
     Sk, G = k.shape[2], Hq // k.shape[1]
-    bk = min(bk, Sk)
     kq, vq = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
     q = q.float()
     scale_log2 = (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
@@ -349,23 +369,19 @@ def flash_tf32x3_ref(q, k, v, *, causal: bool = True, window: int = 0,
     acc = torch.zeros(B, Hq, Sq, D, device=q.device)
     m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
     l = torch.zeros(B, Hq, Sq, 1, device=q.device)
-    width = piece_width(bk)
-    for t0 in range(0, Sk, bk):
-        for c0 in range(t0, t0 + bk, width):
-            c1 = min(c0 + width, t0 + bk)
-            kpos = torch.arange(c0, c1, device=q.device)[None, :]
-            x = _product(q, kq[:, :, c0:c1].transpose(2, 3), split)
-            x = x * scale_log2
-            keep = torch.ones(Sq, c1 - c0, dtype=torch.bool, device=q.device)
-            if causal:
-                keep = kpos <= qpos
-            if window:
-                keep = keep & (kpos > qpos - window)
-            x = torch.where(keep, x, torch.tensor(NEG_INF, device=q.device))
-            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(x - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + _product(p, vq[:, :, c0:c1], split)
-            m = m_new
+    for c0, c1 in pieces(Sk, bk, D):
+        kpos = torch.arange(c0, c1, device=q.device)[None, :]
+        x = _scores(q, kq[:, :, c0:c1], split) * scale_log2
+        keep = torch.ones(Sq, c1 - c0, dtype=torch.bool, device=q.device)
+        if causal:
+            keep = kpos <= qpos
+        if window:
+            keep = keep & (kpos > qpos - window)
+        x = torch.where(keep, x, torch.tensor(NEG_INF, device=q.device))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _product(p, vq[:, :, c0:c1], split)
+        m = m_new
     return acc / torch.clamp(l, min=1e-30)

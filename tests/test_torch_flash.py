@@ -199,8 +199,9 @@ def test_kernel_source_keeps_the_reference_numerics():
     kernel forms q.k and p.v each as three tf32 products into one f32
     accumulator (big.big + big.small + small.big, big = tf32(x) by
     cvt.rna, small = tf32(x - big)), p.v per piece in an accumulator of
-    its own that an f32 FMA adds to acc.  The CUDA-core kernel (float32
-    at D = 256, and what TMA cannot read) keeps p f32, unchanged.  The
+    its own that an f32 FMA adds to acc; at D = 256 its two consumer
+    warpgroups each own 128 columns of D and add their partial scores.
+    The CUDA-core kernel (what TMA cannot read) keeps p f32, unchanged.  The
     caller names the kernel and the C side only checks it; the instance
     rule ``kernel_for`` picks it from dtype, head dim and alignment.  The
     bfloat16 kernel has a D = 256 instance (p.v as m64n256k16 with p from
@@ -211,8 +212,9 @@ def test_kernel_source_keeps_the_reference_numerics():
     hopper = (CSRC.parent / "hopper.cuh").read_text()
     assert "constexpr float kNegInf = -1e30f;" in src
     assert "pallas_call at :93" in src
-    # both tensor-core kernels: the guarded divide of the accumulator
-    assert src.count("const float li = fmaxf(l[i], 1e-30f);") == 2
+    # both tensor-core kernels (the float32 one's D = 256 body too): the
+    # guarded divide of the accumulator
+    assert src.count("const float li = fmaxf(l[i], 1e-30f);") == 3
     assert "acc[cb * 4 + 2 * i] / li" in src
     # bfloat16: the hi + lo split, two wgmmas into acc
     assert "const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);" in src
@@ -239,6 +241,27 @@ def test_kernel_source_keeps_the_reference_numerics():
         r"[^;]*kmajor\(vb_addr \+ vo\), 1\);", src)
     # each piece's p.v in an accumulator of its own, folded in by an FMA
     assert "acc[e] = fmaf(acc[e], alpha[(e / 2) % 2], pv[e]);" in src
+    # float32 at D = 256: the same three products over each warpgroup's
+    # 128 columns of D, the two partial scores added in both warpgroups,
+    # each V column block's p.v in its own accumulator, then the FMA
+    assert re.search(
+        r"WgmmaTf32<BKC>::ss\(s, kmajor\(qb_u \+ qo\), "
+        r"kmajor\(kb_addr \+ ko\),\s*u > 0 \|\| kk > 0\);\s*"
+        r"WgmmaTf32<BKC>::ss\(s, kmajor\(qb_u \+ qo\), "
+        r"kmajor\(ks_addr \+ ko\),\s*1\);\s*"
+        r"WgmmaTf32<BKC>::ss\(s, kmajor\(qs_u \+ qo\), "
+        r"kmajor\(kb_addr \+ ko\),\s*1\);", src)
+    assert "const float4 y = x_other[j * NT + ct];" in src
+    assert "s[4 * j] += y.x;" in src
+    assert re.search(
+        r"WgmmaTf32<64>::rs\(pv, big\[0\], [^;]*"
+        r"kmajor\(vb_addr \+ vo\), v % VH > 0 \|\| ks > 0\);\s*"
+        r"WgmmaTf32<64>::rs\(pv, big\[0\], [^;]*kmajor\(vsm_addr \+ vo\), "
+        r"1\);\s*WgmmaTf32<64>::rs\(pv, sml\[0\], [^;]*"
+        r"kmajor\(vb_addr \+ vo\), 1\);", src)
+    for pair in (0, 1):
+        assert (f"acc[{pair}][e] = fmaf(acc[{pair}][e], alpha[(e / 2) % 2], "
+                "pv[e]);") in src
     # the CUDA-core kernel as it was
     assert "l = fmaxf(l_s[row], 1e-30f)" in src and "acc[r][c] / l" in src
     assert "fmaf(pv[r], vv[c], acc[r][c])" in src
@@ -543,6 +566,12 @@ def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
     (1, 2, 2, 512, 500, 256, True, 0, 256, 100, "bfloat16"),
     (1, 4, 1, 512, 512, 256, True, 100, 128, 256, "bfloat16"),
     (1, 2, 2, 256, 64, 256, False, 32, 64, 64, "bfloat16"),
+    # float32 at D = 256 on the tensor cores: the same sweep
+    (1, 2, 1, 256, 256, 256, True, 0, 64, 32, "float32"),
+    (1, 4, 2, 512, 512, 256, True, 0, 128, 128, "float32"),
+    (1, 2, 2, 512, 500, 256, True, 0, 256, 100, "float32"),
+    (1, 4, 1, 512, 512, 256, True, 100, 128, 256, "float32"),
+    (1, 2, 2, 256, 64, 256, False, 32, 64, 64, "float32"),
 ])
 def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                       bq, bk, dt):
@@ -565,16 +594,16 @@ def test_kernel_matches_plain_on_card(B, Hq, Hkv, Sq, Sk, D, causal, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 256])
 def test_float32_cuda_core_kernel_on_card(D):
-    """float32 that TMA cannot read (k's rows 65 floats apart) and float32
-    at D = 256 run the CUDA-core kernel, and match the plain version."""
+    """float32 that TMA cannot read (k's rows D + 1 floats apart), at
+    D = 64 and at D = 256, runs the CUDA-core kernel, and matches the
+    plain version."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device; compared against its plain version by "
                     "chip_smoke.py")
     q, k, v = (_torch(a).cuda() for a in _inputs(1, 4, 2, 256, D, "float32"))
-    if D == 64:
-        wide = torch.zeros(1, 2, 256, D + 1, device="cuda")
-        wide[..., :D] = k
-        k = wide[..., :D]
+    wide = torch.zeros(1, 2, 256, D + 1, device="cuda")
+    wide[..., :D] = k
+    k = wide[..., :D]
     fa.COUNT.reset()
     out = ops.flash_attention(q, k, v, causal=True, bq=64, bk=32)
     torch.cuda.synchronize()

@@ -5,7 +5,8 @@ tf32 products (big.big + big.small + small.big, big = tf32(x), small =
 tf32(x - big)).  Its emulation in plain torch,
 ``kernels.flash_attention.flash_tf32x3_ref``, is held here against the
 Pallas kernel in interpret mode and the JAX oracle at the f32 tolerance,
-on the same numpy inputs, and to the 3xTF32 gate of ``chip_smoke.py``:
+on the same numpy inputs (at head dim 256 too, where q.k is the sum of
+two 128-column halves), and to the 3xTF32 gate of ``chip_smoke.py``:
 within GATE of f32 ``mha_ref``, which both controls (one tf32 product;
 bf16 hi + lo) miss.  The kernel itself is held to the same gate on the
 card by ``chip_smoke.py``.  The instance rule is tested on CPU and
@@ -88,6 +89,14 @@ def test_emulation_matches_pallas_at_every_domain_block(preset, bq, bk):
     (1, 2, 2, 384, 384, 64, True, 48, 96, 48),      # bk in 64-key pieces
     (1, 4, 2, 256, 64, 32, True, 32, 64, 32),       # Sq > Sk: rows keep no key
     (1, 4, 2, 256, 64, 32, False, 32, 64, 32),
+    # head dim 256: q.k as the sum of two 128-column halves, 64-key pieces
+    (1, 4, 2, 256, 256, 256, True, 0, 128, 128),    # causal, GQA
+    (1, 2, 1, 256, 256, 256, True, 100, 64, 64),    # window, MQA
+    (1, 4, 2, 256, 256, 256, False, 0, 64, 32),     # bidirectional, bk = 32
+    (1, 2, 1, 256, 256, 256, True, 0, 256, 256),    # 64-key pieces of 256
+    (1, 4, 2, 256, 64, 256, True, 32, 64, 32),      # Sq > Sk: rows keep no key
+    (1, 2, 1, 256, 64, 256, False, 32, 128, 64),
+    (1, 2, 1, 256, 256, 200, True, 0, 128, 128),    # padded to 256
 ])
 def test_emulation_matches_pallas(B, Hq, Hkv, Sq, Sk, D, causal, window, bq,
                                   bk):
@@ -106,6 +115,29 @@ def test_emulation_matches_pallas(B, Hq, Hkv, Sq, Sk, D, causal, window, bq,
         np.testing.assert_allclose(
             out[:, :, dead:].numpy(),
             np.broadcast_to(mean, out[:, :, dead:].shape), atol=2e-6)
+
+
+@pytest.mark.parametrize("Hq,Hkv,S,D,causal,window,bq,bk", [
+    (2, 1, 256, 256, True, 0, 128, 128),
+    (4, 2, 256, 256, True, 0, 64, 32),
+    (2, 1, 512, 256, True, 100, 128, 64),
+    (2, 2, 256, 256, False, 0, 256, 256),
+    (2, 1, 256, 200, True, 0, 128, 128),
+])
+def test_gate_at_head_dim_256(Hq, Hkv, S, D, causal, window, bq, bk):
+    """The 3xTF32 gate at head dim 256 (the instance of D = 200 too): the
+    kernel's numerics, q.k summed as two 128-column halves, are within
+    GATE of f32 ``mha_ref``; one tf32 product and bf16 hi + lo miss it."""
+    q, k, v = (_t(a) for a in _inputs(1, Hq, Hkv, S, D, seed=S + D + bk))
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
+    ref = mha_ref(q, k, v, causal=causal, window=window)
+
+    def err(split):
+        out = fa.flash_tf32x3_ref(q, k, v, split=split, **kw)
+        return (out - ref).abs().max().item()
+    assert err("tf32x3") <= GATE
+    for control in CONTROLS:
+        assert err(control) > GATE, control
 
 
 @pytest.mark.parametrize("preset,bq,bk", PRESET_BLOCKS)
@@ -153,14 +185,44 @@ def test_piece_width_follows_bk():
 
 
 def test_piece_width_at_head_dim_256():
-    """At D = 256 (bfloat16 on the tensor cores) a piece is 64 keys at
-    most: one 32-key piece at bk = 32, 64-key pieces of every other bk;
-    the head dims below keep the rule above."""
+    """At D = 256 (both tensor-core kernels, bfloat16 and float32) a piece
+    is 64 keys at most: one 32-key piece at bk = 32, 64-key pieces of
+    every other bk; the head dims below keep the rule above."""
     bks = (32, 64, 128, 256, 512, 16, 48, 96, 100)
     assert [fa.piece_width(bk, 256) for bk in bks] == \
         [32, 64, 64, 64, 64, 64, 64, 64, 64]
     assert [fa.piece_width(bk, D) for D in (32, 64) for bk in bks] == \
         2 * [fa.piece_width(bk) for bk in bks]
+
+
+@pytest.mark.parametrize("Sk,bk,D,want", [
+    (256, 128, 256, [(c, c + 64) for c in range(0, 256, 64)]),
+    (256, 32, 256, [(c, c + 32) for c in range(0, 256, 32)]),
+    (200, 100, 256, [(0, 64), (64, 100), (100, 164), (164, 200)]),
+    (512, 512, 200, [(c, c + 64) for c in range(0, 512, 64)]),  # D -> 256
+    (256, 256, 128, [(0, 128), (128, 256)]),
+    (256, 512, 64, [(0, 128), (128, 256)]),       # bk = min(bk, Sk)
+    (96, 48, 32, [(0, 48), (48, 96)]),
+])
+def test_pieces_follow_the_instance_head_dim(Sk, bk, D, want):
+    """The emulation's softmax updates are the float32 kernel's pieces:
+    64 keys at most at instance head dim 256, the last piece of a tile
+    cut at its end."""
+    assert fa.pieces(Sk, bk, D) == want
+
+
+def test_scores_at_head_dim_256_sum_two_halves():
+    """At instance head dim 256 q.k is the sum of the two warpgroups'
+    128-column parts, each three tf32 products; below 256 one product."""
+    q, k, _ = (_t(a) for a in _inputs(1, 2, 1, 64, 256, seed=5))
+    halves = (fa._product(q[..., :128], k[..., :128].transpose(2, 3),
+                          "tf32x3")
+              + fa._product(q[..., 128:], k[..., 128:].transpose(2, 3),
+                            "tf32x3"))
+    assert torch.equal(fa._scores(q, k, "tf32x3"), halves)
+    q, k = q[..., :128].contiguous(), k[..., :128].contiguous()
+    assert torch.equal(fa._scores(q, k, "tf32x3"),
+                       fa._product(q, k.transpose(2, 3), "tf32x3"))
 
 
 def test_emulation_rejects_an_unknown_split():
@@ -184,8 +246,12 @@ def _aligned(dt, D, device):
     (torch.float32, 80, "k rows 65 apart", fa.TF32_KERNEL),   # padded: new
     (torch.float32, 64, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
     (torch.float32, 64, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
-    (torch.float32, 256, "contiguous", fa.CUDA_CORE_KERNEL),
-    (torch.float32, 200, "contiguous", fa.CUDA_CORE_KERNEL),  # padded to 256
+    (torch.float32, 256, "contiguous", fa.TF32_KERNEL),
+    (torch.float32, 200, "contiguous", fa.TF32_KERNEL),       # padded to 256
+    (torch.float32, 256, "mha view", fa.TF32_KERNEL),
+    (torch.float32, 256, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
+    (torch.float32, 256, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
+    (torch.float32, 200, "k rows 65 apart", fa.TF32_KERNEL),  # padded: new
     (torch.bfloat16, 64, "contiguous", fa.WGMMA_KERNEL),
     (torch.bfloat16, 64, "k rows 65 apart", fa.WGMMA_KERNEL),  # raises later
     (torch.bfloat16, 256, "contiguous", fa.WGMMA_KERNEL),
@@ -197,9 +263,9 @@ def _aligned(dt, D, device):
 ])
 def test_instance_rule(device, dt, D, layout, kernel):
     """dtype, head dim and alignment name the kernel, before any launch:
-    float32 runs the tf32 kernel where TMA can read q, k, v and out (or
-    the head dim is padded into new tensors), else the CUDA-core kernel,
-    so no float32 call is refused; bfloat16 at D <= 128 runs wgmma;
+    float32 at every head dim runs the tf32 kernel where TMA can read q,
+    k, v and out (or the head dim is padded into new tensors), else the
+    CUDA-core kernel, so no float32 call is refused; bfloat16 at D <= 128 runs wgmma;
     bfloat16 at D = 256 runs wgmma where TMA can read (or D is padded),
     else the CUDA-core kernel, so no bfloat16 call at D = 256 is refused.
     (``k rows 65 apart`` is k with D + 1 elements a row.)"""
@@ -256,7 +322,9 @@ def test_instance_entry_refuses_what_its_kernel_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,bq,bk", [(32, 32, 32), (64, 128, 256),
-                                     (128, 128, 128), (128, 64, 48)])
+                                     (128, 128, 128), (128, 64, 48),
+                                     (256, 128, 128), (256, 64, 32),
+                                     (256, 256, 64), (200, 128, 128)])
 def test_kernel_matches_its_emulation_on_card(D, bq, bk):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device; chip_smoke.py holds the kernel to the "
