@@ -5,16 +5,25 @@
 Run from the root of a checkout.  It builds every CUDA kernel of the
 port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
 started together) and holds each kernel against its plain PyTorch version
-on the card.  Then it drives two paths at full width, with random weights
+on the card.  Then it drives three paths at full width, with random weights
 from a seeded ``torch.Generator``, and checks that each path's kernel
 really ran there:
 
 * dense serving: ``BatchedServer(use_kernel=True)`` on ``qwen1.5-4b``
   (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel,
   one launch a call: a profiled step must hold one per layer.  Before it
-  the kernel is timed at three readings (the main path's shape,
-  ``long_500k`` at zamba2-7b's widths, GQA ``decode_32k`` at
+  the kernel is timed at four readings (the main path's shape, the MoE
+  path's, ``long_500k`` at zamba2-7b's widths, GQA ``decode_32k`` at
   minitron-8b's) beside its bytes bound, SDPA and the plain version;
+* MoE serving: the same server and request mix on
+  ``phi3.5-moe-42b-a6.6b`` at full width (d_model 4096, 32 heads, GQA kv
+  8, 16 experts of d_ff 6400, top-2, vocab 32064), its depth cut to 16
+  of 32 layers so its 42.1 GB of bf16 weights fit the card (all 32 need
+  83.7 GB), drawn one layer at a time.  Every layer of every step runs
+  the flash-decode kernel; a profiled step splits the device time into
+  the kernel, the expert products, other GEMMs and other kernels, and
+  kernel vs plain decode steps are held as for dense, in float32 at 4
+  layers;
 * ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
   50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
   plain path, then ``BatchedServer`` serving requests on the same model.
@@ -82,9 +91,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import mha_ref, ssd_ref  # noqa: E402
 from repro_torch.distrib.logical import NOSHARD  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import ModelOpts  # noqa: E402
-from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
+from repro_torch.models.layers import activation, embed, rmsnorm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, layer_slice, precast)
 from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
@@ -115,6 +125,12 @@ N_REQUESTS, NEW_TOKENS, PROMPT_LEN = 16, 32, (8, 64)
 TEACHER_STEPS = 4
 BF16_MARGIN = 0.5     # bf16: greedy tokens must agree above this margin
 F32_LOGIT_TOL = 1e-3  # f32: 40 layers summed in another order, abs and rel
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 16       # of 32: 42.1 GB of bf16 weights; all 32 need 83.7 GB
+MOE_F32_LAYERS = 4    # the float32 teacher-forced check: 21.9 GB of weights
+EXPERT_OPS = ("aten::bmm",)           # the expert products, batched by expert
+GEMM_OPS = ("aten::mm", "aten::addmm")  # every other product of a step
 
 SSM_ARCH = "mamba2-130m"
 SSM_BATCH, SSM_LEN, SSM_CE_CHUNK = 8, 4096, 1024     # the train_4k length
@@ -244,6 +260,8 @@ def check_decode_attention(main_lengths):
         ("G=3 D=256", 2, 6, 2, 300, 256, (300, 1), torch.float32),
         ("main path", BATCH, 20, 20, MAX_SEQ, 128, main_lengths,
          torch.float32),
+        ("MoE path (G=4)", BATCH, 32, 8, MAX_SEQ, 128, main_lengths,
+         torch.float32),
         # the small shapes of tests/test_torch_decode_split.py's planner test
         ("G=5 ragged S=77", 3, 10, 2, 77, 64, (77, 30, 0), torch.float32),
         ("G=16 S=300", 2, 32, 2, 300, 64, (300, 129), torch.bfloat16),
@@ -297,6 +315,9 @@ def decode_readings(main_lengths):
     return [
         # qwen1.5-4b serving: the server's f32 cache, the served lengths
         ("main path", BATCH, 20, 20, MAX_SEQ, 128, torch.float32,
+         np.asarray(main_lengths), 50),
+        # phi3.5-moe serving: GQA 32/8, the same cache and lengths
+        ("MoE path", BATCH, 32, 8, MAX_SEQ, 128, torch.float32,
          np.asarray(main_lengths), 50),
         # long_500k (configs/base.py): zamba2-7b's shared attention, B = 1
         ("long_500k", 1, 32, 32, 524288, 112, torch.float32,
@@ -1380,20 +1401,26 @@ def measure_flash_f32():
 # ---------------------------------------------------------------------------
 # phase 3: the dense serving path at full width
 # ---------------------------------------------------------------------------
-def serve_full_width():
-    cfg = get_config(ARCH)
+def serve_full_width(cfg, init_dtype=torch.float32):
+    """``N_REQUESTS`` requests through ``BatchedServer(use_kernel=True)``
+    (batch 8, f32 KV cache of 512) with weights drawn in ``init_dtype``
+    from seed 0: every request must finish with ``NEW_TOKENS`` tokens, and
+    every layer of every step must launch the flash-decode kernel once."""
     model = build_model(cfg)
     t0 = time.time()
-    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator("cuda").manual_seed(0), init_dtype)
     server = BatchedServer(model, params, batch_size=BATCH, max_seq=MAX_SEQ,
                            opts=ModelOpts(attn_chunk=64),
                            use_kernel=True, device="cuda")
     del params                      # the server keeps its bf16 copy
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(server.params))
-    log(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params} parameters, set up in {time.time() - t0:.1f} s; "
-        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters drawn in {str(init_dtype)[6:]}, set up in "
+        f"{time.time() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     if not server.use_kernel:
         raise AssertionError("the server refused the kernel")
 
@@ -1410,7 +1437,8 @@ def serve_full_width():
     launches, plain = da.COUNT.launches, da.COUNT.plain
     steps = server.steps
     generated = sum(len(v) for v in results.values())
-    log(f"served {len(results)} requests: {steps} decode steps, {generated} "
+    log(f"{cfg.name} served {len(results)} requests: {steps} decode steps, "
+        f"{generated} "
         f"tokens generated, {wall:.3f} s, {wall / steps * 1e3:.3f} ms/step, "
         f"{generated / wall:.2f} tokens/s, "
         f"{(generated + sum(len(r.prompt) - 1 for r in reqs)) / wall:.2f} "
@@ -1455,15 +1483,17 @@ def teacher_forced(model, params, cache_src):
     return pairs
 
 
-def teacher_forced_check(model, server):
+def teacher_forced_check(model, server, f32_layers=None):
     """Kernel vs plain decode steps, at full width.
 
     In bf16 (the served dtype) a 1e-7 difference in an attention output
-    can flip a bf16 rounding, and 40 layers of random weights amplify it,
-    so there only decisive greedy tokens must agree: the kernel's argmax
-    equals the plain path's wherever the plain top-2 margin exceeds
-    BF16_MARGIN.  The same check in float32 compute dtype (f32 weights
-    from the same seed) holds the logits at F32_LOGIT_TOL.
+    can flip a bf16 rounding, and many layers of random weights amplify
+    it (in an MoE layer it can also swap a token's experts), so there only
+    decisive greedy tokens must agree: the kernel's argmax equals the
+    plain path's wherever the plain top-2 margin exceeds BF16_MARGIN.  The
+    same check in float32 compute dtype (f32 weights from the same seed,
+    the first ``f32_layers`` layers where given) holds the logits at
+    F32_LOGIT_TOL.
     """
     worst, decisive = 0.0, 0
     for a, b in teacher_forced(model, server.params, server.cache):
@@ -1477,32 +1507,38 @@ def teacher_forced_check(model, server):
         f"logits max diff {worst:.3e}; {decisive}/{TEACHER_STEPS * BATCH} "
         f"tokens with top-2 margin > {BF16_MARGIN:g}, all equal")
 
-    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32",
+                                n_layers=f32_layers or model.cfg.n_layers)
     model32 = build_model(cfg32)
     params32 = model32.init(torch.Generator("cuda").manual_seed(0))
+    cache = {k: v[:cfg32.n_layers] for k, v in server.cache.items()}
     worst = 0.0
-    for a, b in teacher_forced(model32, params32, server.cache):
+    for a, b in teacher_forced(model32, params32, cache):
         worst = max(worst, (a - b).abs().max().item())
         if not torch.allclose(a, b, atol=F32_LOGIT_TOL, rtol=F32_LOGIT_TOL):
             raise AssertionError(f"f32 kernel vs plain logits differ by "
                                  f"{(a - b).abs().max().item()}")
-    log(f"teacher-forced float32: {TEACHER_STEPS} steps, kernel vs plain "
-        f"logits max diff {worst:.3e} (tol {F32_LOGIT_TOL:g} abs+rel)")
+    log(f"teacher-forced float32 ({cfg32.n_layers} layers): {TEACHER_STEPS} "
+        f"steps, kernel vs plain logits max diff {worst:.3e} (tol "
+        f"{F32_LOGIT_TOL:g} abs+rel)")
     del params32
 
 
 def profile_steps(model, server, n=3):
     """Device time by kernel over a few decode steps of the server's
     path (with the kernel where the server uses it); on the kernel path
-    exactly one decode kernel per layer a step."""
+    exactly one decode kernel per layer a step.  Returns the device ms a
+    step of the decode kernel, the products (the operators ``EXPERT_OPS``
+    and ``GEMM_OPS``, their kernels' device time) and the rest."""
     tok = torch.zeros((server.B, 1), dtype=torch.long, device="cuda")
     pos = torch.full((server.B,), 100, dtype=torch.int32, device="cuda")
     opts = ModelOpts(use_kernel=server.use_kernel)
+    ops_ms = {}
     rows = profile_window(lambda: model.decode_step(
         server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
-        n, "step")
+        n, "step", ops_ms)
     if not (server.use_kernel and rows):
-        return
+        return {}
     decode = [(ms, count) for ms, key, count in rows if DECODE_KERNEL in key]
     per_step = sum(c for _, c in decode) / n
     log(f"  {DECODE_KERNEL}: {per_step:g} a step ({model.cfg.n_layers} "
@@ -1511,13 +1547,23 @@ def profile_steps(model, server, n=3):
     if per_step != model.cfg.n_layers:
         raise AssertionError("the step did not run one decode kernel per "
                              "layer")
+    split = {"decode_attention": sum(ms for ms, _ in decode) / n,
+             "expert products": sum(ops_ms.get(o, 0.0)
+                                    for o in EXPERT_OPS) / n,
+             "other GEMMs": sum(ops_ms.get(o, 0.0) for o in GEMM_OPS) / n}
+    split["other kernels"] = sum(r[0] for r in rows) / n - sum(
+        split.values())
+    log("  by part: " + ", ".join(f"{k} {v:.3f} ms/step"
+                                  for k, v in split.items()))
+    return split
 
 
-def profile_window(fn, n, unit):
+def profile_window(fn, n, unit, ops_ms=None):
     """Device time by kernel over ``n`` calls of ``fn`` after one warm-up
     call: device busy and idle share of the window's wall time.  Returns
     the rows (ms, kernel name, count), longest first; none where the trace
-    has no device time."""
+    has no device time.  ``ops_ms``, where given, is filled with each
+    operator's device ms over the window (the kernels it launched)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1529,6 +1575,10 @@ def profile_window(fn, n, unit):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if ops_ms is not None:
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                ops_ms[e.key] = e.device_time_total / 1e3
     # device rows only: an operator's own "device time" repeats its kernels'
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.key, e.count)
@@ -1555,6 +1605,100 @@ def profile_window(fn, n, unit):
     for ms, key, count in rows[:10]:
         log(f"  {ms / n:9.4f} ms/{unit}  x{count // n:<5d} {key[:90]}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the MoE family at full width
+# ---------------------------------------------------------------------------
+def moe_config():
+    """phi3.5-moe-42b-a6.6b at full width, its depth cut to MOE_LAYERS."""
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+
+
+def expert_bytes(cfg):
+    """Bytes of one layer's expert weights (wi, wg, wo) in bf16."""
+    return 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+
+
+def moe_dropped_at_decode(server, cfg):
+    """Capacity C at the served batch, which must hold a group's every
+    routing slot (each decode slot is its own group, so C = 8 >= top_k),
+    and the slots ``moe.dropped_slots`` counts on layer 0's experts at a
+    decode-shaped input."""
+    G = moe._num_groups(BATCH)
+    C = moe.capacity(cfg, BATCH // G)
+    if C < (BATCH // G) * cfg.top_k:
+        raise AssertionError(f"C = {C} < {BATCH // G} tokens x top-"
+                             f"{cfg.top_k} a group: decode would drop slots")
+    p = layer_slice(server.params["layers"], 0)["moe"]
+    g = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn(BATCH, 1, cfg.d_model, generator=g,
+                    device="cuda").bfloat16()
+    return G, C, int(moe.dropped_slots(p, x, cfg))
+
+
+def time_expert_products(server, cfg):
+    """One layer's three expert products at the decode shape (every
+    expert's (G*C, D) buffer against its weights, bf16) and its whole
+    ``moe_ffn``, device ms with the L2 flushed, beside the bytes floor of
+    its expert weights."""
+    p = layer_slice(server.params["layers"], 0)["moe"]
+    G = moe._num_groups(BATCH)
+    C = moe.capacity(cfg, BATCH // G)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    g = torch.Generator("cuda").manual_seed(7)
+    xe = torch.randn(E, G * C, D, generator=g, device="cuda").bfloat16()
+    x = torch.randn(BATCH, 1, D, generator=g, device="cuda").bfloat16()
+    act = activation(cfg)
+    ms = time_ms(lambda: (act(xe @ p["wg"]) * (xe @ p["wi"])) @ p["wo"],
+                 reps=20)
+    ffn_ms = time_ms(lambda: moe.moe_ffn(p, x, cfg, NOSHARD), reps=20)
+    nbytes = expert_bytes(cfg)
+    floor = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"expert products of one layer at decode (E={E}, G*C={G * C} rows, "
+        f"D={D}, F={F}, bf16): {ms:.4f} ms, bytes floor {floor:.4f} ms "
+        f"({nbytes} bytes, {nbytes / ms * 1e-6:.1f} GB/s); the layer's "
+        f"moe_ffn {ffn_ms:.4f} ms; x {cfg.n_layers} layers: "
+        f"{ms * cfg.n_layers:.3f} ms a step beside a floor of "
+        f"{floor * cfg.n_layers:.3f}")
+    return dict(ms=ms, moe_ffn_ms=ffn_ms, bound_ms=floor)
+
+
+def moe_serve_full_width():
+    """phi3.5-moe at full width on the dense phase's request mix: every
+    request finishes, every layer of every step runs the flash-decode
+    kernel, no routing slot is dropped at decode (C = 8 >= Tg * K = 2),
+    and kernel vs plain decode steps agree (float32 at MOE_F32_LAYERS)."""
+    t0 = time.time()
+    cfg, full = moe_config(), get_config(MOE_ARCH)
+    layer_bytes = 2 * (expert_bytes(cfg) // 2 + cfg.d_model * cfg.n_experts
+                       + cfg.d_model * cfg.head_dim
+                       * (2 * cfg.n_heads + 2 * cfg.n_kv_heads))
+    log(f"MoE: {MOE_ARCH} at full width, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers: {cfg.n_params() * 2 / 1e9:.1f} GB of bf16 "
+        f"weights (all {full.n_layers}: {full.n_params() * 2 / 1e9:.1f} GB, "
+        f"beyond the card), {layer_bytes / 1e9:.2f} GB a layer")
+    model, server, launches, run = serve_full_width(cfg, torch.bfloat16)
+    G, C, dropped = moe_dropped_at_decode(server, cfg)
+    log(f"MoE routing at decode: {G} groups of {BATCH // G} token, top-"
+        f"{cfg.top_k} of {cfg.n_experts}, capacity C = {C} a group and "
+        f"expert; {dropped} of {BATCH * cfg.top_k} slots dropped on "
+        f"layer 0's experts at a decode-shaped input")
+    if dropped:
+        raise AssertionError("the decode step dropped routing slots")
+    split = profile_steps(model, server)
+    floor = cfg.n_layers * expert_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    log(f"  expert products {split.get('expert products', float('nan')):.3f}"
+        f" ms/step beside their bytes floor of {floor:.3f} ms "
+        f"({cfg.n_layers * expert_bytes(cfg) / 1e9:.2f} GB of expert weights"
+        f" a step at 3.35 TB/s); all layer weights once a step "
+        f"{cfg.n_layers * layer_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    run.update(split=split, experts=time_expert_products(server, cfg))
+    teacher_forced_check(model, server, f32_layers=MOE_F32_LAYERS)
+    del model, server
+    torch.cuda.empty_cache()
+    log(f"MoE phase: {time.time() - t0:.1f} s, initialisation included")
+    return launches, run
 
 
 # ---------------------------------------------------------------------------
@@ -1811,6 +1955,7 @@ def kernel_domain_phase():
 
 
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     smi = subprocess.run(
@@ -1909,11 +2054,16 @@ def main() -> None:
     flash_f32_timing = measure_flash_f32()
     flash_f32_timing["readings"].append(measure_flash_f32_d256())
 
-    model, server, launches, run = serve_full_width()
+    model, server, launches, run = serve_full_width(get_config(ARCH))
     profile_steps(model, server)
     teacher_forced_check(model, server)
     del model, server
     torch.cuda.empty_cache()
+
+    moe_launches, moe_run = moe_serve_full_width()
+    log(f"decode_attention launches on the serving paths: {ARCH} {launches} "
+        f"({run['steps']} steps), {MOE_ARCH} {moe_launches} "
+        f"({moe_run['steps']} steps); {launches + moe_launches} in all")
 
     ssm_model, ssm_params, ssd_launches = ssm_forward_full_width()
     ssm_serve_full_width(ssm_model, ssm_params)
@@ -1936,7 +2086,7 @@ def main() -> None:
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
-        launches=launches, max_abs_err=err, **timing,
+        launches=launches + moe_launches, max_abs_err=err, **timing,
         readings=readings[1:]), dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1951,6 +2101,7 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
         launches=domain_launches["flash_attention"], **flash_f32_timing)]
+    log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

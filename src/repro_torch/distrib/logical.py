@@ -55,17 +55,30 @@ def init_params(generator: torch.Generator, spec,
     normal * scale, zeros or ones.  The numbers differ from JAX's, whose
     generator is another; parity tests load JAX's trees instead
     (``repro_torch.interop``).
+
+    A leaf stacked over layers is drawn one layer's slice at a time, so
+    the f32 temporary never holds more than one slice (a full-width MoE
+    expert stack in bf16 would otherwise need twice its size again in
+    f32); a draw in another dtype equals the f32 draw rounded.
     """
     device = generator.device
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale)
 
     def make(p: P):
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=device)
-        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(p.scale).to(dtype)
+        if p.axes[0] != "layers":
+            return normal(p.shape, p.scale).to(dtype)
+        out = torch.empty(p.shape, dtype=dtype, device=device)
+        for layer in out:
+            layer.copy_(normal(p.shape[1:], p.scale))
+        return out
 
     return spec_map(make, spec)
 

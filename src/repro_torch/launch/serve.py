@@ -1,13 +1,20 @@
 """Serving launcher: batched greedy decoding (port of
-``repro/launch/serve.py``, dense and ssm families).
+``repro/launch/serve.py``, dense, moe and ssm families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi3.5-moe-42b-a6.6b --reduced --device cpu
 
 Same flags and JSON as the reference, plus ``--device`` (default
 ``cuda``) and ``--use-kernel/--no-use-kernel`` (default on for cuda; the
 server keeps it off where the family's decode step has no kernel, as for
-ssm).  Parameters come from a seeded ``torch.Generator`` on the device.
+ssm).  Parameters come from a seeded ``torch.Generator`` on the device,
+in float32.  The MoE archs need ``--reduced`` on one card:
+phi3.5-moe-42b-a6.6b holds 167.5 GB of float32 weights (83.7 GB in
+bf16) and llama4-scout-17b-a16e more, beyond an 80 GB H100, and the
+launcher says so before it draws any (``chip_smoke.py`` serves
+phi3.5-moe at full width with its depth cut to 16 of 32 layers).
 """
 from __future__ import annotations
 
@@ -49,6 +56,14 @@ def main() -> None:
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode path")
     model = build_model(cfg)
+    if device.type == "cuda":
+        need = cfg.n_params() * 4
+        free, _ = torch.cuda.mem_get_info(device)
+        if need > free:
+            raise SystemExit(
+                f"{cfg.name}: {need / 1e9:.1f} GB of float32 weights do "
+                f"not fit the card's {free / 1e9:.1f} GB free; pass "
+                "--reduced")
     params = model.init(torch.Generator(device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     reqs = [

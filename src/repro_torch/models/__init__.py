@@ -1,1 +1,2 @@
-"""Dense-family model layers, blocks and assembly (torch port of ``repro.models``)."""
+"""Model layers, blocks and assembly for the dense, moe and ssm families
+(torch port of ``repro.models``)."""

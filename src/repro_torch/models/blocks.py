@@ -1,13 +1,16 @@
-"""Dense transformer and Mamba blocks, pre-norm residual (port of
-``repro/models/blocks.py``; MoE and cross-attention blocks belong to later
-slices)."""
+"""Dense and MoE transformer blocks and Mamba blocks, pre-norm residual
+(port of ``repro/models/blocks.py``; the cross-attention blocks belong to
+a later slice)."""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import ShardCtx
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
@@ -20,6 +23,7 @@ class ModelOpts:
     remat: str = "full"          # none | full | dots; see remat_wrap
     banded_local: bool = False   # banded sliding-window path (not ported)
     use_kernel: bool = False     # hand-written CUDA kernels
+    aux_loss_coef: float = 0.01  # weight of the MoE router's aux loss
 
 
 def remat_wrap(fn, opts: ModelOpts):
@@ -30,39 +34,46 @@ def remat_wrap(fn, opts: ModelOpts):
     return fn
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE block is not ported yet; the port covers "
-            "the dense and ssm families")
-
-
 # ---------------------------------------------------------------------------
-# Dense attention block
+# Dense / MoE attention block
 # ---------------------------------------------------------------------------
 def dense_block_spec(cfg: ArchConfig) -> dict:
-    _dense_only(cfg)
-    return {
+    """``blocks.py:41``: the FFN is "moe" when the config has experts."""
+    spec = {
         "ln1": rmsnorm_spec(cfg.d_model),
         "attn": attn.attn_spec(cfg),
         "ln2": rmsnorm_spec(cfg.d_model),
-        "mlp": mlp_spec(cfg),
     }
+    if cfg.n_experts:
+        spec["moe"] = moe_mod.moe_spec(cfg)
+    else:
+        spec["mlp"] = mlp_spec(cfg)
+    return spec
+
+
+def ffn(p, hn, cfg: ArchConfig, ctx: ShardCtx):
+    """The block's FFN on the normed hidden state: MoE or MLP."""
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(p["moe"], hn, cfg, ctx)
+    return mlp(p["mlp"], hn, cfg, ctx)
 
 
 def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
                 positions, is_global=True):
-    """Forward block (``blocks.py:54``), without the banded path.  Returns
-    h alone: the reference's second output is the MoE aux loss, which
-    comes with the MoE slice."""
-    _dense_only(cfg)
+    """Forward block (``blocks.py:54``), without the banded path.
+    Returns (h, aux loss): the MoE router's, an f32 zero without
+    experts."""
     h = ctx.constrain(h, "batch", "seq", "act_embed")
     a = attn.self_attention(
         p["attn"], rmsnorm(p["ln1"], h), cfg, ctx,
         positions=positions, is_global=is_global, chunk=opts.attn_chunk)
     h = h + a
-    f = mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx)
-    return h + f
+    hn = rmsnorm(p["ln2"], h)
+    if cfg.n_experts:
+        aux = moe_mod.router_aux_loss(p["moe"], hn, cfg)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ffn(p, hn, cfg, ctx), aux
 
 
 def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
@@ -75,7 +86,7 @@ def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
         p["attn"], rmsnorm(p["ln1"], h), k_cache, v_cache, cfg, ctx,
         pos=pos, is_global=is_global, use_kernel=use_kernel)
     h = h + a
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx), k_new, v_new
+    return h + ffn(p, rmsnorm(p["ln2"], h), cfg, ctx), k_new, v_new
 
 
 # ---------------------------------------------------------------------------

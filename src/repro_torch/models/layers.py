@@ -62,12 +62,18 @@ def _gelu_tanh(a: torch.Tensor) -> torch.Tensor:
     return F.gelu(a, approximate="tanh")
 
 
+def activation(cfg: ArchConfig):
+    """silu for swiglu, tanh-gelu otherwise (``layers.py:68``,
+    ``moe.py:99``)."""
+    return F.silu if cfg.activation == "swiglu" else _gelu_tanh
+
+
 def mlp(params, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
         ) -> torch.Tensor:
     """``layers.py:64``: silu for swiglu, tanh-gelu for geglu and gelu."""
     dt = x.dtype
     if cfg.activation in ("swiglu", "geglu"):
-        act = F.silu if cfg.activation == "swiglu" else _gelu_tanh
+        act = activation(cfg)
         h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
     else:
         h = _gelu_tanh(x @ params["wi"].to(dt))

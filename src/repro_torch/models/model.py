@@ -1,11 +1,11 @@
-"""Model assembly for the dense and ssm families: specs, forward, loss,
-prefill, decode (port of ``repro/models/model.py``).
+"""Model assembly for the dense, moe and ssm families: specs, forward,
+loss, prefill, decode (port of ``repro/models/model.py``).
 
 Parameters are an explicit nested dict of tensors with the reference's
 keys and stacked per-layer layout (leading ``layers`` axis), so a JAX tree
 loads as it is (``repro_torch.interop``).  The reference's ``lax.scan``
-over the stack is a Python loop over its slices here.  The moe, hybrid,
-vlm and audio families raise ``NotImplementedError`` until their slices.
+over the stack is a Python loop over its slices here.  The hybrid, vlm
+and audio families raise ``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
 
@@ -23,10 +23,11 @@ from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import ModelOpts
 from repro_torch.models.layers import (
-    chunked_cross_entropy, embed, embed_spec, logits_last, mlp, rmsnorm,
+    chunked_cross_entropy, embed, embed_spec, logits_last, rmsnorm,
     rmsnorm_spec)
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
+ATTENTION_FAMILIES = ("dense", "moe")     # a stack of dense_block, KV cache
 
 
 def stack_spec(spec: dict, *ns: int) -> dict:
@@ -57,13 +58,13 @@ class Model:
         if self.cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} is not ported "
-                f"yet; the port covers the {' and '.join(FAMILIES)} families")
+                f"yet; the port covers the {', '.join(FAMILIES)} families")
 
     def param_spec(self) -> dict:
-        """``model.py:64`` for the dense and ssm families."""
+        """``model.py:64`` for the dense, moe and ssm families."""
         self._check_family()
         cfg = self.cfg
-        block = (B.dense_block_spec(cfg) if cfg.family == "dense"
+        block = (B.dense_block_spec(cfg) if cfg.family in ATTENTION_FAMILIES
                  else B.mamba_block_spec(cfg))
         return {"embed": embed_spec(cfg),
                 "ln_f": rmsnorm_spec(cfg.d_model),
@@ -81,10 +82,10 @@ class Model:
     def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
         """``model.py:106``: -> (hidden (B, S, D) after the final norm,
-        aux loss).  The aux loss is a constant zero: it is the MoE
-        router's, and MoE is not ported.  For the ssm family
-        ``opts.use_kernel`` runs every layer's scan through the
-        ``ssd_scan`` kernel."""
+        aux loss).  The aux loss is the MoE router's, summed over the
+        layers (``model.py:135-137``); an f32 zero for the other families.
+        For the ssm family ``opts.use_kernel`` runs every layer's scan
+        through the ``ssd_scan`` kernel."""
         self._check_family()
         cfg = self.cfg
         if opts.banded_local and cfg.local_global_ratio \
@@ -95,41 +96,43 @@ class Model:
         params = precast(params, dtype)
         h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
                           "batch", "seq", "act_embed")
-        if cfg.family == "dense":
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.family in ATTENTION_FAMILIES:
             positions = torch.arange(h.shape[1], device=h.device)[None]
             body = B.remat_wrap(B.dense_block, opts)
             for i, flag in enumerate(self.global_flags()):
-                h = body(layer_slice(params["layers"], i), h, cfg, ctx,
-                         opts, positions=positions, is_global=bool(flag))
+                h, a = body(layer_slice(params["layers"], i), h, cfg, ctx,
+                            opts, positions=positions, is_global=bool(flag))
+                aux = aux + a
         else:
             body = B.remat_wrap(B.mamba_block, opts)
             for i in range(cfg.n_layers):
                 h = body(layer_slice(params["layers"], i), h, cfg, ctx, opts)
-        return rmsnorm(params["ln_f"], h), torch.zeros(
-            (), dtype=torch.float32, device=h.device)
+        return rmsnorm(params["ln_f"], h), aux
 
     def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
              opts: ModelOpts = ModelOpts()) -> torch.Tensor:
-        """``model.py:225``: mean CE over labels >= 0 (the aux loss term
-        comes with MoE)."""
-        h, _ = self.forward(params, batch, ctx, opts)
-        return chunked_cross_entropy(params["embed"], self.cfg, h,
-                                     batch["labels"], ctx, chunk=opts.ce_chunk)
+        """``model.py:225``: mean CE over labels >= 0 plus
+        ``opts.aux_loss_coef`` times the aux loss."""
+        h, aux = self.forward(params, batch, ctx, opts)
+        ce = chunked_cross_entropy(params["embed"], self.cfg, h,
+                                   batch["labels"], ctx, chunk=opts.ce_chunk)
+        return ce + opts.aux_loss_coef * aux
 
     # ---------------- prefill (forward + KV/state cache) ----------------
     def prefill(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
         """``model.py:234``: -> (last-position logits (B, V) f32, cache).
-        dense: {"k", "v"}: (L, B, S, Hkv, D) in the compute dtype; ssm:
-        {"ssm": (L, B, H, P, N) f32, "conv": (L, B, W-1, C) in the compute
-        dtype}.  The ssm prefill runs ``ssd_reference``, as the reference
-        does, whatever ``opts.use_kernel`` says."""
+        dense and moe: {"k", "v"}: (L, B, S, Hkv, D) in the compute dtype;
+        ssm: {"ssm": (L, B, H, P, N) f32, "conv": (L, B, W-1, C) in the
+        compute dtype}.  The ssm prefill runs ``ssd_reference``, as the
+        reference does, whatever ``opts.use_kernel`` says."""
         self._check_family()
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
         h = embed(params["embed"], batch["tokens"], dtype)
-        if cfg.family == "dense":
+        if cfg.family in ATTENTION_FAMILIES:
             positions = torch.arange(h.shape[1], device=h.device)[None]
             ks, vs = [], []
             for i, flag in enumerate(self.global_flags()):
@@ -154,9 +157,9 @@ class Model:
     def init_cache(self, batch: int, seq: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Any = "cpu") -> Dict[str, torch.Tensor]:
-        """``model.py:315``: dense: zeros (L, B, S, Hkv, D) for k and v;
-        ssm: the zero state and conv history of every layer (``seq`` is
-        unused; the ssm state is f32 whatever ``dtype`` is)."""
+        """``model.py:315``: dense and moe: zeros (L, B, S, Hkv, D) for k
+        and v; ssm: the zero state and conv history of every layer
+        (``seq`` is unused; the ssm state is f32 whatever ``dtype`` is)."""
         self._check_family()
         cfg = self.cfg
         if cfg.family == "ssm":
@@ -206,7 +209,7 @@ class Model:
 
 
 def _dense_prefill(p, h, cfg, ctx, opts, positions, is_global):
-    """``model.py:490``: a dense block that also returns its K/V."""
+    """``model.py:490``: a dense or MoE block that also returns its K/V."""
     hn = rmsnorm(p["ln1"], h)
     q = attn_mod.project_q(p["attn"], hn, cfg)
     k, v = attn_mod.project_kv(p["attn"], hn, cfg)
@@ -216,7 +219,7 @@ def _dense_prefill(p, h, cfg, ctx, opts, positions, is_global):
         q, k, v, ctx, causal=cfg.causal, is_global=is_global,
         window=cfg.sliding_window, chunk=opts.attn_chunk)
     h = h + attn_mod.out_proj(p["attn"], o, cfg)
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h), cfg, ctx), (k, v)
+    return h + B.ffn(p, rmsnorm(p["ln2"], h), cfg, ctx), (k, v)
 
 
 def _mamba_prefill(p, h, cfg, ctx):

@@ -4,7 +4,7 @@ Port of ``repro/runtime/serve.py`` to torch; the behaviour, the step clock
 and the bit-identity contract are the reference's.  The servers run on
 ``cuda`` unless given ``device="cpu"``.  They cast the parameters to the
 compute dtype once at load (``models.model.precast``) and keep an f32 KV
-cache (dense) or f32 recurrent state (ssm) that each step updates in
+cache (dense, moe) or f32 recurrent state (ssm) that each step updates in
 place.
 
 ``BatchedServer`` is a continuous-batching greedy server: every slot
@@ -31,7 +31,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distrib.logical import NOSHARD
 from repro_torch.models.blocks import ModelOpts
-from repro_torch.models.model import Model, compute_dtype, precast
+from repro_torch.models.model import (
+    ATTENTION_FAMILIES, Model, compute_dtype, precast)
 
 
 @dataclasses.dataclass
@@ -142,20 +143,21 @@ class BatchedServer:
 
     ``use_kernel=True`` puts the flash-decode CUDA kernel on the
     generation path with per-slot ``length``; it is forced off for
-    sliding-window configs and for families other than dense (the
-    reference's dense/moe, ``serve.py:161-164``): the ssm decode step runs
-    no kernel.  On CPU tensors the kernel's wrapper runs its plain version
-    and counts that apart (``kernels.decode_attention.COUNT``).
+    sliding-window configs and for families other than dense and moe
+    (``serve.py:161-164``): the ssm decode step runs no kernel.  On CPU
+    tensors the kernel's wrapper runs its plain version and counts that
+    apart (``kernels.decode_attention.COUNT``).
 
-    Families with per-slot support (``SLOT_FAMILIES``): dense (KV caches)
-    and ssm (position-free recurrent state, re-zeroed per slot on
-    admission).  The reference also serves moe per slot, and hybrid/vlm
-    through an internal :class:`LockstepServer` behind ``run()``; those
-    come with their families' slices, and until then such a server
-    raises.
+    Families with per-slot support (``SLOT_FAMILIES``): dense and moe (KV
+    caches) and ssm (position-free recurrent state, re-zeroed per slot on
+    admission).  An moe decode step puts each slot in its own routing
+    group (``moe._num_groups``, up to 32 slots), so its neighbours never
+    change a slot's tokens.  The reference serves hybrid/vlm through an
+    internal :class:`LockstepServer` behind ``run()``; that comes with
+    their slices, and until then such a server raises.
     """
 
-    SLOT_FAMILIES = ("dense", "ssm")
+    SLOT_FAMILIES = ("dense", "moe", "ssm")
 
     def __init__(self, model: Model, params, *, batch_size: int = 4,
                  max_seq: int = 256, opts: ModelOpts = ModelOpts(),
@@ -170,7 +172,7 @@ class BatchedServer:
         cfg = model.cfg
         if use_kernel is None:
             use_kernel = opts.use_kernel
-        self.use_kernel = bool(use_kernel and cfg.family == "dense"
+        self.use_kernel = bool(use_kernel and cfg.family in ATTENTION_FAMILIES
                                and not cfg.sliding_window)
         if cfg.family not in self.SLOT_FAMILIES:
             raise NotImplementedError(

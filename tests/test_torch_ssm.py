@@ -422,8 +422,14 @@ def test_unported_family_server_raises():
 
 
 def test_moe_server_raises_until_its_slice():
-    """The reference serves moe per slot; the port's server refuses it
-    until the MoE block is ported."""
+    """The MoE slice has come: the port's server takes moe per slot, with
+    the flash-decode kernel, as the reference does (``serve.py:147,163``),
+    and serves every request."""
     _, tcfg = _cfgs("phi3.5-moe-42b-a6.6b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchedServer(Model(tcfg), {}, batch_size=2, device="cpu")
+    model = Model(tcfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    srv = BatchedServer(model, params, batch_size=2, use_kernel=True,
+                        device="cpu")
+    assert "moe" in srv.SLOT_FAMILIES and srv.use_kernel
+    out = srv.run(_reqs(3))
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 5 for v in out.values())
