@@ -5,7 +5,7 @@
 Run from the root of a checkout.  It builds every CUDA kernel of the
 port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
 started together) and holds each kernel against its plain PyTorch version
-on the card.  Then it drives three paths at full width, with random weights
+on the card.  Then it drives these paths at full width, with random weights
 from a seeded ``torch.Generator``, and checks that each path's kernel
 really ran there:
 
@@ -35,6 +35,18 @@ really ran there:
   ``ssd_ref`` and the final state's error, which controls keeping W and
   the carried state (launch 3) or x o w (launch 1) in bf16 alone fail;
   and timed by launch beside each launch's bound;
+* training: ``TrainLoop.train_step`` (``Model.loss`` and its gradient
+  with ``remat="full"``, the cosine schedule, AdamW with clipping) on
+  ``qwen1.5-4b`` at full width, its depth cut to 24 of 40 layers (f32
+  masters, grads, m and v take 16 B a parameter: 42.9 GB at 24 layers,
+  63.2 GB at 40), B = 2 x S = 4096 in bf16 on ``SyntheticLMData(seed=0)``
+  batches, 6 steps timed and one profiled (kernels, idle share, device ms
+  by part, model FLOP/s against 989 TFLOP/s).  Held: one f32 step on the
+  card against the same step on the CPU (the path the CPU tests hold
+  against the reference); bf16 against f32 and remat full against none at
+  full width and 4 layers; ``TrainLoop.run`` crashed at step 6 and
+  resumed against an uninterrupted run.  The path is the reference's,
+  which differentiates no kernel: no port kernel may launch in the phase;
 * kernel search: both rungs of the ``kernel`` fidelity ladder
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
@@ -74,6 +86,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,7 +95,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData, to_device  # noqa: E402
 from repro_torch.kernels import bench  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -97,7 +112,13 @@ from repro_torch.models.blocks import ModelOpts  # noqa: E402
 from repro_torch.models.layers import activation, embed, rmsnorm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model, layer_slice, precast)
+from repro_torch.optim import adamw_init, global_norm  # noqa: E402
+from repro_torch.runtime.fault import (  # noqa: E402
+    FailureInjector, SimulatedCrash)
 from repro_torch.runtime.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.runtime.train_loop import (  # noqa: E402
+    TrainLoop, TrainLoopConfig)
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:14
 HBM_BYTES_PER_S = 3.35e12                           # H100 SXM data sheet
@@ -139,6 +160,24 @@ SSM_F32_TOL = 1e-3          # f32 config: hidden states and loss, abs and rel
 SSM_BF16_MIXER_REL = 1e-3   # bf16, layer 0's mixer output, ||k-p|| / ||p||
 SSM_BF16_LOSS_REL = 1e-3    # bf16, 24 layers: the loss, relative
 SSM_SERVE_SEQ = 128
+
+# the training path: qwen1.5-4b at full width, its depth cut so that the
+# f32 masters, grads, m and v (16 B a parameter) fit the card with the
+# bf16 precast copy and the activations: 24 layers, 2.68 B parameters,
+# 42.9 GB (all 40: 3.95 B and 63.2 GB, with no margin on 80 GB)
+TRAIN_LAYERS = 24
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096     # train_4k's length
+TRAIN_STEPS = 6                      # timed: the median of steps 1-5
+TRAIN_OPTS = ModelOpts(attn_chunk=512, ce_chunk=1024, remat="full")
+TRAIN_CHECK_LAYERS = 4     # full width: bf16 vs f32, remat full vs none
+TRAIN_DEVICE_REL = 1e-5    # f32 step, card vs CPU: loss, grad norm, params
+TRAIN_BF16_LOSS_REL = 5e-3    # bf16 vs f32 step from the same masters
+TRAIN_BF16_GNORM_REL = 2e-2   # tests/test_kernels.py:14's bf16 TOL
+TRAIN_REMAT_LOSS_REL = 1e-6   # remat full vs none: the same forward
+TRAIN_REMAT_GRAD_REL = 1e-3   # the grads, whole tree, relative in norm
+TRAIN_RESUME_REL = 1e-3       # resumed vs uninterrupted losses, bf16
+TRAIN_LOOP_STEPS, TRAIN_CRASH_AT = 8, 6
+PEAK_BF16 = PEAK_OPS[torch.bfloat16]
 
 # full-width prefill shapes for flash_attention through ops.mha, bf16:
 # name, B, S (the train_4k length), Hq, Hkv, D, window
@@ -1865,6 +1904,327 @@ def ssm_serve_full_width(model, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the training path at full width
+# ---------------------------------------------------------------------------
+def train_config(n_layers=TRAIN_LAYERS, dtype=None):
+    """qwen1.5-4b at full width, its depth cut to ``n_layers``."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=n_layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def port_launches():
+    """Each port kernel's (launches, plain-version calls) so far."""
+    return {name: (c.launches, c.plain) for name, c in (
+        ("decode_attention", da.COUNT), ("flash_attention", fa.COUNT),
+        ("ssd_scan", ssd.COUNT))}
+
+
+def loss_and_grads(model, params, batch, opts):
+    """The loss and the gradient of every leaf of ``params``, in
+    ``leaves`` order."""
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss = model.loss(params, batch, opts=opts)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def _tree_rel(a, b):
+    """||a - b|| / ||b|| over two lists of tensors, in float64."""
+    a, b = [x.detach().double() for x in a], [y.detach().double() for y in b]
+    diff = math.sqrt(sum(float((x - y).square().sum()) for x, y in zip(a, b)))
+    return diff / math.sqrt(sum(float(y.square().sum()) for y in b))
+
+
+def train_device_check():
+    """Two f32 steps (lr 0, then lr > 0) of reduced qwen1.5-4b in a float32
+    config through ``TrainLoop.train_step`` on the card and on the CPU, the
+    path the CPU tests hold against the reference, from one state drawn on
+    the CPU.  Loss and grad norm at TRAIN_DEVICE_REL; the params after the
+    steps at TRAIN_DEVICE_REL relative in norm over the tree, and each
+    element within twice the steps' summed lr (what AdamW's sign-like
+    first steps can move an element whose gradient is rounding noise,
+    such as the key bias's, whose exact gradient is zero)."""
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), dtype="float32")
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=64, global_batch=2)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cpu", "cuda"):
+            loop = TrainLoop(build_model(cfg), data,
+                             TrainLoopConfig(out_dir=os.path.join(tmp, dev)),
+                             opts=ModelOpts(attn_chunk=16, ce_chunk=32,
+                                            remat="full"), device=dev)
+            state = tree_map(lambda t: t.to(dev), loop.init_state(
+                torch.Generator().manual_seed(0)))
+            ms = [{k: float(v) for k, v in loop.train_step(
+                state, to_device(data.batch_at(s), dev)).items()}
+                for s in range(2)]
+            runs[dev] = ([p.detach() for p in leaves(state["params"])], ms)
+    (pc, mc), (pg, mg) = runs["cpu"], runs["cuda"]
+    worst = max(abs(g[k] - c[k]) / abs(c[k]) for g, c in zip(mg, mc)
+                for k in ("loss", "grad_norm"))
+    rel = _tree_rel([p.cpu() for p in pg], pc)
+    atol = 2 * sum(m["lr"] for m in mc)
+    elem = max(float((g.cpu() - c).abs().max()) for g, c in zip(pg, pc))
+    log(f"train step, card vs CPU (reduced {ARCH}, float32, 2 steps): loss "
+        f"{mg[-1]['loss']:.7f} vs {mc[-1]['loss']:.7f}, grad_norm "
+        f"{mg[-1]['grad_norm']:.7f} vs {mc[-1]['grad_norm']:.7f}, worst "
+        f"{worst:.3e} relative (tol {TRAIN_DEVICE_REL:g}); params "
+        f"{rel:.3e} relative in norm (tol {TRAIN_DEVICE_REL:g}), largest "
+        f"element {elem:.3e} (tol {atol:.3e}); {time.time() - t0:.1f} s")
+    if worst > TRAIN_DEVICE_REL or rel > TRAIN_DEVICE_REL or elem > atol:
+        raise AssertionError("the training step differs between the card "
+                             "and the CPU")
+
+
+def train_dtype_remat_check(batch):
+    """At full width and TRAIN_CHECK_LAYERS layers, from one set of f32
+    masters: the bf16 loss and global grad norm against the float32
+    config's, and remat "full" against "none" in bf16."""
+    t0 = time.time()
+    cfg = train_config(TRAIN_CHECK_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(1))
+    l16, g16 = loss_and_grads(model, params, batch, TRAIN_OPTS)
+    n16 = float(global_norm(g16))
+    lnone, gnone = loss_and_grads(
+        model, params, batch, dataclasses.replace(TRAIN_OPTS, remat="none"))
+    remat_loss = abs(float(lnone) - float(l16)) / abs(float(l16))
+    remat_grad = _tree_rel(g16, gnone)
+    del g16, gnone
+    l32, g32 = loss_and_grads(build_model(dataclasses.replace(
+        cfg, dtype="float32")), params, batch, TRAIN_OPTS)
+    n32 = float(global_norm(g32))
+    del g32, params
+    torch.cuda.empty_cache()
+    l16, l32 = float(l16), float(l32)
+    dl, dn = abs(l16 - l32) / abs(l32), abs(n16 - n32) / abs(n32)
+    log(f"train check at full width, {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: bf16 vs float32 loss {l16:.6f} vs "
+        f"{l32:.6f} ({dl:.3e} relative, tol {TRAIN_BF16_LOSS_REL:g}), grad "
+        f"norm {n16:.6f} vs {n32:.6f} ({dn:.3e}, tol "
+        f"{TRAIN_BF16_GNORM_REL:g}); remat full vs none: loss {remat_loss:.3e}"
+        f" relative (tol {TRAIN_REMAT_LOSS_REL:g}), grads {remat_grad:.3e} "
+        f"relative in norm (tol {TRAIN_REMAT_GRAD_REL:g}); "
+        f"{time.time() - t0:.1f} s")
+    if dl > TRAIN_BF16_LOSS_REL or dn > TRAIN_BF16_GNORM_REL:
+        raise AssertionError("bf16 and float32 training steps differ")
+    if remat_loss > TRAIN_REMAT_LOSS_REL or remat_grad > TRAIN_REMAT_GRAD_REL:
+        raise AssertionError("remat full and none differ")
+
+
+def train_loop_check():
+    """``TrainLoop.run`` on the card at reduced qwen1.5-4b (bf16): 8 steps
+    checkpointed every 4; a run that a ``FailureInjector`` crashes at step
+    6, and its resume from step 4, whose losses and params must match the
+    uninterrupted run's at TRAIN_RESUME_REL."""
+    cfg = get_config(ARCH).reduced()
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=64, global_batch=2)
+
+    def loop(out, failure=None):
+        return TrainLoop(build_model(cfg), data, TrainLoopConfig(
+            steps=TRAIN_LOOP_STEPS, ckpt_every=4, log_every=1, out_dir=out),
+            opts=ModelOpts(attn_chunk=32, ce_chunk=32), failure=failure,
+            device="cuda")
+
+    t_check = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = loop(os.path.join(tmp, "full")).run()
+        wall = time.perf_counter() - t0
+        crash_dir = os.path.join(tmp, "crash")
+        try:
+            loop(crash_dir, FailureInjector((TRAIN_CRASH_AT,))).run()
+            raise AssertionError("the injected crash did not happen")
+        except SimulatedCrash:
+            pass
+        start = latest_step(os.path.join(crash_dir, "ckpt"))
+        resumed = loop(crash_dir).run()
+        with open(os.path.join(crash_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    want = full["losses"][start:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], want))
+    rel = _tree_rel(leaves(resumed["state"]["params"]),
+                    leaves(full["state"]["params"]))
+    log(f"TrainLoop.run on the card (reduced {ARCH}, bf16): "
+        f"{TRAIN_LOOP_STEPS} steps in {wall:.2f} s; crashed at step "
+        f"{TRAIN_CRASH_AT}, resumed from step {start}: losses "
+        f"{', '.join(f'{x:.6f}' for x in resumed['losses'])} vs "
+        f"{', '.join(f'{x:.6f}' for x in want)}, largest difference "
+        f"{worst:.3e} relative (tol {TRAIN_RESUME_REL:g}); params "
+        f"{rel:.3e} relative in norm; {len(records)} metrics records; "
+        f"{time.time() - t_check:.1f} s")
+    if start != 4 or len(resumed["losses"]) != TRAIN_LOOP_STEPS - start \
+            or worst > TRAIN_RESUME_REL or rel > TRAIN_RESUME_REL:
+        raise AssertionError("the resumed run does not match the "
+                             "uninterrupted one")
+
+
+def is_gemm(kernel_name):
+    return "nvjet" in kernel_name or "gemm" in kernel_name.lower()
+
+
+def step_parts(events, work, scores):
+    """Device time by part of a profiled training step: GEMMs by kernel
+    name; of the rest, the optimizer's (launched after the backward's last
+    autograd node), attention's elementwise passes (launched by an op with
+    an input shaped like attention's scores, last two dimensions
+    ``scores`` = (query chunk, keys)), and the rest.  ``work(e)`` lists an
+    op's (kernel name, ms)."""
+    backward_end = max((e.time_range.end for e in events if e.name.startswith(
+        "autograd::engine::evaluate_function")), default=float("inf"))
+    parts = dict.fromkeys(("GEMMs", "attention elementwise", "optimizer",
+                           "rest"), 0.0)
+    for e in events:
+        for name, ms in work(e):
+            if is_gemm(name):
+                part = "GEMMs"
+            elif e.time_range.start > backward_end:
+                part = "optimizer"
+            elif any(len(s) >= 4 and tuple(s[-2:]) == scores
+                     for s in e.input_shapes or ()):
+                part = "attention elementwise"
+            else:
+                part = "rest"
+            parts[part] += ms
+    return parts
+
+
+def profile_train_step(fn, scores):
+    """Two profiled calls of ``fn`` (a training step, already warm). The
+    first records device activity alone: its window gives the kernels,
+    device busy and idle share (recording host ops, as the second does,
+    lengthens the host's part of a step). The second records host ops with
+    their input shapes, which ``step_parts`` splits the kernels by.
+    Returns the parts' device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    if rows:
+        busy = sum(r[0] for r in rows)
+        log(f"profile over 1 step (device activity only): wall "
+            f"{wall_ms:.3f} ms, {sum(r[2] for r in rows)} kernels, device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.1%}")
+        for ms, key, count in rows[:10]:
+            log(f"  {ms:9.4f} ms  x{count:<5d} {key[:90]}")
+    else:
+        log("profile: no device time in the trace (not measured)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = step_parts(prof.events(), lambda e: [
+        (k.name, k.duration / 1e3) for k in e.kernels]
+        if e.device_type == DeviceType.CPU else [], scores)
+    total = sum(parts.values()) or float("nan")
+    log("  by part (a second profiled step, host ops and input shapes "
+        "recorded): " + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                                  for k, v in parts.items())
+        + f" of {total:.1f} ms the step's ops launched")
+    return parts
+
+
+def train_full_width(smi):
+    """The training phase: card vs CPU, bf16 vs f32 and remat at full
+    width and 4 layers, then TRAIN_STEPS steps of qwen1.5-4b at full width
+    and TRAIN_LAYERS layers through ``TrainLoop.train_step`` on
+    ``SyntheticLMData(seed=0)`` batches, timed and profiled, then
+    ``TrainLoop.run`` with a crash and its resume.  No port kernel may
+    launch in the phase: the path is the reference's."""
+    t_phase = time.time()
+    before = port_launches()
+    train_device_check()
+    cfg, full = train_config(), get_config(ARCH)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    t0 = time.time()
+    batches = [to_device(data.batch_at(s), "cuda")
+               for s in range(TRAIN_STEPS + 1)]
+    log(f"training data: {len(batches)} SyntheticLMData batches of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {time.time() - t0:.1f} s")
+    train_dtype_remat_check(batches[0])
+
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    state = {"params": params, "opt": adamw_init(params), "err": None}
+    n_params = sum(p.numel() for p in leaves(params))
+    n_full = n_params + (full.n_layers - cfg.n_layers) * sum(
+        p[0].numel() for p in leaves(params["layers"]))
+    torch.cuda.synchronize()
+    log(f"training: {ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), depth cut to {cfg.n_layers} of {full.n_layers} "
+        f"layers: {n_params} parameters, f32 masters + grads + m + v "
+        f"{16 * n_params / 1e9:.1f} GB and a bf16 copy "
+        f"{2 * n_params / 1e9:.1f} GB (all {full.n_layers}: {n_full} "
+        f"parameters, {16 * n_full / 1e9:.1f} GB + "
+        f"{2 * n_full / 1e9:.1f} GB); {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_OPTS}; set up in {time.time() - t0:.1f} s")
+    # err is read only with compress_grads, which is off: no error
+    # feedback (another 4 B a parameter) beside the state
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = TrainLoop(model, data, TrainLoopConfig(out_dir=tmp),
+                         opts=TRAIN_OPTS, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = loop.train_step(state, batches[step])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            log(f"train step {step}: loss {metrics[-1]['loss']:.6f}, "
+                f"grad_norm {metrics[-1]['grad_norm']:.6f}, lr "
+                f"{metrics[-1]['lr']:.4e}, {times[-1] * 1e3:.1f} ms [{smi}]")
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n_dense = n_params - params["embed"]["tok"].numel()
+        flops = 6 * n_dense * tokens + 6 * cfg.n_layers * TRAIN_BATCH \
+            * TRAIN_SEQ ** 2 * cfg.q_dim
+        log(f"training {ARCH} ({cfg.n_layers} layers): {step_s * 1e3:.1f} "
+            f"ms/step (median of steps 1-{TRAIN_STEPS - 1}, host clock, "
+            f"synchronised), {tokens / step_s:.0f} tokens/s, peak memory "
+            f"{peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); model FLOPs "
+            f"{flops:.4e} a step (6 N T, N = {n_dense} less the token "
+            f"embedding, + 6 L B S^2 q_dim), {flops / step_s / 1e12:.1f} "
+            f"TFLOP/s, {flops / step_s / PEAK_BF16:.1%} of 989 TFLOP/s "
+            f"[{smi}]")
+        if metrics[0]["lr"] != 0.0 or not all(
+                np.isfinite([m["loss"], m["grad_norm"]]).all()
+                for m in metrics):
+            raise AssertionError("the training steps are not finite, or "
+                                 "step 0 had a learning rate")
+        parts = profile_train_step(
+            lambda: loop.train_step(state, batches[-1]),
+            (TRAIN_OPTS.attn_chunk, TRAIN_SEQ))
+        log(f"  [{smi}]")
+    del state, params, loop, model, batches
+    torch.cuda.empty_cache()
+
+    train_loop_check()
+    after = port_launches()
+    log(f"port kernels over the training phase: {before} before, {after} "
+        f"after")
+    if after != before:
+        raise AssertionError("the training phase launched a port kernel")
+    log(f"training phase: {time.time() - t_phase:.1f} s")
+    return dict(ms_per_step=step_s * 1e3, peak_bytes=peak, parts=parts,
+                flops=flops, losses=[m["loss"] for m in metrics])
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the kernel search domain on the card
 # ---------------------------------------------------------------------------
 def _ranks(x):
@@ -2069,6 +2429,8 @@ def main() -> None:
     ssm_serve_full_width(ssm_model, ssm_params)
     del ssm_model, ssm_params
     torch.cuda.empty_cache()
+
+    train_full_width(smi)
 
     domain_launches = kernel_domain_phase()
     if ssd.COUNT.wgmma:

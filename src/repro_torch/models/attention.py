@@ -14,7 +14,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import P, ShardCtx
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import remat_call, rope
 
 NEG_INF = -1e30
 
@@ -78,6 +78,10 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
     """q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,Hq,D) (``:89``).
 
     The reference scans the query chunks; a Python loop does it here.
+    Under grad each chunk's body is recomputed in the backward
+    (``remat_call``, the reference's ``jax.checkpoint(body)``), so the
+    backward holds one chunk's f32 (B, Hkv, G, chunk, Sk) scores at a
+    time.
     """
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -89,16 +93,18 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
     kpos = torch.arange(Sk, device=q.device)
     qg = q.reshape(B, Sq, Hkv, G, D)
     kf = k.float()
-    outs = []
-    for start in range(0, Sq, chunk):
-        qc = qg[:, start:start + chunk]
+
+    def block(qc, kf, v, start: int):
         qpos = q_offset + start + torch.arange(chunk, device=q.device)
         s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
         m = _mask(qpos, kpos, causal=causal, is_global=is_global,
                   window=window)
         s = torch.where(m[None, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, v))
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+
+    outs = [remat_call(block, qg[:, start:start + chunk], kf, v, start)
+            for start in range(0, Sq, chunk)]
     o = torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
     return ctx.constrain(o, "batch", "seq", "act_heads", None)
 

@@ -4,15 +4,19 @@ a later slice)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import ShardCtx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import (
+    mlp, mlp_spec, remat_call, rmsnorm, rmsnorm_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,11 +31,35 @@ class ModelOpts:
 
 
 def remat_wrap(fn, opts: ModelOpts):
-    """``blocks.py:29``.  A no-op here: the port has no backward pass yet.
-    With the training slice ``ModelOpts.remat`` maps onto
-    ``torch.utils.checkpoint`` ("full": checkpoint the layer; "dots": keep
-    the matrix products' outputs)."""
-    return fn
+    """``blocks.py:29``: "none" keeps every activation; "full" saves only
+    the block's inputs and recomputes it in the backward
+    (``torch.utils.checkpoint``, non-reentrant); "dots" also saves the
+    outputs of the matrix products and recomputes the rest
+    (``jax.checkpoint_policies.checkpoint_dots``).  Inert while grad is
+    off (``layers.remat_call``), so the serving and prefill paths run
+    ``fn`` as it is."""
+    if opts.remat == "none":
+        return fn
+    if opts.remat == "full":
+        return functools.partial(remat_call, fn)
+    if opts.remat == "dots":
+        return functools.partial(remat_call, fn, context_fn=_save_dots)
+    raise ValueError(f"remat must be none, full or dots; got {opts.remat!r}")
+
+
+_aten = torch.ops.aten
+# what matmul and einsum lower to, with or without a bias
+_DOTS = frozenset((_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+                   _aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,23 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import P, ShardCtx
+
+
+def remat_call(fn, *args, context_fn=noop_context_fn, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward while grad is on
+    (non-reentrant ``torch.utils.checkpoint``; ``context_fn`` may keep some
+    of its intermediates): the reference's ``jax.checkpoint`` around a scan
+    body (the query chunks of attention, the chunks of the SSD scan and of
+    the cross-entropy, a layer under ``remat``), so the backward keeps one
+    chunk's intermediates at a time.  Without grad it is ``fn``'s call."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                      **kwargs)
 
 
 def rmsnorm_spec(d: int) -> dict:
@@ -113,24 +127,29 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
 
     h: (B, S, D); labels: (B, S) int, -1 = ignore.  Each sequence chunk
     makes its (B, chunk, V) f32 logits, adds its CE to an f32 sum and
-    drops them.  ``S`` must be a multiple of ``min(chunk, S)``, as the
-    reference asserts.
+    drops them; under grad the backward recomputes them a chunk at a time
+    (``remat_call``) instead of keeping every chunk's.  ``S`` must be a
+    multiple of ``min(chunk, S)``, as the reference asserts.
     """
     B, S, D = h.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
     w = unembed_matrix(params, cfg, h.dtype)              # (D, V)
-    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    count = torch.zeros((), dtype=torch.int64, device=h.device)
-    for start in range(0, S, chunk):
-        hc = h[:, start:start + chunk]
-        yc = labels[:, start:start + chunk]
+
+    def body(hc, yc):
         logits = ctx.constrain((hc @ w).float(), "batch", "seq", "vocab")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             yc.clamp_min(0).long()[..., None])[..., 0]
         valid = yc >= 0
-        loss_sum = loss_sum + torch.sum((lse - gold) * valid)
-        count = count + valid.sum()
+        return torch.sum((lse - gold) * valid), valid.sum()
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.int64, device=h.device)
+    for start in range(0, S, chunk):
+        s, c = remat_call(body, h[:, start:start + chunk],
+                          labels[:, start:start + chunk])
+        loss_sum = loss_sum + s
+        count = count + c
     return loss_sum / count.clamp_min(1).float()

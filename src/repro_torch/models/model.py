@@ -46,6 +46,17 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, as views: one
+    ``torch.unbind`` a leaf, whose backward is one ``stack``.  Indexing
+    layer by layer (``layer_slice``) would make each layer's backward
+    allocate a zero tensor the size of the whole stacked leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -85,7 +96,13 @@ class Model:
         aux loss).  The aux loss is the MoE router's, summed over the
         layers (``model.py:135-137``); an f32 zero for the other families.
         For the ssm family ``opts.use_kernel`` runs every layer's scan
-        through the ``ssd_scan`` kernel."""
+        through the ``ssd_scan`` kernel, which has no backward: under grad
+        with parameters that require it, that raises (training runs
+        ``ssd_reference``, as the reference does).
+
+        Differentiable: gradients reach the f32 masters through
+        ``precast``; ``opts.remat`` recomputes each layer in the backward
+        (``blocks.remat_wrap``)."""
         self._check_family()
         cfg = self.cfg
         if opts.banded_local and cfg.local_global_ratio \
@@ -97,17 +114,18 @@ class Model:
         h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
                           "batch", "seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        layers = unstack(params["layers"], cfg.n_layers)
         if cfg.family in ATTENTION_FAMILIES:
             positions = torch.arange(h.shape[1], device=h.device)[None]
             body = B.remat_wrap(B.dense_block, opts)
-            for i, flag in enumerate(self.global_flags()):
-                h, a = body(layer_slice(params["layers"], i), h, cfg, ctx,
-                            opts, positions=positions, is_global=bool(flag))
+            for p_i, flag in zip(layers, self.global_flags()):
+                h, a = body(p_i, h, cfg, ctx, opts, positions=positions,
+                            is_global=bool(flag))
                 aux = aux + a
         else:
             body = B.remat_wrap(B.mamba_block, opts)
-            for i in range(cfg.n_layers):
-                h = body(layer_slice(params["layers"], i), h, cfg, ctx, opts)
+            for p_i in layers:
+                h = body(p_i, h, cfg, ctx, opts)
         return rmsnorm(params["ln_f"], h), aux
 
     def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
@@ -120,6 +138,7 @@ class Model:
         return ce + opts.aux_loss_coef * aux
 
     # ---------------- prefill (forward + KV/state cache) ----------------
+    @torch.no_grad()
     def prefill(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
         """``model.py:234``: -> (last-position logits (B, V) f32, cache).
@@ -170,6 +189,7 @@ class Model:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    @torch.no_grad()
     def decode_step(self, params, batch, cache, ctx: ShardCtx = NOSHARD,
                     opts: ModelOpts = ModelOpts()):
         """One token for every sequence in the batch (``model.py:351``).

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import P, ShardCtx
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import remat_call, rmsnorm, rmsnorm_spec
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +98,9 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
     x: (B, L, H, P); dt: (B, L, H) positive step sizes; A: (H,) negative
     decay rates; Bm, Cm: (B, L, N) shared across heads; D: (H,).
     Returns (y (B, L, H, P) in x's dtype, final_state (B, H, P, N) f32).
+    Under grad each chunk's body is recomputed in the backward
+    (``remat_call``, the reference's ``jax.checkpoint(body)``), so the
+    (B, H, Q, Q) intra-chunk matrices are kept for one chunk at a time.
     """
     B_, L, H, Pd = x.shape
     N = Bm.shape[-1]
@@ -115,9 +118,8 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
 
     state = (torch.zeros((B_, H, Pd, N), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
-    ys = []
-    for c in range(n):
-        ac, xc, bc, cc = a_c[:, c], xw_c[:, c], B_c[:, c], C_c[:, c]
+
+    def body(state, ac, xc, bc, cc):
         ah = ac.transpose(1, 2)                          # (B, H, Q)
         cum = torch.cumsum(ah, dim=-1)
         Lmat = torch.exp(_segsum(ah))                    # (B, H, Q, Q)
@@ -131,7 +133,13 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
         new_contrib = torch.einsum("bqn,bhq,bqhp->bhpn", bc, decay_to_end,
                                    xc)
         state = state * torch.exp(total)[..., None, None] + new_contrib
-        ys.append(y_diag + y_off)
+        return state, y_diag + y_off
+
+    ys = []
+    for c in range(n):
+        state, yc = remat_call(body, state, a_c[:, c], xw_c[:, c],
+                               B_c[:, c], C_c[:, c])
+        ys.append(yc)
     y = torch.stack(ys, dim=1).reshape(B_, L, H, Pd)
     y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state
