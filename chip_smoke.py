@@ -35,6 +35,29 @@ really ran there:
   ``ssd_ref`` and the final state's error, which controls keeping W and
   the carried state (launch 3) or x o w (launch 1) in bf16 alone fail;
   and timed by launch beside each launch's bound;
+* hybrid: ``Model.loss`` on ``zamba2-7b`` at full width and depth (81
+  Mamba layers in 13 groups of 6 and 3 in ``rem``, one shared attention
+  block; 6.75 B parameters, 13.5 GB in bf16) at 8 x 4096 tokens with the
+  ``ssd_scan`` kernel: exactly one call a Mamba layer, each on the
+  tensor-core instances, a profiled forward split into ``ssd_scan``,
+  GEMMs, attention's elementwise passes and the rest; held against the
+  plain path (bf16: the loss and the first Mamba layer's mixer output;
+  float32 at 2 groups).  Before it ``ssd_scan`` alone at zamba2's shape
+  (H 112, P 64, N 64, chunk 256, on the model's strided views) is held to
+  the split and state gates and timed by launch.  Then decode against
+  prefill, and ``BatchedServer``'s lockstep fallback on the dense request
+  mix, where no port kernel may launch (the reference's hybrid decode
+  passes none);
+* vlm: ``llama-3.2-vision-90b`` at full width (d_model 8192, 64 heads, kv
+  8, d_ff 28672, vocab 128256, 1,601 image tokens), its depth cut to 2 of
+  10 groups (18 self and 2 cross layers, 35.6 GB in bf16; all 100 layers
+  need 161.2 GB): ``prefill`` at 1 x 4096 with seeded image embeddings, 32
+  decode steps on its cache held against the prefill of the longer
+  sequence, then the lockstep server on the dense mix; no port kernel;
+* audio: ``prefill`` (the encoder pass, logits per frame) of
+  ``hubert-xlarge`` at full width and depth (48 layers) on 8 x 4096
+  seeded frames, and a float32 prefill card vs CPU at 2 layers; no port
+  kernel;
 * training: ``TrainLoop.train_step`` (``Model.loss`` and its gradient
   with ``remat="full"``, the cosine schedule, AdamW with clipping) on
   ``qwen1.5-4b`` at full width, its depth cut to 24 of 40 layers (f32
@@ -109,9 +132,11 @@ from repro_torch.distrib.logical import NOSHARD  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import ModelOpts  # noqa: E402
-from repro_torch.models.layers import activation, embed, rmsnorm  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    activation, chunked_cross_entropy, embed, rmsnorm)
+from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
-    build_model, layer_slice, precast)
+    _groups, build_model, layer_slice, precast, unstack_groups)
 from repro_torch.optim import adamw_init, global_norm  # noqa: E402
 from repro_torch.runtime.fault import (  # noqa: E402
     FailureInjector, SimulatedCrash)
@@ -160,6 +185,35 @@ SSM_F32_TOL = 1e-3          # f32 config: hidden states and loss, abs and rel
 SSM_BF16_MIXER_REL = 1e-3   # bf16, layer 0's mixer output, ||k-p|| / ||p||
 SSM_BF16_LOSS_REL = 1e-3    # bf16, 24 layers: the loss, relative
 SSM_SERVE_SEQ = 128
+
+# the hybrid family: zamba2-7b at full width and depth (81 Mamba layers in
+# 13 groups of 6 and 3 in rem, one shared attention block; 6.75 B
+# parameters, 13.5 GB in bf16), Model.loss at the forward metric's B x L
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_FORWARDS = 2          # timed kernel-path Model.loss calls
+HYBRID_F32_GROUPS = 2        # the float32 check: 2 of 13 groups, 12 layers
+HYBRID_BF16_MIXER_REL = 1e-3  # bf16, the first Mamba layer's mixer output
+HYBRID_BF16_LOSS_REL = 1e-3   # bf16, 81 layers: the loss, relative
+# float32 at 2 groups, kernel vs plain: each Mamba layer's mixer output on
+# the same input, and the forward's hidden states, relative in norm
+# (hybrid_f32_check's log in PR 24's runs: 6.4-6.8e-6 a layer, 1.04e-4
+# after two groups)
+HYBRID_F32_MIXER_REL = 5e-5
+HYBRID_F32_HIDDEN_REL = 1e-3
+TEACHER_LEN = 32             # tokens decoded one by one against prefill
+# ssd_scan alone at zamba2's shape on the model's strided views
+SSD_HYBRID = (SSM_BATCH, SSM_LEN, 112, 64, 64, 256)  # B, L, H, P, N, chunk
+# the vlm family: llama-3.2-vision-90b at full width, its depth cut to 2 of
+# 10 groups (18 self and 2 cross layers, 17.8 B parameters, 35.6 GB in
+# bf16; all 100 layers need 161.2 GB)
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_GROUPS = 2
+VLM_LEN, VLM_STEPS = 4096, 32   # prefill B = 1 x 4096, then 32 decode steps
+# the audio family: hubert-xlarge at full width and depth (48 layers)
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_FORWARDS = 2           # timed prefills
+AUDIO_CHECK = (2, 1, 256)    # card vs CPU in float32: layers, B, frames
+AUDIO_DEVICE_TOL = 1e-4      # f32 logits, card vs CPU, abs and rel
 
 # the training path: qwen1.5-4b at full width, its depth cut so that the
 # f32 masters, grads, m and v (16 B a parameter) fit the card with the
@@ -726,27 +780,31 @@ def ssd_gate_phase():
         del y, st, states, ref, ref_st, ref_states, emu_y, emu_st, exact
 
 
-def measure_ssd_scan():
-    """Times at the main path's shape: the kernel (launches 1 and 3 on the
-    tensor cores) and the same call with both on CUDA cores, in turns in
-    this call, and the plain version; each launch's device time in
-    profiler windows of both calls, in turns, beside each launch's own
-    bound.  No single PyTorch call computes the SSD scan, so there is no
-    library time."""
-    B, L, H, P, N, chunk = SSD_MAIN
-    args = ssd_main_inputs()
+def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
+                     reps=50):
+    """Times at ``shape`` (the main path's unless given, with ``args`` its
+    inputs): the kernel (launches 1 and 3 on the tensor cores) and the
+    same call with both on CUDA cores, in turns in this call, and the
+    plain version; each launch's device time in profiler windows of both
+    calls, in turns, beside each launch's own bound.  No single PyTorch
+    call computes the SSD scan, so there is no library time."""
+    B, L, H, P, N, chunk = shape
+    args = ssd_main_inputs() if args is None else args
 
     def instance(tc):
         return lambda: ssd._ssd_scan_instance(*args, chunk=chunk,
                                               tensor_core=tc)
     tc_ms, cc_ms = [], []
     for tc in (True, False, False, True):
-        (tc_ms if tc else cc_ms).append(time_ms(instance(tc)))
-    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
+        (tc_ms if tc else cc_ms).append(time_ms(instance(tc), reps))
+    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps)
     plain_ms = time_ms(lambda: ssd_ref(*args, chunk), reps=10)
 
     def launch_ms(rows, name):
-        return sum(r[0] for r in rows if name in r[1]) / 5
+        """A launch's mean over the window, by the launches it shows (a
+        window now and then drops some events)."""
+        hits = [r for r in rows if name in r[1]]
+        return sum(r[0] for r in hits) / max(sum(r[2] for r in hits), 1)
     per = {k: [] for k in SSD_LAUNCHES + SSD_CUDA_CORE}
     for tc in (True, False, False, True):
         rows = profile_window(instance(tc), 5, "call")
@@ -796,13 +854,14 @@ def measure_ssd_scan():
             row.update(cuda_core=sib, cuda_core_ms=float(np.mean(per[sib])),
                        cuda_core_turns=per[sib])
         per_launch.append(row)
-        log(f"ssd_scan launch {k}: {' / '.join(f'{v:.4f}' for v in t)} ms in "
+        log(f"ssd_scan {name}, launch {k}: "
+            f"{' / '.join(f'{v:.4f}' for v in t)} ms in "
             f"turns (profiler, 5 calls each), bound {own[k][0]:.5f} ms "
             f"({own[k][1]}), {row['ms'] / own[k][0]:.2f}x"
             + (f"; {row['cuda_core']} on the same inputs "
                f"{' / '.join(f'{v:.4f}' for v in row['cuda_core_turns'])} ms"
                if "cuda_core" in row else ""))
-    log(f"ssd_scan main path: kernel {ms:.4f} ms (launches 1 and 3 on the "
+    log(f"ssd_scan {name}: kernel {ms:.4f} ms (launches 1 and 3 on the "
         f"tensor cores; in turns {' / '.join(f'{t:.4f}' for t in tc_ms)}), "
         f"both on CUDA cores {' / '.join(f'{t:.4f}' for t in cc_ms)} ms; "
         f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.5f} ms "
@@ -814,6 +873,42 @@ def measure_ssd_scan():
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by, cuda_core_ms=float(np.mean(cc_ms)),
                 per_launch=per_launch)
+
+
+def ssd_hybrid_inputs():
+    """zamba2-7b's shape and layout (``SSD_HYBRID``): bf16 strided views
+    of the conv output, row stride d_inner + 2N = 7,296 elements, bf16 D,
+    the model's steps."""
+    B, L, H, P, N, _ = SSD_HYBRID
+    return ssd_inputs(B, L, H, P, N, torch.bfloat16, seed=52,
+                      d_dtype=torch.bfloat16, strided=True, dt_scale=1.0)
+
+
+def check_ssd_hybrid_shape():
+    """``ssd_scan`` at zamba2-7b's shape, which only the hybrid path runs:
+    the tensor-core instances must take it; y at today's tolerance
+    (``_ssd_compare``) and at the split gate, the states leaving each chunk
+    at the state gate, as at the main shape.  Returns y's max abs error
+    and the inputs."""
+    chunk = SSD_HYBRID[-1]
+    args = ssd_hybrid_inputs()
+    err, y, st, tc = _ssd_compare("zamba2-7b shape", args, chunk)
+    if not tc:
+        raise AssertionError("zamba2-7b's shape did not run "
+                             f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
+    entering = ssd._ssd_scan_instance(*args, chunk=chunk,
+                                      tensor_core=True)[2]
+    states = torch.cat([entering[:, :, 1:], st[:, :, None]], dim=2)
+    del entering
+    share, ok = ssd_split_gate(y, ssd_ref(*args, chunk)[0])
+    s_err, s_ok = ssd_state_gate(states, ssd_ref_states(*args, chunk))
+    log(f"ssd_scan zamba2-7b shape: split gate {share:.4%} of bf16 y differ "
+        f"(<= {SSD_SPLIT_SHARE:.0%}); state gate {s_err:.3e} at the worst "
+        f"of {states.shape[2]} chunks (<= {SSD_STATE_REL:g})")
+    if not (ok and s_ok):
+        raise AssertionError("ssd_scan fails the split or state gate at "
+                             "zamba2-7b's shape")
+    return err, args
 
 
 def flash_inputs(B, Hq, Hkv, Sq, D, dtype, seed, Sk=None):
@@ -1440,6 +1535,15 @@ def measure_flash_f32():
 # ---------------------------------------------------------------------------
 # phase 3: the dense serving path at full width
 # ---------------------------------------------------------------------------
+def request_mix(vocab):
+    """The dense request mix: N_REQUESTS prompts of PROMPT_LEN tokens from
+    seed 0, NEW_TOKENS each."""
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+                0, vocab, rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1)
+            ).tolist(), max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+
+
 def serve_full_width(cfg, init_dtype=torch.float32):
     """``N_REQUESTS`` requests through ``BatchedServer(use_kernel=True)``
     (batch 8, f32 KV cache of 512) with weights drawn in ``init_dtype``
@@ -1463,10 +1567,7 @@ def serve_full_width(cfg, init_dtype=torch.float32):
     if not server.use_kernel:
         raise AssertionError("the server refused the kernel")
 
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab, rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1)
-            ).tolist(), max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+    reqs = request_mix(cfg.vocab)
     da.COUNT.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1537,11 +1638,7 @@ def teacher_forced_check(model, server, f32_layers=None):
     worst, decisive = 0.0, 0
     for a, b in teacher_forced(model, server.params, server.cache):
         worst = max(worst, (a - b).abs().max().item())
-        top2 = b.topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > BF16_MARGIN
-        decisive += int(sure.sum())
-        if not torch.equal(a.argmax(-1)[sure], b.argmax(-1)[sure]):
-            raise AssertionError("kernel path changed a decisive token")
+        decisive += decisive_tokens(a, b, "the kernel path")[0]
     log(f"teacher-forced bf16: {TEACHER_STEPS} steps, kernel vs plain "
         f"logits max diff {worst:.3e}; {decisive}/{TEACHER_STEPS * BATCH} "
         f"tokens with top-2 margin > {BF16_MARGIN:g}, all equal")
@@ -1571,12 +1668,15 @@ def profile_steps(model, server, n=3):
     and ``GEMM_OPS``, their kernels' device time) and the rest."""
     tok = torch.zeros((server.B, 1), dtype=torch.long, device="cuda")
     pos = torch.full((server.B,), 100, dtype=torch.int32, device="cuda")
-    opts = ModelOpts(use_kernel=server.use_kernel)
+    use_kernel = server.use_kernel
+    if not server.continuous:       # the lockstep fallback: one position
+        server, pos = server._lockstep, 100
+    opts = ModelOpts(use_kernel=use_kernel)
     ops_ms = {}
     rows = profile_window(lambda: model.decode_step(
         server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
         n, "step", ops_ms)
-    if not (server.use_kernel and rows):
+    if not (use_kernel and rows):
         return {}
     decode = [(ms, count) for ms, key, count in rows if DECODE_KERNEL in key]
     per_step = sum(c for _, c in decode) / n
@@ -1871,11 +1971,7 @@ def ssm_serve_full_width(model, params):
                            device="cuda")
     if server.use_kernel:
         raise AssertionError("the ssm server must run no kernel")
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                0, model.cfg.vocab,
-                rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1)).tolist(),
-            max_new_tokens=NEW_TOKENS) for i in range(N_REQUESTS)]
+    reqs = request_mix(model.cfg.vocab)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = server.run(reqs)
@@ -1901,6 +1997,405 @@ def ssm_serve_full_width(model, params):
     log(f"ssm slot reuse: {again[7]} vs alone {alone[7]}")
     if again != alone:
         raise AssertionError("the reused slot leaked recurrent state")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the hybrid family at full width and depth
+# ---------------------------------------------------------------------------
+def no_port_launches(what, fn):
+    """``fn()``, failing if it launched a port kernel or ran a plain
+    version."""
+    before = port_launches()
+    out = fn()
+    after = port_launches()
+    log(f"  port kernels in {what}: {before} before, {after} after")
+    if after != before:
+        raise AssertionError(f"{what} launched a port kernel")
+    return out
+
+
+def decisive_tokens(a, b, what):
+    """``a``'s argmax equals ``b``'s wherever b's top-2 margin exceeds
+    BF16_MARGIN; -> (decisive count, logits relative in norm)."""
+    top2 = b.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > BF16_MARGIN
+    if not torch.equal(a.argmax(-1)[sure], b.argmax(-1)[sure]):
+        raise AssertionError(f"{what}: a decisive token differs")
+    return int(sure.sum()), _rel(a, b)
+
+
+def decode_vs_prefill(model, params, tokens):
+    """``tokens`` (B, T) decoded one at a time from an empty f32 cache and
+    prefilled at once -> (the last decode step's logits, prefill's)."""
+    B, T = tokens.shape
+    cache = model.init_cache(B, T, torch.float32, "cuda")
+    for i in range(T):
+        lg, cache = model.decode_step(
+            params, {"token": tokens[:, i:i + 1], "pos": i}, cache)
+    full, _ = model.prefill(params, {"tokens": tokens},
+                            opts=ModelOpts(attn_chunk=T))
+    return lg, full
+
+
+def serve_lockstep(model, params):
+    """The dense request mix through ``BatchedServer``'s lockstep fallback
+    (batch 8, f32 cache of MAX_SEQ): every request finishes, no port kernel
+    launches; a profiled window of steps gives the idle share."""
+    server = BatchedServer(model, params, batch_size=BATCH, max_seq=MAX_SEQ,
+                           opts=ModelOpts(attn_chunk=64), use_kernel=True,
+                           device="cuda")
+    if server.continuous or server.use_kernel:
+        raise AssertionError(f"{model.cfg.name}: the server must fall back "
+                             "to lockstep, with no kernel")
+    reqs = request_mix(model.cfg.vocab)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = server.run(reqs)
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
+    results, wall = no_port_launches("the lockstep server", run)
+    steps = server._lockstep.pos
+    generated = sum(len(v) for v in results.values())
+    log(f"{model.cfg.name} served {len(results)} requests (lockstep "
+        f"fallback): {steps} decode steps, {generated} tokens generated, "
+        f"{wall:.3f} s, {wall / steps * 1e3:.3f} ms/step, "
+        f"{generated / wall:.2f} tokens/s")
+    if sorted(results) != list(range(N_REQUESTS)) or any(
+            len(v) != NEW_TOKENS for v in results.values()):
+        raise AssertionError("not every request finished")
+    no_port_launches("the profiled steps",
+                     lambda: profile_steps(model, server))
+    return dict(steps=steps, wall_s=wall, generated=generated)
+
+
+def hybrid_f32_check(cfg, batch, kopts, ce):
+    """The float32 config at HYBRID_F32_GROUPS groups: every Mamba layer's
+    mixer output with the kernel against the plain one on the same input
+    (the plain path's hidden states, walked layer by layer as
+    ``Model.forward`` walks them) at HYBRID_F32_MIXER_REL in norm; then the
+    kernel path's ``Model.forward`` against that walk: the hidden states
+    at HYBRID_F32_HIDDEN_REL in norm, the loss at SSM_F32_TOL.  (Held in
+    norm: one layer's kernel vs plain difference, ~7e-6 in norm, grows
+    through the random layers, to ~1e-4 after two groups, and its
+    largest elements sit in the tails.)  -> (the model, its parameters)."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=(
+        HYBRID_F32_GROUPS * cfg.shared_attn_every))
+    g, k, _ = _groups(cfg32)
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator("cuda").manual_seed(0))
+    popts = dataclasses.replace(kopts, use_kernel=False)
+    positions = torch.arange(SSM_LEN, device="cuda")[None]
+    h = embed(params32["embed"], batch["tokens"], torch.float32)
+    errs = []
+    for p_g in unstack_groups(params32["groups"], g, k):
+        for p in p_g:
+            u = rmsnorm(p["ln"], h)
+            y_p = ssm_mod.mamba_block(p["mixer"], u, cfg32, NOSHARD,
+                                      use_kernel=False)
+            errs.append(_rel(ssm_mod.mamba_block(
+                p["mixer"], u, cfg32, NOSHARD, use_kernel=True), y_p))
+            h = h + y_p
+        h = blocks.dense_block(params32["shared"], h, cfg32, NOSHARD, popts,
+                               positions=positions)[0]
+    h_p = rmsnorm(params32["ln_f"], h)
+    del h
+    h_k = model32.forward(params32, batch, opts=kopts)[0]
+    rel_h = _rel(h_k, h_p)
+    l_k, l_p = ce(h_k, params32, cfg32), ce(h_p, params32, cfg32)
+    log(f"float32 kernel vs plain ({cfg32.n_layers} layers, "
+        f"{HYBRID_F32_GROUPS} groups): each Mamba layer's mixer output on "
+        f"the same input {min(errs):.3e}-{max(errs):.3e} in norm (tol "
+        f"{HYBRID_F32_MIXER_REL:g}); the forward's hidden states "
+        f"{rel_h:.3e} in norm (tol {HYBRID_F32_HIDDEN_REL:g}), max diff "
+        f"{(h_k - h_p).abs().max().item():.3e}; loss {l_k:.6f} vs "
+        f"{l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel)")
+    if max(errs) > HYBRID_F32_MIXER_REL or rel_h > HYBRID_F32_HIDDEN_REL \
+            or abs(l_k - l_p) > SSM_F32_TOL * (1 + abs(l_p)):
+        raise AssertionError("float32 kernel and plain hybrid forwards "
+                             "differ")
+    return model32, params32
+
+
+def hybrid_forward_full_width():
+    """zamba2-7b at full width and depth: ``Model.loss`` on 8 x 4096 tokens
+    with the kernel, timed; exactly one ``ssd_scan`` a Mamba layer (81 a
+    forward), each on the tensor-core instances; a profiled forward split
+    by part; held against the plain path (bf16: the loss and the first
+    Mamba layer's mixer output; float32 at HYBRID_F32_GROUPS groups: the
+    hidden states and the loss at SSM_F32_TOL); decode against prefill;
+    then the lockstep server on the dense request mix."""
+    t_phase = time.time()
+    cfg = get_config(HYBRID_ARCH)
+    g, k, r = _groups(cfg)
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator("cuda").manual_seed(0),
+                        torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = ssm_batch(cfg)
+    kopts = ModelOpts(use_kernel=True, ce_chunk=SSM_CE_CHUNK)
+    popts = dataclasses.replace(kopts, use_kernel=False)
+    tokens = SSM_BATCH * SSM_LEN
+
+    def ce(h, p=params, c=cfg):
+        """Model.loss's value from the hidden states (no aux term)."""
+        return chunked_cross_entropy(p["embed"], c, h, batch["labels"],
+                                     NOSHARD, chunk=SSM_CE_CHUNK).item()
+    with torch.no_grad():
+        model.loss(params, batch, opts=kopts)           # warm-up
+        torch.cuda.synchronize()
+        log(f"hybrid: {HYBRID_ARCH} at full width and depth: {cfg.n_layers} "
+            f"Mamba layers ({g} groups of {k}, {r} in rem) and one shared "
+            f"attention block, d_model {cfg.d_model}, {cfg.ssm_heads} heads "
+            f"of {cfg.ssm_head_dim}, state {cfg.ssm_state}; {n_params} "
+            f"parameters, {2 * n_params / 1e9:.1f} GB in bf16, set up in "
+            f"{time.time() - t0:.1f} s")
+        for count in (da.COUNT, fa.COUNT, ssd.COUNT):
+            count.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HYBRID_FORWARDS):
+            model.loss(params, batch, opts=kopts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / HYBRID_FORWARDS
+        counts = port_launches()
+        launches, wgmma = ssd.COUNT.launches, ssd.COUNT.wgmma
+        log(f"Model.loss with the kernel: {SSM_BATCH} x {SSM_LEN} tokens, "
+            f"{wall * 1e3:.3f} ms/forward, {tokens / wall:.0f} tokens/s; "
+            f"ssd_scan launches {launches} = {cfg.n_layers} x "
+            f"{HYBRID_FORWARDS} forwards, {wgmma} of them with "
+            f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}; all counts {counts}")
+        if not launches == wgmma == cfg.n_layers * HYBRID_FORWARDS or \
+                counts != {"decode_attention": (0, 0),
+                           "flash_attention": (0, 0),
+                           "ssd_scan": (launches, 0)}:
+            raise AssertionError("the hybrid forward did not run one "
+                                 "tensor-core ssd_scan per Mamba layer, and "
+                                 "nothing else")
+        parts, rows = profile_train_step(
+            lambda: model.loss(params, batch, opts=kopts),
+            (kopts.attn_chunk, SSM_LEN), "forward")
+        shown = {name: sum(row[2] for row in rows if name in row[1])
+                 for name in SSD_LAUNCHES + SSD_CUDA_CORE}
+        if rows and (any(shown[n] != cfg.n_layers for n in SSD_LAUNCHES)
+                     or any(shown[n] for n in SSD_CUDA_CORE)):
+            raise AssertionError(f"the profiled forward shows {shown}, not "
+                                 f"each of {SSD_LAUNCHES} once a layer")
+
+        h_k = model.forward(params, batch, opts=kopts)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_p = model.forward(params, batch, opts=popts)[0]
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        if h_k.shape != (SSM_BATCH, SSM_LEN, cfg.d_model) or not \
+                torch.isfinite(h_k.float()).all():
+            raise AssertionError("the hybrid forward is not finite or is "
+                                 f"shaped {tuple(h_k.shape)}")
+        lk, lp = ce(h_k), ce(h_p)
+        rel_h = _rel(h_k, h_p)
+        del h_k, h_p
+        p0 = layer_slice(layer_slice(params["groups"], 0), 0)
+        u = rmsnorm(p0["ln"], embed(params["embed"], batch["tokens"],
+                                    torch.bfloat16))
+        rel_mixer = _rel(*(ssm_mod.mamba_block(p0["mixer"], u, cfg, NOSHARD,
+                                               use_kernel=kern)
+                           for kern in (True, False)))
+        del u
+        log(f"Model.forward on the plain path: {plain_wall * 1e3:.3f} ms; "
+            f"bf16 kernel vs plain: loss {lk:.6f} vs {lp:.6f} (rel tol "
+            f"{HYBRID_BF16_LOSS_REL:g}); the first Mamba layer's mixer "
+            f"output {rel_mixer:.3e} in norm (tol {HYBRID_BF16_MIXER_REL:g});"
+            f" hidden states after {cfg.n_layers} layers {rel_h:.3e} in norm"
+            f" (not held)")
+        if not np.isfinite(lk) or abs(lk - lp) > HYBRID_BF16_LOSS_REL * abs(
+                lp) or rel_mixer > HYBRID_BF16_MIXER_REL:
+            raise AssertionError("bf16 kernel and plain hybrid forwards "
+                                 "differ")
+
+        model32, params32 = hybrid_f32_check(cfg, batch, kopts, ce)
+
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (BATCH, TEACHER_LEN)), device="cuda")
+
+    def teacher():
+        a, b = decode_vs_prefill(model, params, toks)
+        decisive, rel = decisive_tokens(a, b, "hybrid decode vs prefill")
+        a32, b32 = decode_vs_prefill(model32, params32, toks)
+        err32 = (a32 - b32).abs().max().item()
+        log(f"hybrid decode vs prefill, {BATCH} x {TEACHER_LEN} tokens: bf16 "
+            f"({cfg.n_layers} layers) logits {rel:.3e} in norm, {decisive}/"
+            f"{BATCH} tokens with top-2 margin > {BF16_MARGIN:g}, all equal;"
+            f" float32 ({model32.cfg.n_layers} layers) max diff {err32:.3e} "
+            f"(tol {F32_LOGIT_TOL:g} abs+rel)")
+        if not torch.allclose(a32, b32, atol=F32_LOGIT_TOL,
+                              rtol=F32_LOGIT_TOL):
+            raise AssertionError("float32 hybrid decode and prefill differ")
+    no_port_launches("decode vs prefill", teacher)
+    del params32, model32
+    run = serve_lockstep(model, params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"hybrid phase: {time.time() - t_phase:.1f} s")
+    return dict(ms_per_forward=wall * 1e3, plain_ms=plain_wall * 1e3,
+                launches=launches, parts=parts, serve=run)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the vlm family at full width
+# ---------------------------------------------------------------------------
+def spec_params(cfg):
+    """Parameters of ``cfg``'s tree, counted from its spec."""
+    return sum(math.prod(p.shape)
+               for p in _leaves(build_model(cfg).param_spec()))
+
+
+def vlm_full_width():
+    """llama-3.2-vision-90b at full width, its depth cut to VLM_GROUPS
+    groups: ``prefill`` at 1 x VLM_LEN with seeded image embeddings, then
+    VLM_STEPS decode steps on its cache (image K/V included) held against
+    the prefill of the longer sequence; then the lockstep server on the
+    dense request mix.  No port kernel launches in the phase."""
+    t_phase = time.time()
+    before = port_launches()
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full,
+                              n_layers=VLM_GROUPS * full.cross_attn_every)
+    g, k, _ = _groups(cfg)
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator("cuda").manual_seed(0),
+                        torch.bfloat16)
+    n_params, n_full = spec_params(cfg), spec_params(full)
+    torch.cuda.synchronize()
+    log(f"vlm: {VLM_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.n_image_tokens} image tokens), depth cut to "
+        f"{g} of {full.n_layers // full.cross_attn_every} groups ({g * k} "
+        f"self and {g} cross layers): {n_params} parameters, "
+        f"{2 * n_params / 1e9:.1f} GB in bf16 (all {full.n_layers} layers: "
+        f"{2 * n_full / 1e9:.1f} GB); set up in {time.time() - t0:.1f} s")
+    S, T = VLM_LEN, VLM_STEPS
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, S + T)), device="cuda")
+    img = torch.randn(1, cfg.n_image_tokens, cfg.d_model,
+                      generator=torch.Generator("cuda").manual_seed(1),
+                      device="cuda")
+    batch = {"tokens": toks[:, :S], "image_embeds": img}
+    model.prefill(params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError("the vlm prefill's logits are not finite")
+    cache = model.init_cache(1, S + T, torch.bfloat16, "cuda")
+    cache["k"][:, :, :, :S].copy_(pc["k"])
+    cache["v"][:, :, :, :S].copy_(pc["v"])
+    cache["xk"].copy_(pc["xk"])
+    cache["xv"].copy_(pc["xv"])
+    del pc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(T):
+        lg, cache = model.decode_step(
+            params, {"token": toks[:, S + i:S + i + 1], "pos": S + i}, cache)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / T
+    del cache
+    full_lg, _ = model.prefill(params, {"tokens": toks, "image_embeds": img},
+                               opts=ModelOpts(attn_chunk=S + T))
+    decisive, rel = decisive_tokens(lg, full_lg, "vlm decode vs prefill")
+    log(f"vlm prefill 1 x {S} tokens and {cfg.n_image_tokens} image tokens: "
+        f"{prefill_s * 1e3:.3f} ms; {T} decode steps on its cache: "
+        f"{step_s * 1e3:.3f} ms/step; the last step's logits vs the prefill "
+        f"of all {S + T} tokens: {rel:.3e} in norm, {decisive}/1 tokens with "
+        f"top-2 margin > {BF16_MARGIN:g}, all equal")
+    run = serve_lockstep(model, params)
+    del params
+    torch.cuda.empty_cache()
+    after = port_launches()
+    log(f"port kernels over the vlm phase: {before} before, {after} after; "
+        f"vlm phase {time.time() - t_phase:.1f} s")
+    if after != before:
+        raise AssertionError("the vlm phase launched a port kernel")
+    return dict(prefill_ms=prefill_s * 1e3, decode_ms=step_s * 1e3,
+                serve=run)
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the audio family at full width and depth
+# ---------------------------------------------------------------------------
+def audio_full_width():
+    """hubert-xlarge at full width and depth: ``prefill`` (the encoder
+    pass, logits per frame) on 8 x 4096 seeded frames, timed and profiled;
+    held: its logits finite and shaped, and a float32 prefill at
+    AUDIO_CHECK's size on the card against the same on the CPU.  No port
+    kernel launches in the phase."""
+    t_phase = time.time()
+    before = port_launches()
+    cfg = get_config(AUDIO_ARCH)
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator("cuda").manual_seed(0),
+                        torch.bfloat16)
+    n_params = sum(t.numel() for t in _leaves(params))
+    frames = torch.randn(SSM_BATCH, SSM_LEN, cfg.frame_dim,
+                         generator=torch.Generator("cuda").manual_seed(2),
+                         device="cuda")
+    batch = {"frames": frames}
+    logits, _ = model.prefill(params, batch)             # warm-up
+    torch.cuda.synchronize()
+    log(f"audio: {AUDIO_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, bidirectional): {n_params} parameters, set up in "
+        f"{time.time() - t0:.1f} s")
+    if logits.shape != (SSM_BATCH, SSM_LEN, cfg.vocab) or not \
+            torch.isfinite(logits).all():
+        raise AssertionError("the audio prefill's logits are not finite or "
+                             f"are shaped {tuple(logits.shape)}")
+    del logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AUDIO_FORWARDS):
+        model.prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / AUDIO_FORWARDS
+    log(f"audio prefill {SSM_BATCH} x {SSM_LEN} frames: {wall * 1e3:.3f} "
+        f"ms/forward, {SSM_BATCH * SSM_LEN / wall:.0f} frames/s")
+    parts, _ = profile_train_step(lambda: model.prefill(params, batch),
+                                  (ModelOpts().attn_chunk, SSM_LEN),
+                                  "forward")
+    del params, frames, batch
+    torch.cuda.empty_cache()
+
+    n, B, L = AUDIO_CHECK
+    cfg32 = dataclasses.replace(cfg, n_layers=n, dtype="float32")
+    model32 = build_model(cfg32)
+    p_cpu = model32.init(torch.Generator().manual_seed(0))
+    f_cpu = torch.randn(B, L, cfg.frame_dim,
+                        generator=torch.Generator().manual_seed(3))
+    opts = ModelOpts(attn_chunk=L)
+    ref, _ = model32.prefill(p_cpu, {"frames": f_cpu}, opts=opts)
+    out, _ = model32.prefill(tree_map(lambda t: t.cuda(), p_cpu),
+                             {"frames": f_cpu.cuda()}, opts=opts)
+    err = (out.cpu() - ref).abs().max().item()
+    log(f"audio float32 prefill card vs CPU ({n} layers, {B} x {L} "
+        f"frames): logits max diff {err:.3e} (tol {AUDIO_DEVICE_TOL:g} "
+        f"abs+rel)")
+    if not torch.allclose(out.cpu(), ref, atol=AUDIO_DEVICE_TOL,
+                          rtol=AUDIO_DEVICE_TOL):
+        raise AssertionError("the audio prefill differs between the card "
+                             "and the CPU")
+    after = port_launches()
+    log(f"port kernels over the audio phase: {before} before, {after} "
+        f"after; audio phase {time.time() - t_phase:.1f} s")
+    if after != before:
+        raise AssertionError("the audio phase launched a port kernel")
+    return dict(ms_per_forward=wall * 1e3, parts=parts)
 
 
 # ---------------------------------------------------------------------------
@@ -2065,39 +2560,50 @@ def is_gemm(kernel_name):
     return "nvjet" in kernel_name or "gemm" in kernel_name.lower()
 
 
-def step_parts(events, work, scores):
-    """Device time by part of a profiled training step: GEMMs by kernel
-    name; of the rest, the optimizer's (launched after the backward's last
-    autograd node), attention's elementwise passes (launched by an op with
-    an input shaped like attention's scores, last two dimensions
-    ``scores`` = (query chunk, keys)), and the rest.  ``work(e)`` lists an
-    op's (kernel name, ms)."""
-    backward_end = max((e.time_range.end for e in events if e.name.startswith(
+def is_port(kernel_name):
+    return any(k in kernel_name for k in PORT_KERNEL_NAMES)
+
+
+def step_parts(rows, events, scores):
+    """Device time by part of a profiled training step or forward.  From
+    ``rows``, a window of device activity alone (ms, kernel name, count):
+    the port's kernels and GEMMs by kernel name, and the busy time.  From
+    ``events``, a second window with host ops and their input shapes:
+    of the other kernels, the optimizer's (launched after the backward's
+    last autograd node) and attention's elementwise passes (launched by an
+    op with an input shaped like attention's scores, last two dimensions
+    ``scores`` = (query chunk, keys)).  The rest is busy less those.
+    -> (parts, the ms the second window's ops launched)."""
+    from torch.autograd import DeviceType
+    parts = {"port kernels": sum(r[0] for r in rows if is_port(r[1])),
+             "GEMMs": sum(r[0] for r in rows
+                          if is_gemm(r[1]) and not is_port(r[1])),
+             "attention elementwise": 0.0, "optimizer": 0.0}
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    backward_end = max((e.time_range.end for e in ops if e.name.startswith(
         "autograd::engine::evaluate_function")), default=float("inf"))
-    parts = dict.fromkeys(("GEMMs", "attention elementwise", "optimizer",
-                           "rest"), 0.0)
-    for e in events:
-        for name, ms in work(e):
-            if is_gemm(name):
-                part = "GEMMs"
-            elif e.time_range.start > backward_end:
-                part = "optimizer"
+    launched = 0.0
+    for e in ops:
+        for k in e.kernels:
+            launched += k.duration / 1e3
+            if is_port(k.name) or is_gemm(k.name):
+                continue
+            if e.time_range.start > backward_end:
+                parts["optimizer"] += k.duration / 1e3
             elif any(len(s) >= 4 and tuple(s[-2:]) == scores
                      for s in e.input_shapes or ()):
-                part = "attention elementwise"
-            else:
-                part = "rest"
-            parts[part] += ms
-    return parts
+                parts["attention elementwise"] += k.duration / 1e3
+    parts["rest"] = sum(r[0] for r in rows) - sum(parts.values())
+    return parts, launched
 
 
-def profile_train_step(fn, scores):
-    """Two profiled calls of ``fn`` (a training step, already warm). The
-    first records device activity alone: its window gives the kernels,
-    device busy and idle share (recording host ops, as the second does,
-    lengthens the host's part of a step). The second records host ops with
-    their input shapes, which ``step_parts`` splits the kernels by.
-    Returns the parts' device ms."""
+def profile_train_step(fn, scores, unit="step"):
+    """Two profiled calls of ``fn`` (a training step or a forward, already
+    warm). The first records device activity alone: its window gives the
+    kernels, device busy and idle share (recording host ops, as the second
+    does, lengthens the host's part of a step). The second records host
+    ops with their input shapes, which ``step_parts`` splits the kernels
+    by.  Returns the parts' device ms and the first window's rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2111,7 +2617,7 @@ def profile_train_step(fn, scores):
                    if e.device_type == DeviceType.CUDA), reverse=True)
     if rows:
         busy = sum(r[0] for r in rows)
-        log(f"profile over 1 step (device activity only): wall "
+        log(f"profile over 1 {unit} (device activity only): wall "
             f"{wall_ms:.3f} ms, {sum(r[2] for r in rows)} kernels, device "
             f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.1%}")
         for ms, key, count in rows[:10]:
@@ -2122,15 +2628,16 @@ def profile_train_step(fn, scores):
                  record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    parts = step_parts(prof.events(), lambda e: [
-        (k.name, k.duration / 1e3) for k in e.kernels]
-        if e.device_type == DeviceType.CPU else [], scores)
+    parts, launched = step_parts(rows, prof.events(), scores)
     total = sum(parts.values()) or float("nan")
-    log("  by part (a second profiled step, host ops and input shapes "
-        "recorded): " + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
-                                  for k, v in parts.items())
-        + f" of {total:.1f} ms the step's ops launched")
-    return parts
+    log(f"  by part (port kernels and GEMMs by name in the first window; "
+        f"attention elementwise and optimizer by op in a second profiled "
+        f"{unit}, host ops and input shapes recorded; the rest busy less "
+        f"those): " + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                                for k, v in parts.items())
+        + f" of {total:.1f} ms busy; the second window's ops launched "
+        f"{launched:.1f} ms")
+    return parts, rows
 
 
 def train_full_width(smi):
@@ -2206,7 +2713,7 @@ def train_full_width(smi):
                 for m in metrics):
             raise AssertionError("the training steps are not finite, or "
                                  "step 0 had a learning rate")
-        parts = profile_train_step(
+        parts, _ = profile_train_step(
             lambda: loop.train_step(state, batches[-1]),
             (TRAIN_OPTS.attn_chunk, TRAIN_SEQ))
         log(f"  [{smi}]")
@@ -2390,6 +2897,10 @@ def main() -> None:
     ssd_err = check_ssd_scan()
     ssd_gate_phase()
     ssd_timing = measure_ssd_scan()
+    ssd_hybrid_err, args = check_ssd_hybrid_shape()
+    ssd_hybrid = measure_ssd_scan(SSD_HYBRID, args, "zamba2-7b shape",
+                                  reps=20)
+    del args
 
     wg = check_wgmma_sass("flash_attention", WGMMA_KERNEL, F32_FLASH_KERNEL,
                           "BF16")
@@ -2430,6 +2941,10 @@ def main() -> None:
     del ssm_model, ssm_params
     torch.cuda.empty_cache()
 
+    hybrid = hybrid_forward_full_width()
+    vlm_full_width()
+    audio_full_width()
+
     train_full_width(smi)
 
     domain_launches = kernel_domain_phase()
@@ -2453,7 +2968,10 @@ def main() -> None:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",
-        launches=ssd_launches, max_abs_err=ssd_err, **ssd_timing), dict(
+        launches=ssd_launches + hybrid["launches"], max_abs_err=ssd_err,
+        **ssd_timing, readings=[dict(
+            shape="zamba2-7b", launches=hybrid["launches"],
+            max_abs_err=ssd_hybrid_err, **ssd_hybrid)]), dict(
         name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",

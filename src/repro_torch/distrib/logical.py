@@ -56,7 +56,8 @@ def init_params(generator: torch.Generator, spec,
     generator is another; parity tests load JAX's trees instead
     (``repro_torch.interop``).
 
-    A leaf stacked over layers is drawn one layer's slice at a time, so
+    A leaf stacked over layers (over one or more leading ``layers`` axes:
+    a grouped stack has two) is drawn one layer's slice at a time, so
     the f32 temporary never holds more than one slice (a full-width MoE
     expert stack in bf16 would otherwise need twice its size again in
     f32); a draw in another dtype equals the f32 draw rounded.
@@ -73,11 +74,13 @@ def init_params(generator: torch.Generator, spec,
             return torch.zeros(p.shape, dtype=dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=device)
-        if p.axes[0] != "layers":
+        lead = next((i for i, a in enumerate(p.axes) if a != "layers"),
+                    len(p.axes))
+        if not lead:
             return normal(p.shape, p.scale).to(dtype)
         out = torch.empty(p.shape, dtype=dtype, device=device)
-        for layer in out:
-            layer.copy_(normal(p.shape[1:], p.scale))
+        for layer in out.view(-1, *p.shape[lead:]):
+            layer.copy_(normal(p.shape[lead:], p.scale))
         return out
 
     return spec_map(make, spec)

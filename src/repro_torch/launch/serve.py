@@ -1,20 +1,25 @@
 """Serving launcher: batched greedy decoding (port of
-``repro/launch/serve.py``, dense, moe and ssm families).
+``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3.5-moe-42b-a6.6b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --reduced --device cpu
 
 Same flags and JSON as the reference, plus ``--device`` (default
 ``cuda``) and ``--use-kernel/--no-use-kernel`` (default on for cuda; the
 server keeps it off where the family's decode step has no kernel, as for
-ssm).  Parameters come from a seeded ``torch.Generator`` on the device,
-in float32.  The MoE archs need ``--reduced`` on one card:
-phi3.5-moe-42b-a6.6b holds 167.5 GB of float32 weights (83.7 GB in
-bf16) and llama4-scout-17b-a16e more, beyond an 80 GB H100, and the
-launcher says so before it draws any (``chip_smoke.py`` serves
-phi3.5-moe at full width with its depth cut to 16 of 32 layers).
+ssm, hybrid and vlm).  hybrid and vlm serve through the server's
+lockstep fallback; an encoder (audio) has no decode path and the
+launcher exits.  Parameters come from a seeded ``torch.Generator`` on
+the device, in float32.  The MoE archs and llama-3.2-vision-90b need
+``--reduced`` on one card: phi3.5-moe-42b-a6.6b holds 167.5 GB of
+float32 weights (83.7 GB in bf16) and the others more, beyond an 80 GB
+H100, and the launcher says so before it draws any (``chip_smoke.py``
+serves phi3.5-moe and llama-3.2-vision-90b at full width with their
+depth cut).
 """
 from __future__ import annotations
 

@@ -1,2 +1,2 @@
-"""Model layers, blocks and assembly for the dense, moe and ssm families
+"""Model layers, blocks and assembly for every family of the reference
 (torch port of ``repro.models``)."""

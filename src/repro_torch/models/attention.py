@@ -1,4 +1,4 @@
-"""Self-attention for the dense family (port of ``repro/models/attention.py``).
+"""Self- and cross-attention (port of ``repro/models/attention.py``).
 
 Scores are taken in f32 from the inputs as they are, as the reference's
 ``einsum(..., preferred_element_type=f32)`` does; probabilities are cast to
@@ -154,6 +154,16 @@ def self_attention(p, x, cfg: ArchConfig, ctx: ShardCtx, *, positions,
     k = rope(k, positions, cfg.rope_theta)
     o = chunked_mha(q, k, v, ctx, causal=cfg.causal, is_global=is_global,
                     window=cfg.sliding_window, chunk=chunk)
+    return out_proj(p, o, cfg)
+
+
+def cross_attention(p, x, kv_src, cfg: ArchConfig, ctx: ShardCtx, *,
+                    chunk: int = 1024):
+    """``attention.py:262``: x attends to ``kv_src`` (the VLM's image-patch
+    embeddings); no mask, no RoPE."""
+    q = project_q(p, x, cfg)
+    k, v = project_kv(p, kv_src, cfg)
+    o = chunked_mha(q, k, v, ctx, causal=False, chunk=chunk)
     return out_proj(p, o, cfg)
 
 

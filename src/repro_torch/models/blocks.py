@@ -1,6 +1,5 @@
-"""Dense and MoE transformer blocks and Mamba blocks, pre-norm residual
-(port of ``repro/models/blocks.py``; the cross-attention blocks belong to
-a later slice)."""
+"""Dense and MoE transformer blocks, the VLM's cross-attention blocks and
+Mamba blocks, pre-norm residual (port of ``repro/models/blocks.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -115,6 +114,46 @@ def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
         pos=pos, is_global=is_global, use_kernel=use_kernel)
     h = h + a
     return h + ffn(p, rmsnorm(p["ln2"], h), cfg, ctx), k_new, v_new
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention block (VLM)
+# ---------------------------------------------------------------------------
+def cross_block_spec(cfg: ArchConfig) -> dict:
+    """``blocks.py:96``: no qkv bias; ``gate`` is a norm-shaped scale."""
+    return {
+        "ln": rmsnorm_spec(cfg.d_model),
+        "xattn": attn.attn_spec(cfg, cross=True),
+        "gate": rmsnorm_spec(cfg.d_model),   # tanh-gated residual scale
+    }
+
+
+def _gated(h, a, p):
+    """The residual ``h + a * tanh(gate)``, the gate cast to a's dtype."""
+    return h + a * torch.tanh(p["gate"]["scale"].to(a.dtype))
+
+
+def cross_block(p, h, img, cfg: ArchConfig, ctx: ShardCtx,
+                opts: ModelOpts):
+    """``blocks.py:104``: h attends to the image embeddings ``img``."""
+    a = attn.cross_attention(p["xattn"], rmsnorm(p["ln"], h), img, cfg, ctx,
+                             chunk=opts.attn_chunk)
+    return _gated(h, a, p)
+
+
+def cross_block_cached(p, h, xk, xv, cfg: ArchConfig, ctx: ShardCtx):
+    """``blocks.py:112``: the image K/V already projected (the prefill's
+    or the decode cache's ``xk``/``xv``), one query at a time.
+
+    The sum is returned in h's dtype.  The reference's layer scan needs
+    that of its carry; where ``xk``/``xv`` are wider than h (a bf16
+    model on the server's f32 cache) it promotes h and its scan raises a
+    TypeError, and the port rounds the sum back instead.  Elsewhere the
+    cast changes nothing."""
+    q = attn.project_q(p["xattn"], rmsnorm(p["ln"], h), cfg)
+    o = attn.chunked_mha(q, xk, xv, ctx, causal=False, chunk=1)
+    a = attn.out_proj(p["xattn"], o, cfg)
+    return _gated(h, a, p).to(h.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
-"""Model assembly for the dense, moe and ssm families: specs, forward,
-loss, prefill, decode (port of ``repro/models/model.py``).
+"""Model assembly: parameter specs, forward, loss, prefill, decode (port of
+``repro/models/model.py``) for every family of the reference: dense, moe,
+ssm, hybrid (zamba2's Mamba stack with one shared attention block), vlm
+(self-attention groups, each closed by a cross-attention block to image
+embeddings) and audio (an encoder over frame embeddings).
 
 Parameters are an explicit nested dict of tensors with the reference's
-keys and stacked per-layer layout (leading ``layers`` axis), so a JAX tree
-loads as it is (``repro_torch.interop``).  The reference's ``lax.scan``
-over the stack is a Python loop over its slices here.  The hybrid, vlm
-and audio families raise ``NotImplementedError`` until their slices.
+keys and stacked per-layer layout (leading ``layers`` axes, two of them
+for the grouped hybrid and vlm stacks), so a JAX tree loads as it is
+(``repro_torch.interop``).  The reference's ``lax.scan`` over a stack is
+a Python loop over its slices here.  The banded local:global path
+(``opts.banded_local``) is not ported and raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +28,11 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import ModelOpts
 from repro_torch.models.layers import (
     chunked_cross_entropy, embed, embed_spec, logits_last, rmsnorm,
-    rmsnorm_spec)
+    rmsnorm_spec, unembed_matrix)
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 ATTENTION_FAMILIES = ("dense", "moe")     # a stack of dense_block, KV cache
+GROUPED_FAMILIES = ("hybrid", "vlm")      # two-level stacks, lockstep decode
 
 
 def stack_spec(spec: dict, *ns: int) -> dict:
@@ -37,6 +42,22 @@ def stack_spec(spec: dict, *ns: int) -> dict:
         lambda p: P(extra + p.shape, ("layers",) * len(extra) + p.axes,
                     p.scale, p.init),
         spec)
+
+
+def _groups(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """``model.py:44``: (n_groups, group_len, remainder) of a grouped
+    stack.  hybrid: groups of ``shared_attn_every`` Mamba layers, each
+    followed by the shared block, and the remainder after them; vlm:
+    groups of ``cross_attn_every - 1`` self-attention layers and one
+    cross block, the remainder dropped."""
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        return cfg.n_layers // k, k, cfg.n_layers % k
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        n = cfg.n_layers // k
+        return n, k - 1, cfg.n_layers - n * k
+    raise ValueError(cfg.family)
 
 
 def layer_slice(tree, i: int):
@@ -57,6 +78,11 @@ def unstack(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
+def unstack_groups(tree, g: int, k: int) -> list:
+    """A (g, k)-stacked tree as g lists of k layers, as views."""
+    return [unstack(p_g, k) for p_g in unstack(tree, g)]
+
+
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -67,19 +93,32 @@ class Model:
 
     def _check_family(self) -> None:
         if self.cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} is not ported "
-                f"yet; the port covers the {', '.join(FAMILIES)} families")
+            raise ValueError(self.cfg.family)
 
     def param_spec(self) -> dict:
-        """``model.py:64`` for the dense, moe and ssm families."""
+        """``model.py:64``."""
         self._check_family()
         cfg = self.cfg
-        block = (B.dense_block_spec(cfg) if cfg.family in ATTENTION_FAMILIES
-                 else B.mamba_block_spec(cfg))
-        return {"embed": embed_spec(cfg),
-                "ln_f": rmsnorm_spec(cfg.d_model),
-                "layers": stack_spec(block, cfg.n_layers)}
+        spec: Dict[str, Any] = {"embed": embed_spec(cfg),
+                                "ln_f": rmsnorm_spec(cfg.d_model)}
+        if cfg.family == "audio":
+            spec["frame_proj"] = P((cfg.frame_dim, cfg.d_model),
+                                   (None, "embed"))
+        if cfg.family in ATTENTION_FAMILIES + ("audio",):
+            spec["layers"] = stack_spec(B.dense_block_spec(cfg), cfg.n_layers)
+        elif cfg.family == "ssm":
+            spec["layers"] = stack_spec(B.mamba_block_spec(cfg), cfg.n_layers)
+        elif cfg.family == "hybrid":
+            g, k, r = _groups(cfg)
+            spec["groups"] = stack_spec(B.mamba_block_spec(cfg), g, k)
+            spec["shared"] = B.dense_block_spec(cfg)
+            if r:
+                spec["rem"] = stack_spec(B.mamba_block_spec(cfg), r)
+        else:
+            g, k, _ = _groups(cfg)
+            spec["self"] = stack_spec(B.dense_block_spec(cfg), g, k)
+            spec["cross"] = stack_spec(B.cross_block_spec(cfg), g)
+        return spec
 
     def init(self, generator: torch.Generator,
              dtype: torch.dtype = torch.float32) -> dict:
@@ -90,19 +129,28 @@ class Model:
         return np.array([g for _, g in self.cfg.layer_pattern()], bool)
 
     # ---------------- forward and loss ----------------
+    def _embed_in(self, params, batch, dtype: torch.dtype) -> torch.Tensor:
+        """``model.py:99``: audio projects its frame embeddings, every
+        other family embeds its tokens."""
+        if self.cfg.family == "audio":
+            return batch["frames"].to(dtype) @ params["frame_proj"].to(dtype)
+        return embed(params["embed"], batch["tokens"], dtype)
+
     def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
         """``model.py:106``: -> (hidden (B, S, D) after the final norm,
         aux loss).  The aux loss is the MoE router's, summed over the
         layers (``model.py:135-137``); an f32 zero for the other families.
-        For the ssm family ``opts.use_kernel`` runs every layer's scan
-        through the ``ssd_scan`` kernel, which has no backward: under grad
-        with parameters that require it, that raises (training runs
-        ``ssd_reference``, as the reference does).
+        For the ssm and hybrid families ``opts.use_kernel`` runs every
+        Mamba layer's scan through the ``ssd_scan`` kernel, which has no
+        backward: under grad with parameters that require it, that raises
+        (training runs ``ssd_reference``, as the reference does).  The vlm
+        family reads ``batch["image_embeds"]`` (B, n_img, D), audio
+        ``batch["frames"]`` (B, S, frame_dim) in place of tokens.
 
         Differentiable: gradients reach the f32 masters through
-        ``precast``; ``opts.remat`` recomputes each layer in the backward
-        (``blocks.remat_wrap``)."""
+        ``precast``; ``opts.remat`` recomputes each layer, or each group
+        of a grouped stack, in the backward (``blocks.remat_wrap``)."""
         self._check_family()
         cfg = self.cfg
         if opts.banded_local and cfg.local_global_ratio \
@@ -111,21 +159,53 @@ class Model:
                 "the banded local:global path comes with the gemma3 slice")
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
-        h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
+        h = ctx.constrain(self._embed_in(params, batch, dtype),
                           "batch", "seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        layers = unstack(params["layers"], cfg.n_layers)
-        if cfg.family in ATTENTION_FAMILIES:
-            positions = torch.arange(h.shape[1], device=h.device)[None]
+        positions = torch.arange(h.shape[1], device=h.device)[None]
+        if cfg.family in ATTENTION_FAMILIES + ("audio",):
             body = B.remat_wrap(B.dense_block, opts)
-            for p_i, flag in zip(layers, self.global_flags()):
+            for p_i, flag in zip(unstack(params["layers"], cfg.n_layers),
+                                 self.global_flags()):
                 h, a = body(p_i, h, cfg, ctx, opts, positions=positions,
                             is_global=bool(flag))
                 aux = aux + a
-        else:
+        elif cfg.family == "ssm":
             body = B.remat_wrap(B.mamba_block, opts)
-            for p_i in layers:
+            for p_i in unstack(params["layers"], cfg.n_layers):
                 h = body(p_i, h, cfg, ctx, opts)
+        elif cfg.family == "hybrid":
+            g, k, r = _groups(cfg)
+            shared = params["shared"]
+
+            def group(hh, p_g):
+                for p_i in p_g:
+                    hh = B.mamba_block(p_i, hh, cfg, ctx, opts)
+                return B.dense_block(shared, hh, cfg, ctx, opts,
+                                     positions=positions)[0]
+
+            body = B.remat_wrap(group, opts)
+            for p_g in unstack_groups(params["groups"], g, k):
+                h = body(h, p_g)
+            if r:
+                body = B.remat_wrap(B.mamba_block, opts)
+                for p_i in unstack(params["rem"], r):
+                    h = body(p_i, h, cfg, ctx, opts)
+        else:
+            g, k, _ = _groups(cfg)
+            img = batch["image_embeds"].to(dtype)
+
+            def group(hh, p_self, p_cross):
+                for p_i in p_self:
+                    hh = B.dense_block(p_i, hh, cfg, ctx, opts,
+                                       positions=positions)[0]
+                return B.cross_block(p_cross, hh, img, cfg, ctx, opts)
+
+            body = B.remat_wrap(group, opts)
+            for p_self, p_cross in zip(
+                    unstack_groups(params["self"], g, k),
+                    unstack(params["cross"], g)):
+                h = body(h, p_self, p_cross)
         return rmsnorm(params["ln_f"], h), aux
 
     def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
@@ -141,34 +221,84 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
-        """``model.py:234``: -> (last-position logits (B, V) f32, cache).
-        dense and moe: {"k", "v"}: (L, B, S, Hkv, D) in the compute dtype;
-        ssm: {"ssm": (L, B, H, P, N) f32, "conv": (L, B, W-1, C) in the
-        compute dtype}.  The ssm prefill runs ``ssd_reference``, as the
-        reference does, whatever ``opts.use_kernel`` says."""
+        """``model.py:234``: -> (last-position logits (B, V) f32, cache);
+        audio, an encoder, returns per-frame logits (B, S, V) f32 and an
+        empty cache (``model.py:302-307``).  The cache, K/V in the compute
+        dtype, ssm states f32, conv tails in the compute dtype:
+
+        * dense, moe: {"k", "v"}: (L, B, S, Hkv, D);
+        * ssm: {"ssm": (L, B, H, P, N), "conv": (L, B, W-1, C)};
+        * hybrid: {"ssm", "conv"} of (g, k, ...) and the shared block's
+          {"k", "v"} of (g, B, S, Hkv, D), plus {"rem_ssm", "rem_conv"}
+          of (r, ...) where the stack has a remainder;
+        * vlm: {"k", "v"} of (g, k, B, S, Hkv, D) and the projected image
+          K/V {"xk", "xv"} of (g, B, n_img, Hkv, D).
+
+        Every Mamba layer runs ``ssd_reference``, as the reference does,
+        whatever ``opts.use_kernel`` says."""
         self._check_family()
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
+        if cfg.family == "audio":
+            h, _ = self.forward(params, batch, ctx, opts)
+            w = unembed_matrix(params["embed"], cfg, h.dtype)
+            return (h @ w).float(), {}
         h = embed(params["embed"], batch["tokens"], dtype)
-        if cfg.family in ATTENTION_FAMILIES:
-            positions = torch.arange(h.shape[1], device=h.device)[None]
+        positions = torch.arange(h.shape[1], device=h.device)[None]
+
+        def mamba_stack(layers):
+            nonlocal h
+            ssms, convs = [], []
+            for p_i in layers:
+                h, (st, conv) = _mamba_prefill(p_i, h, cfg, ctx)
+                ssms.append(st)
+                convs.append(conv)
+            return torch.stack(ssms), torch.stack(convs)
+
+        def dense_stack(layers, flags):
+            nonlocal h
             ks, vs = [], []
-            for i, flag in enumerate(self.global_flags()):
-                h, (k, v) = _dense_prefill(layer_slice(params["layers"], i),
-                                           h, cfg, ctx, opts, positions,
+            for p_i, flag in zip(layers, flags):
+                h, (k, v) = _dense_prefill(p_i, h, cfg, ctx, opts, positions,
                                            bool(flag))
                 ks.append(k)
                 vs.append(v)
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            return torch.stack(ks), torch.stack(vs)
+
+        if cfg.family in ATTENTION_FAMILIES:
+            k, v = dense_stack(unstack(params["layers"], cfg.n_layers),
+                               self.global_flags())
+            cache = {"k": k, "v": v}
+        elif cfg.family == "ssm":
+            ssm, conv = mamba_stack(unstack(params["layers"], cfg.n_layers))
+            cache = {"ssm": ssm, "conv": conv}
+        elif cfg.family == "hybrid":
+            g, k, r = _groups(cfg)
+            parts = []
+            for p_g in unstack_groups(params["groups"], g, k):
+                ssm, conv = mamba_stack(p_g)
+                h, (kk, vv) = _dense_prefill(params["shared"], h, cfg, ctx,
+                                             opts, positions, True)
+                parts.append((ssm, conv, kk, vv))
+            cache = dict(zip(("ssm", "conv", "k", "v"),
+                             map(torch.stack, zip(*parts))))
+            if r:
+                cache["rem_ssm"], cache["rem_conv"] = mamba_stack(
+                    unstack(params["rem"], r))
         else:
-            ssms, convs = [], []
-            for i in range(cfg.n_layers):
-                h, (st, conv) = _mamba_prefill(
-                    layer_slice(params["layers"], i), h, cfg, ctx)
-                ssms.append(st)
-                convs.append(conv)
-            cache = {"ssm": torch.stack(ssms), "conv": torch.stack(convs)}
+            g, k, _ = _groups(cfg)
+            img = batch["image_embeds"].to(dtype)
+            parts = []
+            for p_self, p_cross in zip(
+                    unstack_groups(params["self"], g, k),
+                    unstack(params["cross"], g)):
+                ks, vs = dense_stack(p_self, [True] * k)
+                xk, xv = attn_mod.project_kv(p_cross["xattn"], img, cfg)
+                h = B.cross_block_cached(p_cross, h, xk, xv, cfg, ctx)
+                parts.append((ks, vs, xk, xv))
+            cache = dict(zip(("k", "v", "xk", "xv"),
+                             map(torch.stack, zip(*parts))))
         h = rmsnorm(params["ln_f"], h)
         return logits_last(params["embed"], cfg, h[:, -1]), cache
 
@@ -176,18 +306,40 @@ class Model:
     def init_cache(self, batch: int, seq: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Any = "cpu") -> Dict[str, torch.Tensor]:
-        """``model.py:315``: dense and moe: zeros (L, B, S, Hkv, D) for k
-        and v; ssm: the zero state and conv history of every layer
-        (``seq`` is unused; the ssm state is f32 whatever ``dtype`` is)."""
+        """``model.py:315``: zeros shaped as ``prefill``'s cache, K/V
+        ``seq`` long (the ssm states are f32 whatever ``dtype`` is;
+        the ssm family ignores ``seq``).  audio, an encoder, has no decode
+        cache and raises ValueError, as the reference does."""
         self._check_family()
         cfg = self.cfg
-        if cfg.family == "ssm":
+
+        def kv(*lead):
+            return torch.zeros(lead + (batch, seq, cfg.n_kv_heads,
+                                       cfg.head_dim),
+                               dtype=dtype, device=device)
+
+        def mamba(*lead):
             m = ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
-            return {"ssm": _tile(m["ssm"], cfg.n_layers),
-                    "conv": _tile(m["conv"], cfg.n_layers)}
-        shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            return {key: _tile(v, lead) for key, v in m.items()}
+
+        if cfg.family in ATTENTION_FAMILIES:
+            return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+        if cfg.family == "ssm":
+            return mamba(cfg.n_layers)
+        if cfg.family == "hybrid":
+            g, k, r = _groups(cfg)
+            cache = {**mamba(g, k), "k": kv(g), "v": kv(g)}
+            if r:
+                cache.update({"rem_" + key: v
+                              for key, v in mamba(r).items()})
+            return cache
+        if cfg.family == "vlm":
+            g, k, _ = _groups(cfg)
+            img = (g, batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": kv(g, k), "v": kv(g, k),
+                    "xk": torch.zeros(img, dtype=dtype, device=device),
+                    "xv": torch.zeros(img, dtype=dtype, device=device)}
+        raise ValueError(f"{cfg.family} has no decode cache")
 
     @torch.no_grad()
     def decode_step(self, params, batch, cache, ctx: ShardCtx = NOSHARD,
@@ -198,32 +350,75 @@ class Model:
         -> (logits (B,V) f32, cache)
 
         A scalar ``pos`` is the lockstep path; a ``(B,)`` vector gives each
-        slot its own position; the ssm family's recurrent state has no
-        position and ignores it (``model.py:402-411``).  The cache is
-        updated IN PLACE, one layer at a time, and returned; its final
-        contents equal the reference's (``model.py:386-399``).
+        slot its own position.  The ssm family's recurrent state has no
+        position and ignores it (``model.py:402-411``); hybrid and vlm take
+        a scalar only and raise NotImplementedError on a vector, as the
+        reference does.  The cache is updated IN PLACE, one layer at a
+        time, and returned; its final contents equal the reference's
+        (``model.py:386-399``, ``:438-443``, ``:471-476``), each entry in
+        its own dtype (where the reference's widens, the conv history of
+        a float32 model on a bf16 cache, the port's holds the same values
+        rounded).  Only the dense and moe stacks take ``opts.use_kernel``
+        (the flash-decode kernel): the hybrid's shared block and the vlm's
+        self-attention layers run ``decode_mha``, as the reference passes
+        them no kernel.
         """
         self._check_family()
         cfg = self.cfg
+        pos = batch["pos"]
+        if cfg.family in GROUPED_FAMILIES and torch.as_tensor(pos).dim() == 1:
+            raise NotImplementedError(
+                f"per-slot decode positions: {cfg.family} family serves via "
+                "the lockstep path")
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.family} has no decode step")
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
-        pos = batch["pos"]
         h = embed(params["embed"], batch["token"], dtype)   # (B,1,D)
-        if cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                h, new = B.mamba_block_decode(
-                    layer_slice(params["layers"], i), h,
-                    {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
-                    cfg, ctx)
-                cache["ssm"][i].copy_(new["ssm"])
-                cache["conv"][i].copy_(new["conv"])
-            h = rmsnorm(params["ln_f"], h)
-            return logits_last(params["embed"], cfg, h[:, 0]), cache
-        for i, flag in enumerate(self.global_flags()):
+
+        def mamba_layer(p_i, ssm, conv):
+            nonlocal h
+            h, new = B.mamba_block_decode(p_i, h, {"ssm": ssm, "conv": conv},
+                                          cfg, ctx)
+            ssm.copy_(new["ssm"])
+            conv.copy_(new["conv"])
+
+        def attention_layer(p_i, k_cache, v_cache, is_global=True,
+                            use_kernel=False):
+            nonlocal h
             h, _, _ = B.dense_block_decode(
-                layer_slice(params["layers"], i), h, cache["k"][i],
-                cache["v"][i], cfg, ctx, pos=pos, is_global=bool(flag),
-                use_kernel=opts.use_kernel)
+                p_i, h, k_cache, v_cache, cfg, ctx, pos=pos,
+                is_global=is_global, use_kernel=use_kernel)
+
+        if cfg.family in ATTENTION_FAMILIES:
+            for i, (p_i, flag) in enumerate(zip(
+                    unstack(params["layers"], cfg.n_layers),
+                    self.global_flags())):
+                attention_layer(p_i, cache["k"][i], cache["v"][i],
+                                bool(flag), opts.use_kernel)
+        elif cfg.family == "ssm":
+            for i, p_i in enumerate(unstack(params["layers"], cfg.n_layers)):
+                mamba_layer(p_i, cache["ssm"][i], cache["conv"][i])
+        elif cfg.family == "hybrid":
+            g, k, r = _groups(cfg)
+            for gi, p_g in enumerate(unstack_groups(params["groups"], g, k)):
+                for j, p_i in enumerate(p_g):
+                    mamba_layer(p_i, cache["ssm"][gi, j], cache["conv"][gi, j])
+                attention_layer(params["shared"], cache["k"][gi],
+                                cache["v"][gi])
+            if r:
+                for i, p_i in enumerate(unstack(params["rem"], r)):
+                    mamba_layer(p_i, cache["rem_ssm"][i],
+                                cache["rem_conv"][i])
+        else:
+            g, k, _ = _groups(cfg)
+            for gi, (p_self, p_cross) in enumerate(zip(
+                    unstack_groups(params["self"], g, k),
+                    unstack(params["cross"], g))):
+                for j, p_i in enumerate(p_self):
+                    attention_layer(p_i, cache["k"][gi, j], cache["v"][gi, j])
+                h = B.cross_block_cached(p_cross, h, cache["xk"][gi],
+                                         cache["xv"][gi], cfg, ctx)
         h = rmsnorm(params["ln_f"], h)
         return logits_last(params["embed"], cfg, h[:, 0]), cache
 
@@ -253,9 +448,10 @@ def _mamba_prefill(p, h, cfg, ctx):
     return h + y, (state, conv_tail.to(h.dtype))
 
 
-def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``model.py:537``: n stacked copies (a new tensor, not a view)."""
-    return x[None].repeat((n,) + (1,) * x.dim())
+def _tile(x: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
+    """``model.py:537``, nested: copies of x stacked over the leading
+    dims ``lead`` (a new tensor, not a view)."""
+    return x.repeat(lead + (1,) * x.dim())
 
 
 def precast(params, dtype: torch.dtype):

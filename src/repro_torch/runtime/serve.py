@@ -3,9 +3,9 @@
 Port of ``repro/runtime/serve.py`` to torch; the behaviour, the step clock
 and the bit-identity contract are the reference's.  The servers run on
 ``cuda`` unless given ``device="cpu"``.  They cast the parameters to the
-compute dtype once at load (``models.model.precast``) and keep an f32 KV
-cache (dense, moe) or f32 recurrent state (ssm) that each step updates in
-place.
+compute dtype once at load (``models.model.precast``) and keep an f32
+cache (KV, recurrent state, the vlm's image K/V) that each step updates
+in place.
 
 ``BatchedServer`` is a continuous-batching greedy server: every slot
 carries its own position and KV-cache occupancy, requests are admitted
@@ -152,9 +152,12 @@ class BatchedServer:
     caches) and ssm (position-free recurrent state, re-zeroed per slot on
     admission).  An moe decode step puts each slot in its own routing
     group (``moe._num_groups``, up to 32 slots), so its neighbours never
-    change a slot's tokens.  The reference serves hybrid/vlm through an
-    internal :class:`LockstepServer` behind ``run()``; that comes with
-    their slices, and until then such a server raises.
+    change a slot's tokens.  Every other family (``continuous`` False)
+    serves through an internal :class:`LockstepServer` behind ``run()``,
+    and ``submit``/``step``/``drain`` raise RuntimeError
+    (``serve.py:160-168``): hybrid and vlm, whose decode step takes one
+    shared position; audio, an encoder, fails there as in the reference,
+    in ``Model.init_cache``.
     """
 
     SLOT_FAMILIES = ("dense", "moe", "ssm")
@@ -174,10 +177,13 @@ class BatchedServer:
             use_kernel = opts.use_kernel
         self.use_kernel = bool(use_kernel and cfg.family in ATTENTION_FAMILIES
                                and not cfg.sliding_window)
-        if cfg.family not in self.SLOT_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet; its "
-                "lockstep fallback comes with it")
+        self.continuous = cfg.family in self.SLOT_FAMILIES
+        self._lockstep: Optional[LockstepServer] = None
+        if not self.continuous:
+            self._lockstep = LockstepServer(
+                model, params, batch_size=batch_size, max_seq=max_seq,
+                opts=opts, eos_id=eos_id, device=self.device)
+            return
         self.params = _load(model, params, self.device)
         self.cache = model.init_cache(batch_size, max_seq, torch.float32,
                                       self.device)
@@ -195,6 +201,7 @@ class BatchedServer:
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> None:
         """Enqueue a request; it is admitted on the next free slot."""
+        self._check_continuous()
         if request.arrived is None:
             request.arrived = self.steps
         self.queue.append(request)
@@ -205,6 +212,7 @@ class BatchedServer:
         Returns the requests that finished on this step (streamed out in
         slot order).  A no-op (empty list) when nothing is queued/active.
         """
+        self._check_continuous()
         self._admit()
         if not any(a is not None for a in self.active):
             return []
@@ -240,6 +248,7 @@ class BatchedServer:
 
     def drain(self) -> Dict[int, List[int]]:
         """Step until every queued/active request has finished."""
+        self._check_continuous()
         out: Dict[int, List[int]] = {}
         while any(a is not None for a in self.active) or self.queue:
             for r in self.step():
@@ -248,6 +257,8 @@ class BatchedServer:
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Closed-batch compat wrapper: submit everything, drain."""
+        if not self.continuous:
+            return self._lockstep.run(requests)
         for r in requests:
             self.submit(r)
         return self.drain()
@@ -255,6 +266,12 @@ class BatchedServer:
     # ------------------------------------------------------------------
     # Internals
     # ------------------------------------------------------------------
+    def _check_continuous(self) -> None:
+        if not self.continuous:
+            raise RuntimeError(
+                f"{self.model.cfg.family} serves via the lockstep fallback; "
+                "use run()")
+
     def _admit(self) -> None:
         for i in range(self.B):
             if self.active[i] is None and self.queue:

@@ -86,7 +86,10 @@ class TrainLoop:
             p.requires_grad_(True)
         with torch.enable_grad():
             loss = self.model.loss(params, batch, self.ctx, self.opts)
-            grads = unflatten(params, torch.autograd.grad(loss, flat))
+            # a leaf the loss never reads (audio's token embedding) gets a
+            # zero gradient, as jax.grad gives it
+            grads = unflatten(params, torch.autograd.grad(
+                loss, flat, materialize_grads=True))
         if self.cfg.compress_grads:
             grads, state["err"] = compress_grads(grads, state["err"])
         lr_scale = cosine_schedule(state["opt"]["count"],

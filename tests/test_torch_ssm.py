@@ -415,10 +415,27 @@ def test_greedy_tokens_match_jax_server():
     assert tsrv.run(_reqs(5, gen=6)) == ref
 
 
-def test_unported_family_server_raises():
-    _, tcfg = _cfgs("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchedServer(Model(tcfg), {}, batch_size=2, device="cpu")
+@pytest.mark.parametrize("arch", ["zamba2-7b", "llama-3.2-vision-90b",
+                                  "hubert-xlarge"])
+def test_unported_family_server_raises(arch):
+    """The hybrid, vlm and audio slice has come: as the reference's
+    (``serve.py:160-168``), the server takes hybrid and vlm through its
+    lockstep fallback, whose ``run()`` serves and whose streaming calls
+    raise; audio fails in ``init_cache``, as there."""
+    _, tcfg = _cfgs(arch)
+    model = Model(tcfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    if tcfg.family == "audio":
+        with pytest.raises(ValueError, match="no decode cache"):
+            BatchedServer(model, params, batch_size=2, device="cpu")
+        return
+    srv = BatchedServer(model, params, batch_size=2, use_kernel=True,
+                        device="cpu")
+    assert not (srv.continuous or srv.use_kernel)
+    with pytest.raises(RuntimeError, match="lockstep fallback"):
+        srv.submit(_reqs(1)[0])
+    out = srv.run(_reqs(3))
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 5 for v in out.values())
 
 
 def test_moe_server_raises_until_its_slice():

@@ -86,7 +86,7 @@ def _value_and_grad(tcfg, np_params, batch, **opts):
     loss = Model(tcfg).loss(params, {k: torch.from_numpy(v)
                                      for k, v in batch.items()},
                             opts=ModelOpts(**{**OPTS, **opts}))
-    grads = torch.autograd.grad(loss, flat)
+    grads = torch.autograd.grad(loss, flat, materialize_grads=True)
     paths = [p for p, _ in leaf_paths(params)]
     assert all(g.dtype == torch.float32 for g in grads)   # f32 masters
     return loss.item(), {p: g.numpy() for p, g in zip(paths, grads)}
