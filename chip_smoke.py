@@ -58,6 +58,21 @@ really ran there:
   ``hubert-xlarge`` at full width and depth (48 layers) on 8 x 4096
   seeded frames, and a float32 prefill card vs CPU at 2 layers; no port
   kernel;
+* gemma3: ``gemma3-27b`` at full width and depth (62 layers: 10
+  superblocks of 5 local layers and 1 global, then 2 local; 27.0 B
+  parameters, 54.0 GB in bf16, drawn one layer at a time) through the
+  banded local:global path (``ModelOpts(banded_local=True)``, whose local
+  layers attend to 1,536 of 4,096 keys) and the unbanded one:
+  ``Model.loss`` on B x 4096 tokens (B = 4 where twice B = 2's working
+  set fits beside the weights, else 2), each timed and profiled, their
+  losses held; in float32 at 8 layers (one superblock and a remainder of
+  2) banded against unbanded, and decode after a prefill against the
+  prefill of all the tokens; at 8 layers the loss and gradient (f32
+  masters, remat "full") banded against unbanded in bf16, each timed with
+  its peak memory, and in float32; prefill 1 x 4096 and 32 decode steps
+  at full depth,
+  and the per-slot server on the dense request mix.  The reference's
+  banded path calls no kernel: no port kernel may launch in the phase;
 * training: ``TrainLoop.train_step`` (``Model.loss`` and its gradient
   with ``remat="full"``, the cosine schedule, AdamW with clipping) on
   ``qwen1.5-4b`` at full width, its depth cut to 24 of 40 layers (f32
@@ -214,6 +229,23 @@ AUDIO_ARCH = "hubert-xlarge"
 AUDIO_FORWARDS = 2           # timed prefills
 AUDIO_CHECK = (2, 1, 256)    # card vs CPU in float32: layers, B, frames
 AUDIO_DEVICE_TOL = 1e-4      # f32 logits, card vs CPU, abs and rel
+# the banded local:global path: gemma3-27b at full width and depth (62
+# layers: 10 superblocks of 5 local + 1 global layer, then 2 local; 27.01 B
+# parameters, 54.0 GB in bf16)
+GEMMA_ARCH = "gemma3-27b"
+GEMMA_FORWARDS = 3           # timed Model.loss calls each way: the median
+GEMMA_MARGIN = 4 * 2**30     # B = 4 only if this much of the card is left
+GEMMA_LOSS_REL = 1e-3        # bf16, banded vs unbanded: the loss, relative
+GEMMA_CHECK_LAYERS = 8       # 1 superblock + 2 local, as 10 x 6 + 2 is
+GEMMA_F32_REL = 1e-5         # float32: hidden states in norm, and the loss
+# the gradients at 8 layers, whole tree, relative in norm: float32 banded
+# vs unbanded at test_torch_train's f32 tolerance; bf16 banded vs unbanded
+# within GEMMA_BF16_NOISE times the unbanded bf16 gradient's distance from
+# the float32 one, the triangle's bound if banding adds no error beyond
+# bf16's own (on an H100: 2.25e-2 banded vs unbanded, 6.3e-2 from f32)
+GEMMA_F32_GRAD_REL = 1e-4
+GEMMA_BF16_NOISE = 2.0
+GEMMA_STEPS = 32             # decode steps after a prefill of 1 x 4096
 
 # the training path: qwen1.5-4b at full width, its depth cut so that the
 # f32 masters, grads, m and v (16 B a parameter) fit the card with the
@@ -1843,9 +1875,9 @@ def moe_serve_full_width():
 # ---------------------------------------------------------------------------
 # phase 4: the ssm family at full width
 # ---------------------------------------------------------------------------
-def ssm_batch(cfg):
+def ssm_batch(cfg, rows=SSM_BATCH):
     toks = np.random.default_rng(4).integers(0, cfg.vocab,
-                                             (SSM_BATCH, SSM_LEN + 1))
+                                             (rows, SSM_LEN + 1))
     return {"tokens": torch.as_tensor(toks[:, :-1], device="cuda"),
             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
                                       device="cuda")}
@@ -2176,7 +2208,7 @@ def hybrid_forward_full_width():
                                  "nothing else")
         parts, rows = profile_train_step(
             lambda: model.loss(params, batch, opts=kopts),
-            (kopts.attn_chunk, SSM_LEN), "forward")
+            [(kopts.attn_chunk, SSM_LEN)], "forward")
         shown = {name: sum(row[2] for row in rows if name in row[1])
                  for name in SSD_LAUNCHES + SSD_CUDA_CORE}
         if rows and (any(shown[n] != cfg.n_layers for n in SSD_LAUNCHES)
@@ -2367,7 +2399,7 @@ def audio_full_width():
     log(f"audio prefill {SSM_BATCH} x {SSM_LEN} frames: {wall * 1e3:.3f} "
         f"ms/forward, {SSM_BATCH * SSM_LEN / wall:.0f} frames/s")
     parts, _ = profile_train_step(lambda: model.prefill(params, batch),
-                                  (ModelOpts().attn_chunk, SSM_LEN),
+                                  [(ModelOpts().attn_chunk, SSM_LEN)],
                                   "forward")
     del params, frames, batch
     torch.cuda.empty_cache()
@@ -2399,6 +2431,281 @@ def audio_full_width():
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the banded local:global path, gemma3-27b at full width and depth
+# ---------------------------------------------------------------------------
+def prefill_then_decode(model, params, toks, S, cache_dtype):
+    """``prefill`` of ``toks[:, :S]`` (timed after a warm-up), then the
+    rest of ``toks`` decoded one at a time on its cache -> (prefill s,
+    s a decode step, the last step's logits, the logits of the prefill of
+    all of ``toks``)."""
+    B, T = toks.shape[0], toks.shape[1] - S
+    batch = {"tokens": toks[:, :S]}
+    model.prefill(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if logits.shape != (B, model.cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError("the prefill's logits are not finite")
+    cache = model.init_cache(B, S + T, cache_dtype, "cuda")
+    for key, c in cache.items():
+        c[:, :, :S].copy_(pc[key])
+    del pc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(T):
+        lg, cache = model.decode_step(
+            params, {"token": toks[:, S + i:S + i + 1], "pos": S + i}, cache)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / T
+    del cache
+    full, _ = model.prefill(params, {"tokens": toks},
+                            opts=ModelOpts(attn_chunk=S + T))
+    return prefill_s, step_s, lg, full
+
+
+def gemma_forwards(model, params, batch, band):
+    """``Model.loss`` under ``no_grad`` banded and unbanded: a warm-up
+    ``Model.forward``, GEMMA_FORWARDS timed calls (the median), peak
+    memory, one profiled forward split by part -> {banded: dict(loss, ms,
+    peak, parts, the warm-up's hidden states)}."""
+    chunk, S = ModelOpts().attn_chunk, batch["tokens"].shape[1]
+    B, runs = batch["tokens"].shape[0], {}
+    for banded in (True, False):
+        opts = ModelOpts(banded_local=banded)
+
+        def fn():
+            return model.loss(params, batch, opts=opts)
+        torch.cuda.reset_peak_memory_stats()
+        h = model.forward(params, batch, opts=opts)[0]      # warm-up
+        times = []
+        for _ in range(GEMMA_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        wall = float(np.median(times))
+        name = "banded" if banded else "unbanded"
+        log(f"gemma3 Model.loss {name}, {B} x {S} tokens: {wall * 1e3:.3f} "
+            f"ms/forward (median of {GEMMA_FORWARDS}: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+            f"{B * S / wall:.0f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; loss {float(loss):.6f}")
+        # local layers' score chunks are (chunk, band) when banded
+        scores = [(chunk, S)] + ([(chunk, band)] if banded else [])
+        parts, _ = profile_train_step(fn, scores, "forward")
+        runs[banded] = dict(loss=float(loss), ms=wall * 1e3, peak=peak,
+                            parts=parts, hidden=h)
+    return runs
+
+
+def gemma_check_layers(cfg, toks):
+    """gemma3-27b at full width and GEMMA_CHECK_LAYERS layers from one set
+    of f32 masters: the float32 config's banded forward against the
+    unbanded one on 1 x 4096 (hidden states and loss at GEMMA_F32_REL),
+    its decode after a prefill against the prefill of all of ``toks``
+    (F32_LOGIT_TOL); then the loss and gradient in bf16 with remat
+    "full", banded and unbanded, each timed with its peak memory (the
+    loss at GEMMA_LOSS_REL), and in float32, unbanded and banded.  Held
+    in norm: the float32 grads banded vs unbanded at GEMMA_F32_GRAD_REL,
+    the bf16 ones within GEMMA_BF16_NOISE times the bf16 unbanded grads'
+    distance from the float32 ones.  At most three sets of grads are on
+    the card at once: the float32 unbanded set waits on the host while
+    the banded one is taken (on the card beside it, that backward's
+    fragments leave no room for its last leaf)."""
+    cfg32 = dataclasses.replace(cfg, n_layers=GEMMA_CHECK_LAYERS,
+                                dtype="float32")
+    model32 = build_model(cfg32)
+    params = model32.init(torch.Generator("cuda").manual_seed(1))
+    batch = ssm_batch(cfg, 1)
+
+    def ce(h):
+        return chunked_cross_entropy(params["embed"], cfg32, h,
+                                     batch["labels"], NOSHARD).item()
+    with torch.no_grad():
+        h_b, h_u = (model32.forward(params, batch, opts=ModelOpts(
+            banded_local=banded))[0] for banded in (True, False))
+        rel_h, l_b, l_u = _rel(h_b, h_u), ce(h_b), ce(h_u)
+        del h_b, h_u
+    log(f"gemma3 float32 at {cfg32.n_layers} layers, 1 x {SSM_LEN}: banded "
+        f"vs unbanded hidden states {rel_h:.3e} in norm, loss {l_b:.7f} vs "
+        f"{l_u:.7f} (tol {GEMMA_F32_REL:g} each)")
+    if rel_h > GEMMA_F32_REL or abs(l_b - l_u) > GEMMA_F32_REL * abs(l_u):
+        raise AssertionError("float32 banded and unbanded forwards differ")
+    prefill_s, step_s, lg, full = prefill_then_decode(
+        model32, params, toks, SSM_LEN, torch.float32)
+    err = (lg - full).abs().max().item()
+    log(f"gemma3 float32 decode vs prefill ({cfg32.n_layers} layers): "
+        f"prefill 1 x {SSM_LEN} {prefill_s * 1e3:.3f} ms, {GEMMA_STEPS} "
+        f"decode steps {step_s * 1e3:.3f} ms/step; the last step's logits "
+        f"vs the prefill of all {toks.shape[1]} tokens max diff {err:.3e} "
+        f"(tol {F32_LOGIT_TOL:g} abs+rel)")
+    if not torch.allclose(lg, full, atol=F32_LOGIT_TOL, rtol=F32_LOGIT_TOL):
+        raise AssertionError("float32 gemma3 decode and prefill differ")
+    del lg, full
+
+    model = build_model(dataclasses.replace(cfg32, dtype="bfloat16"))
+    opts = {banded: ModelOpts(remat="full", banded_local=banded)
+            for banded in (True, False)}
+    loss_and_grads(model, params, batch, opts[True])        # warm-up
+    runs = {}
+    for banded in (True, False):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, params, batch, opts[banded])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runs[banded] = dict(loss=float(loss), grads=grads, ms=wall * 1e3,
+                            peak=peak, held=held)
+        log(f"gemma3 training at {cfg32.n_layers} layers ("
+            f"{'banded' if banded else 'unbanded'}; f32 masters, bf16, remat "
+            f"full, 1 x {SSM_LEN}): loss and gradient {wall * 1e3:.1f} ms; "
+            f"peak memory {peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of "
+            f"it held before the call; loss {float(loss):.6f}")
+    rel16 = _tree_rel(runs[True].pop("grads"), runs[False]["grads"])
+    t0 = time.perf_counter()
+    g32 = loss_and_grads(model32, params, batch, opts[False])[1]
+    noise = _tree_rel(runs[False].pop("grads"), g32)
+    g32 = [g.cpu() for g in g32]         # room for the banded f32 grads
+    rel32 = _tree_rel(g32, loss_and_grads(model32, params, batch,
+                                          opts[True])[1])
+    del g32
+    dl = abs(runs[True]["loss"] - runs[False]["loss"]) / abs(
+        runs[False]["loss"])
+    log(f"gemma3 gradients at {cfg32.n_layers} layers, relative in norm: "
+        f"float32 banded vs unbanded {rel32:.3e} (tol "
+        f"{GEMMA_F32_GRAD_REL:g}); bf16 banded vs unbanded {rel16:.3e} (tol "
+        f"{GEMMA_BF16_NOISE:g} x {noise:.3e}, the bf16 unbanded grads' "
+        f"distance from the float32 ones); bf16 loss {dl:.3e} relative (tol "
+        f"{GEMMA_LOSS_REL:g}); float32 grads in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rel32 > GEMMA_F32_GRAD_REL or rel16 > GEMMA_BF16_NOISE * noise \
+            or dl > GEMMA_LOSS_REL:
+        raise AssertionError("banded and unbanded gradients differ")
+    return {"banded" if b else "unbanded": run for b, run in runs.items()}
+
+
+def gemma3_full_width():
+    """gemma3-27b at full width and depth (62 layers, 27.0 B parameters in
+    bf16, drawn one layer at a time): ``Model.loss`` on B x 4096 tokens
+    banded and unbanded, each timed and profiled (B = 4 where twice B =
+    2's working set fits beside the weights, else 2), their losses held
+    at GEMMA_LOSS_REL; ``prefill`` of 1 x 4096 and GEMMA_STEPS decode
+    steps on its cache against the prefill of all the tokens; the
+    per-slot server on the dense request mix (``use_kernel`` asked for,
+    refused for a windowed config as in the reference); then
+    ``gemma_check_layers`` at 8 layers.  No port kernel launches in the
+    phase: the reference's banded path calls none."""
+    t_phase = time.time()
+    cfg = get_config(GEMMA_ARCH)
+    model = build_model(cfg)
+    r = cfg.local_global_ratio + 1
+    chunk = ModelOpts().attn_chunk
+    band = min(SSM_LEN, -(-(cfg.sliding_window + chunk) // chunk) * chunk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = model.init(torch.Generator("cuda").manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    weights, total = torch.cuda.memory_allocated(), \
+        torch.cuda.get_device_properties(0).total_memory
+    log(f"gemma3: {GEMMA_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers: {cfg.n_layers // r} superblocks of {r - 1} local + 1 "
+        f"global, then {cfg.n_layers % r} local; d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, kv {cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.sliding_window}, band "
+        f"{band} keys at chunk {chunk}): {n_params} parameters "
+        f"(ArchConfig.n_params {cfg.n_params()}), {2 * n_params / 1e9:.1f} "
+        f"GB in bf16, drawn in {time.time() - t0:.1f} s; device memory "
+        f"{weights / 2**30:.2f} GiB (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) of "
+        f"{total / 2**30:.2f} GiB")
+    if n_params != spec_params(cfg):
+        raise AssertionError("the drawn tree is not the spec's")
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.loss(params, ssm_batch(cfg, 2),
+                   opts=ModelOpts(banded_local=False))
+        torch.cuda.synchronize()
+        work2 = torch.cuda.max_memory_allocated() - weights
+        B = 4 if weights + 2 * work2 + GEMMA_MARGIN <= total else 2
+        log(f"gemma3 batch: the unbanded forward's working set at B = 2 is "
+            f"{work2 / 2**30:.2f} GiB beside {weights / 2**30:.2f} GiB of "
+            f"weights; twice it {'fits' if B == 4 else 'does not fit'} with "
+            f"{GEMMA_MARGIN / 2**30:.0f} GiB to spare: B = {B}")
+        batch = ssm_batch(cfg, B)
+        runs = gemma_forwards(model, params, batch, band)
+        h_b, h_u = (runs[banded].pop("hidden") for banded in (True, False))
+        if h_b.shape != (B, SSM_LEN, cfg.d_model) or \
+                not torch.isfinite(h_b.float()).all():
+            raise AssertionError("the banded forward is not finite or is "
+                                 f"shaped {tuple(h_b.shape)}")
+        rel_h = _rel(h_b, h_u)
+        del h_b, h_u, batch
+    l_b, l_u = runs[True]["loss"], runs[False]["loss"]
+    log(f"gemma3 banded vs unbanded at full depth: "
+        f"{runs[False]['ms'] / runs[True]['ms']:.3f}x faster banded; loss "
+        f"{l_b:.6f} vs {l_u:.6f} (rel tol {GEMMA_LOSS_REL:g}); hidden states "
+        f"after {cfg.n_layers} layers {rel_h:.3e} in norm (not held)")
+    if not np.isfinite(l_b) or abs(l_b - l_u) > GEMMA_LOSS_REL * abs(l_u):
+        raise AssertionError("the banded and unbanded losses differ")
+
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (1, SSM_LEN + GEMMA_STEPS)), device="cuda")
+    prefill_s, step_s, lg, full = prefill_then_decode(
+        model, params, toks, SSM_LEN, torch.bfloat16)
+    decisive, rel = decisive_tokens(lg, full, "gemma3 decode vs prefill")
+    del lg, full
+    log(f"gemma3 prefill 1 x {SSM_LEN}: {prefill_s * 1e3:.3f} ms; "
+        f"{GEMMA_STEPS} decode steps on its cache: {step_s * 1e3:.3f} "
+        f"ms/step; the last step's logits vs the prefill of all "
+        f"{toks.shape[1]} tokens: {rel:.3e} in norm, {decisive}/1 tokens "
+        f"with top-2 margin > {BF16_MARGIN:g}, all equal")
+
+    server = BatchedServer(model, params, batch_size=BATCH, max_seq=MAX_SEQ,
+                           opts=ModelOpts(attn_chunk=64), use_kernel=True,
+                           device="cuda")
+    if not server.continuous or server.use_kernel:
+        raise AssertionError("the gemma3 server must serve per slot, with "
+                             "no kernel (a windowed config)")
+    reqs = request_mix(cfg.vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    generated = sum(len(v) for v in results.values())
+    log(f"{GEMMA_ARCH} served {len(results)} requests per slot: "
+        f"{server.steps} decode steps, {generated} tokens generated, "
+        f"{wall:.3f} s, {wall / server.steps * 1e3:.3f} ms/step, "
+        f"{generated / wall:.2f} tokens/s")
+    if sorted(results) != list(range(N_REQUESTS)) or any(
+            len(v) != NEW_TOKENS for v in results.values()):
+        raise AssertionError("not every request finished")
+    profile_steps(model, server)
+    serve = dict(steps=server.steps, ms_per_step=wall / server.steps * 1e3)
+    del server, params
+    torch.cuda.empty_cache()
+
+    train = gemma_check_layers(cfg, toks)
+    torch.cuda.empty_cache()
+    log(f"gemma3 phase: {time.time() - t_phase:.1f} s")
+    return dict(forward={("banded" if k else "unbanded"): v
+                         for k, v in runs.items()},
+                prefill_ms=prefill_s * 1e3, decode_ms=step_s * 1e3,
+                serve=serve, train=train)
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the training path at full width
 # ---------------------------------------------------------------------------
 def train_config(n_layers=TRAIN_LAYERS, dtype=None):
@@ -2425,10 +2732,17 @@ def loss_and_grads(model, params, batch, opts):
 
 
 def _tree_rel(a, b):
-    """||a - b|| / ||b|| over two lists of tensors, in float64."""
-    a, b = [x.detach().double() for x in a], [y.detach().double() for y in b]
-    diff = math.sqrt(sum(float((x - y).square().sum()) for x, y in zip(a, b)))
-    return diff / math.sqrt(sum(float(y.square().sum()) for y in b))
+    """||a - b|| / ||b|| over two lists of tensors, summed in float64 on
+    b's device a slice of each leaf at a time (two sets of full-width
+    gradients leave no room for a float64 copy of either)."""
+    def slices(x):
+        return x.detach().reshape(-1).split(2**26)
+    diff = sum(float((cx.to(cy.device, torch.float64) - cy.double())
+                     .square().sum())
+               for x, y in zip(a, b) for cx, cy in zip(slices(x), slices(y)))
+    norm = sum(float(cy.double().square().sum()) for y in b
+               for cy in slices(y))
+    return math.sqrt(diff / norm)
 
 
 def train_device_check():
@@ -2571,8 +2885,9 @@ def step_parts(rows, events, scores):
     ``events``, a second window with host ops and their input shapes:
     of the other kernels, the optimizer's (launched after the backward's
     last autograd node) and attention's elementwise passes (launched by an
-    op with an input shaped like attention's scores, last two dimensions
-    ``scores`` = (query chunk, keys)).  The rest is busy less those.
+    op with an input shaped like attention's scores, whose last two
+    dimensions are one of the (query chunk, keys) pairs in ``scores``).
+    The rest is busy less those.
     -> (parts, the ms the second window's ops launched)."""
     from torch.autograd import DeviceType
     parts = {"port kernels": sum(r[0] for r in rows if is_port(r[1])),
@@ -2590,7 +2905,7 @@ def step_parts(rows, events, scores):
                 continue
             if e.time_range.start > backward_end:
                 parts["optimizer"] += k.duration / 1e3
-            elif any(len(s) >= 4 and tuple(s[-2:]) == scores
+            elif any(len(s) >= 4 and tuple(s[-2:]) in scores
                      for s in e.input_shapes or ()):
                 parts["attention elementwise"] += k.duration / 1e3
     parts["rest"] = sum(r[0] for r in rows) - sum(parts.values())
@@ -2715,7 +3030,7 @@ def train_full_width(smi):
                                  "step 0 had a learning rate")
         parts, _ = profile_train_step(
             lambda: loop.train_step(state, batches[-1]),
-            (TRAIN_OPTS.attn_chunk, TRAIN_SEQ))
+            [(TRAIN_OPTS.attn_chunk, TRAIN_SEQ)])
         log(f"  [{smi}]")
     del state, params, loop, model, batches
     torch.cuda.empty_cache()
@@ -2944,6 +3259,7 @@ def main() -> None:
     hybrid = hybrid_forward_full_width()
     vlm_full_width()
     audio_full_width()
+    no_port_launches("the gemma3 phase", gemma3_full_width)
 
     train_full_width(smi)
 

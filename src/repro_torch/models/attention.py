@@ -109,6 +109,54 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
     return ctx.constrain(o, "batch", "seq", "act_heads", None)
 
 
+def banded_mha(q, k, v, ctx: ShardCtx, *, window: int, q_offset: int = 0,
+               chunk: int = 512):
+    """Causal sliding-window attention over the reachable KV band only
+    (``attention.py:142``): q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D).
+
+    Each query chunk attends to ``band = min(Sk, round_up(window + chunk,
+    chunk))`` keys from ``k0 = clip(q_offset + start + chunk - band, 0,
+    Sk - band)``, which hold every key its window can reach; the mask is
+    causal and in-window, so the result is ``chunked_mha(window=window,
+    is_global=False)``'s without the masked-out work.  The bands are
+    slices of K and V, not copies.  Precision and the per-chunk
+    ``remat_call`` are ``chunked_mha``'s.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    chunk = min(chunk, Sq)
+    if Sq % chunk:
+        raise ValueError(f"Sq={Sq} is not a multiple of chunk={chunk}")
+    band = min(Sk, _round_up(window + chunk, chunk))
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    kf = k.float()
+
+    def block(qc, kc, vc, start: int, k0: int):
+        qpos = q_offset + start + torch.arange(chunk, device=q.device)
+        kpos = k0 + torch.arange(band, device=q.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kc) * scale
+        m = (kpos[None, :] <= qpos[:, None]) & \
+            (kpos[None, :] > (qpos[:, None] - window))
+        s = torch.where(m[None, None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(vc.dtype)
+        return torch.einsum("bkgqs,bskd->bqkgd", p, vc)
+
+    outs = []
+    for start in range(0, Sq, chunk):
+        k0 = min(max(q_offset + start + chunk - band, 0), Sk - band)
+        outs.append(remat_call(block, qg[:, start:start + chunk],
+                               kf[:, k0:k0 + band], v[:, k0:k0 + band],
+                               start, k0))
+    o = torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+    return ctx.constrain(o, "batch", "seq", "act_heads", None)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
                window: int = 0, k_new: Optional[torch.Tensor] = None,
                v_new: Optional[torch.Tensor] = None):
@@ -146,14 +194,19 @@ def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
 
 
 def self_attention(p, x, cfg: ArchConfig, ctx: ShardCtx, *, positions,
-                   is_global=True, chunk: int = 1024):
-    """``attention.py:244`` without the banded path (not in this slice)."""
+                   is_global=True, chunk: int = 1024, banded: bool = False):
+    """``attention.py:244``: with ``banded`` and a sliding window,
+    ``banded_mha`` (the window applies whatever ``is_global`` says)."""
     q = project_q(p, x, cfg)
     k, v = project_kv(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = chunked_mha(q, k, v, ctx, causal=cfg.causal, is_global=is_global,
-                    window=cfg.sliding_window, chunk=chunk)
+    if banded and cfg.sliding_window:
+        o = banded_mha(q, k, v, ctx, window=cfg.sliding_window, chunk=chunk)
+    else:
+        o = chunked_mha(q, k, v, ctx, causal=cfg.causal,
+                        is_global=is_global, window=cfg.sliding_window,
+                        chunk=chunk)
     return out_proj(p, o, cfg)
 
 

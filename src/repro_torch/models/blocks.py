@@ -24,7 +24,7 @@ class ModelOpts:
     attn_chunk: int = 512        # query chunk of the prefill attention
     ce_chunk: int = 1024         # sequence chunk of the cross-entropy
     remat: str = "full"          # none | full | dots; see remat_wrap
-    banded_local: bool = False   # banded sliding-window path (not ported)
+    banded_local: bool = False   # banded sliding-window path
     use_kernel: bool = False     # hand-written CUDA kernels
     aux_loss_coef: float = 0.01  # weight of the MoE router's aux loss
 
@@ -86,14 +86,16 @@ def ffn(p, hn, cfg: ArchConfig, ctx: ShardCtx):
 
 
 def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
-                positions, is_global=True):
-    """Forward block (``blocks.py:54``), without the banded path.
+                positions, is_global=True, banded=False):
+    """Forward block (``blocks.py:54``); ``banded`` takes the attention
+    through ``attention.banded_mha`` where the config has a window.
     Returns (h, aux loss): the MoE router's, an f32 zero without
     experts."""
     h = ctx.constrain(h, "batch", "seq", "act_embed")
     a = attn.self_attention(
         p["attn"], rmsnorm(p["ln1"], h), cfg, ctx,
-        positions=positions, is_global=is_global, chunk=opts.attn_chunk)
+        positions=positions, is_global=is_global, chunk=opts.attn_chunk,
+        banded=banded)
     h = h + a
     hn = rmsnorm(p["ln2"], h)
     if cfg.n_experts:

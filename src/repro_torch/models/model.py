@@ -8,8 +8,9 @@ Parameters are an explicit nested dict of tensors with the reference's
 keys and stacked per-layer layout (leading ``layers`` axes, two of them
 for the grouped hybrid and vlm stacks), so a JAX tree loads as it is
 (``repro_torch.interop``).  The reference's ``lax.scan`` over a stack is
-a Python loop over its slices here.  The banded local:global path
-(``opts.banded_local``) is not ported and raises.
+a Python loop over its slices here.  With ``opts.banded_local`` a
+local:global stack (gemma3's 5:1) runs as superblocks whose local layers
+take the banded attention (``Model._forward_banded``).
 """
 from __future__ import annotations
 
@@ -148,22 +149,27 @@ class Model:
         family reads ``batch["image_embeds"]`` (B, n_img, D), audio
         ``batch["frames"]`` (B, S, frame_dim) in place of tokens.
 
+        With ``opts.banded_local`` on a config with a local:global ratio
+        and a window (dense, moe, audio), ``_forward_banded`` runs the
+        stack (``model.py:118-126``).
+
         Differentiable: gradients reach the f32 masters through
         ``precast``; ``opts.remat`` recomputes each layer, or each group
         of a grouped stack, in the backward (``blocks.remat_wrap``)."""
         self._check_family()
         cfg = self.cfg
-        if opts.banded_local and cfg.local_global_ratio \
-                and cfg.sliding_window:
-            raise NotImplementedError(
-                "the banded local:global path comes with the gemma3 slice")
         dtype = compute_dtype(cfg)
         params = precast(params, dtype)
         h = ctx.constrain(self._embed_in(params, batch, dtype),
                           "batch", "seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         positions = torch.arange(h.shape[1], device=h.device)[None]
-        if cfg.family in ATTENTION_FAMILIES + ("audio",):
+        if cfg.family in ATTENTION_FAMILIES + ("audio",) and \
+                opts.banded_local and cfg.local_global_ratio and \
+                cfg.sliding_window:
+            h, aux = self._forward_banded(params, h, cfg, ctx, opts,
+                                          positions)
+        elif cfg.family in ATTENTION_FAMILIES + ("audio",):
             body = B.remat_wrap(B.dense_block, opts)
             for p_i, flag in zip(unstack(params["layers"], cfg.n_layers),
                                  self.global_flags()):
@@ -207,6 +213,48 @@ class Model:
                     unstack(params["cross"], g)):
                 h = body(h, p_self, p_cross)
         return rmsnorm(params["ln_f"], h), aux
+
+    def _forward_banded(self, params, h, cfg, ctx, opts, positions):
+        """``model.py:185``: the stack as ``n_layers // (ratio + 1)``
+        superblocks of ``ratio`` local layers on the banded attention and
+        one global layer on the full causal one, then the local remainder.
+        ``opts.remat`` wraps each superblock and each remainder layer.
+
+        The reference gathers the superblocks' stacks from the layer
+        stack; here the layers are the stack's ``unstack`` views, picked
+        by index, so no leaf is copied.  The local layers keep the
+        reference's default ``is_global=True``: ``banded_mha`` applies
+        the window regardless."""
+        r = cfg.local_global_ratio + 1
+        n_groups = cfg.n_layers // r
+        li = [[g * r + j for j in range(r - 1)] for g in range(n_groups)]
+        gi = [g * r + r - 1 for g in range(n_groups)]
+        rem = range(n_groups * r, cfg.n_layers)
+        layers = unstack(params["layers"], cfg.n_layers)
+
+        def local(hh, p_i):
+            return B.dense_block(p_i, hh, cfg, ctx, opts,
+                                 positions=positions, banded=True)
+
+        def group(hh, p_loc, p_glob):
+            aux = 0.0
+            for p_i in p_loc:
+                hh, a = local(hh, p_i)
+                aux = aux + a
+            hh, a = B.dense_block(p_glob, hh, cfg, ctx, opts,
+                                  positions=positions, is_global=True)
+            return hh, aux + a
+
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        body = B.remat_wrap(group, opts)
+        for loc, glob in zip(li, gi):
+            h, a = body(h, [layers[i] for i in loc], layers[glob])
+            aux = aux + a
+        body = B.remat_wrap(local, opts)
+        for i in rem:
+            h, a = body(h, layers[i])
+            aux = aux + a
+        return h, aux
 
     def loss(self, params, batch, ctx: ShardCtx = NOSHARD,
              opts: ModelOpts = ModelOpts()) -> torch.Tensor:

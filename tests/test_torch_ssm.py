@@ -253,15 +253,6 @@ def test_dense_forward_and_loss_match_reference(dtype):
     _close(lt, lj, dtype)
 
 
-def test_forward_refuses_the_banded_path():
-    _, tcfg = _cfgs("gemma3-27b")
-    model = Model(tcfg)
-    params = model.init(torch.Generator("cpu").manual_seed(0))
-    with pytest.raises(NotImplementedError, match="banded"):
-        model.forward(params, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
-                      opts=ModelOpts(banded_local=True))
-
-
 # ---------------------------------------------------------------------------
 # prefill and decode
 # ---------------------------------------------------------------------------
