@@ -96,6 +96,23 @@ really ran there:
   every block of both presets and at the qwen1.5-4b and gemma-7b prefill
   shapes in float32, which its two controls (one tf32 product; bf16 hi +
   lo, both emulated by ``flash_tf32x3_ref``) fail;
+* search: the paper's methods search that ladder through the port's own
+  engine (``repro_torch.exp``, serial backend, a store in a fresh
+  temporary directory).  ``bind_ladder("kernel", preset="small",
+  reps=5)``'s 15 top-rung units run exhaustively through
+  ``ExperimentEngine.run`` (the measured optimum; each kernel's launches
+  must grow by exactly its computed units times the calls one
+  ``eval_kernel_time`` makes), then ``random``, ``smac``, ``mf_sh`` and
+  ``mf_prefilter`` at budget 9 and ``cb_rbfopt`` at its least budget, 11,
+  seeds 0 and 1, through ``drive_units``: every top-rung unit they ask
+  for must be a store hit, no kernel may launch and no plain version run.
+  Each pick, its time on the card, its regret against the optimum and its
+  evaluations per rung are logged.  Then the offline leg on the host:
+  ``examples/quickstart.py``'s flow (CloudBandit over RBFOpt, ``random``
+  and ``smac`` at B = 33 on ``xgboost@santander`` / cost, each held equal
+  to its run through the engine) and every registered method at B = 33
+  on the whole table (30 workloads x 2 targets).  The phase holds itself
+  to ``SEARCH_BUDGET_S``;
 * bf16 prefill attention: ``ops.mha`` at three full-width shapes
   (qwen1.5-4b; a gemma3-27b local layer; gemma-7b, head dim 256) on the
   tensor-core ``flash_attention`` kernel, whose SASS must hold ``HGMMA``
@@ -135,6 +152,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cloudbandit import b1_for_budget  # noqa: E402
+from repro_torch.core.drivers import CloudBanditDriver  # noqa: E402
+from repro_torch.core.evaluate import (  # noqa: E402
+    run_search, savings_for_history)
+from repro_torch.core.fidelity import bind_ladder  # noqa: E402
+from repro_torch.core.objectives import bind_objective  # noqa: E402
+from repro_torch.core.optimizers import RBFOpt  # noqa: E402
+from repro_torch.core.registry import get_method, method_names  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData, to_device  # noqa: E402
 from repro_torch.kernels import bench  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -144,6 +169,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import mha_ref, ssd_ref  # noqa: E402
 from repro_torch.distrib.logical import NOSHARD  # noqa: E402
+from repro_torch.exp import (  # noqa: E402
+    ExperimentEngine, ResultStore, drive_units)
+from repro_torch.exp.runners import search_runner  # noqa: E402
+from repro_torch.multicloud import build_dataset  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import ModelOpts  # noqa: E402
@@ -300,6 +329,17 @@ DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
 DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
               "decode_attention": TOL[torch.float32],
               "ssd_scan": 2e-2}                # tests/test_fidelity.py:347
+#: the search phase (``search_phase``): fig6's kernel budget and seeds
+#: (benchmarks/fig6_fidelity.py); cb_rbfopt's least budget over three
+#: arms (b1_for_budget); the offline leg's budget (examples/quickstart.py)
+SEARCH_METHODS = ("random", "smac", "mf_sh", "mf_prefilter", "cb_rbfopt")
+SEARCH_BUDGET = {"cb_rbfopt": 11}
+KERNEL_BUDGET = 9
+SEARCH_SEEDS = (0, 1)
+OFFLINE_BUDGET = 33
+#: the search phase's wall-time budget, seconds, kernel sweep and offline
+#: leg together (their readings are in PERF.md)
+SEARCH_BUDGET_S = 90.0
 
 
 def log(*a) -> None:
@@ -3136,6 +3176,195 @@ def kernel_domain_phase():
     return {n: c.launches for n, c in DOMAIN_COUNTS.items()}
 
 
+def driver_pick(drv):
+    """(provider, config, value) a finished driver picks: a bandit's
+    surviving arm's incumbent, a flat driver's optimizer argmin, else its
+    history's best (the rule of the reference's ``driver_best``)."""
+    res = getattr(drv, "result", None)
+    if res is not None:
+        out = res()
+        if hasattr(out, "provider"):            # CloudBanditResult
+            return out.provider, out.config, float(out.loss)
+        prov, cfg, loss, _hist = out            # (.., .., loss, history)
+        return prov, cfg, float(loss)
+    opt = getattr(drv, "opt", None)
+    (prov, cfg), val = opt.best() if opt is not None else drv.history.best()
+    return prov, cfg, float(val)
+
+
+def rung_evals(drv):
+    """(top-rung, lower-rung) evaluations a finished driver spent."""
+    spend = getattr(drv, "spend", None)
+    if spend:
+        top = max(spend)
+        return int(spend[top]), int(sum(v for k, v in spend.items()
+                                        if k != top))
+    return len(drv.history.values), 0
+
+
+def search_phase():
+    """The kernel ladder searched through the port's engine, then the
+    offline leg on the host; see the module docstring.  Returns each
+    kernel's launches in the phase."""
+    t_phase = time.perf_counter()
+    ladder = bind_ladder("kernel", preset="small", reps=DOMAIN_REPS)
+    domain = ladder.make_domain()
+    cands = domain.all_candidates()
+    before = {n: (c.launches, c.plain) for n, c in DOMAIN_COUNTS.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = ExperimentEngine(
+            search_runner, executor="serial",
+            store=ResultStore(os.path.join(tmp, "units.jsonl")))
+        t0 = time.perf_counter()
+        top_units = [ladder.unit(p, c) for p, c in cands]
+        truth = engine.run(top_units)
+        sweep = engine.stats
+        calls = dict.fromkeys(DOMAIN_COUNTS, 0)
+        for (prov, _cfg), r in zip(cands, truth):
+            calls[prov] += DOMAIN_REPS + 2  # warm-up, reps, one for maxerr
+            if not (r["value"] == r["kernel_us"] > 0
+                    and r["maxerr"] < DOMAIN_TOL[prov]):
+                raise AssertionError(f"search sweep: {prov} {_cfg}: {r}")
+        grew = {n: c.launches - before[n][0]
+                for n, c in DOMAIN_COUNTS.items()}
+        if (sweep.computed != len(cands) or grew != calls
+                or any(c.plain != before[n][1]
+                       for n, c in DOMAIN_COUNTS.items())):
+            raise AssertionError(
+                f"search sweep: {sweep.computed} of {len(cands)} units "
+                f"computed, launches {grew} for calls {calls}")
+        values = {(p, tuple(sorted(c.items()))): r["value"]
+                  for (p, c), r in zip(cands, truth)}
+        best_key = min(values, key=values.get)
+        optimum = values[best_key]
+        log(f"search: kernel ladder small, {len(cands)} top-rung units "
+            f"through ExperimentEngine.run in {time.perf_counter() - t0:.2f}"
+            f" s (computed {sweep.computed}, cached {sweep.cached}); "
+            f"launches " + ", ".join(f"{n} +{g}" for n, g in grew.items())
+            + f"; optimum {best_key[0]} {dict(best_key[1])} "
+            f"{optimum:.3f} us")
+        after_sweep = {n: (c.launches, c.plain)
+                       for n, c in DOMAIN_COUNTS.items()}
+        regrets = {}
+        for method in SEARCH_METHODS:
+            budget = SEARCH_BUDGET.get(method, KERNEL_BUDGET)
+            for seed in SEARCH_SEEDS:
+                drv = get_method(method).make_driver(domain, budget, seed,
+                                                     target="time")
+                keys = set(engine.store.keys())
+                t1 = time.perf_counter()
+                drive_units(engine, [(drv, ladder)])
+                dt = time.perf_counter() - t1
+                st = engine.stats
+                new = [engine.store.get(k) for k in engine.store.keys()
+                       if k not in keys]
+                if any(r["params"].get("fidelity") != 0 for r in new):
+                    raise AssertionError(
+                        f"search {method} seed {seed}: a top-rung unit "
+                        "missed the store")
+                prov, cfg, val = driver_pick(drv)
+                card = values[(prov, tuple(sorted(cfg.items())))]
+                regret = (card - optimum) / optimum
+                regrets.setdefault(method, []).append(regret)
+                top, low = rung_evals(drv)
+                log(f"search {method} B={budget} seed {seed}: picks {prov} "
+                    f"{cfg}, {card:.3f} us on the card (driver's value "
+                    f"{val:.3f}), regret {regret:.4f}; top-rung evals "
+                    f"{top}, lower-rung {low}; engine computed "
+                    f"{st.computed}, cached {st.cached}; {dt:.3f} s")
+        grew = {n: (c.launches - after_sweep[n][0],
+                    c.plain - after_sweep[n][1])
+                for n, c in DOMAIN_COUNTS.items()}
+        if any(g != (0, 0) for g in grew.values()):
+            raise AssertionError(f"the searches launched or ran a plain "
+                                 f"version: {grew}")
+        low = engine.run([ladder.rung_unit(0, p, c) for p, c in cands])
+        rows = [(p, a["value"], t["value"])
+                for (p, _c), a, t in zip(cands, low, truth)]
+        by_prov = "; ".join(
+            f"{prov} " + format(spearman(
+                [a for p, a, _t in rows if p == prov],
+                [t for p, _a, t in rows if p == prov]), ".3f")
+            for prov in DOMAIN_COUNTS)
+        log(f"search: analytic rung vs card, rank correlation over all "
+            f"{len(rows)} " + format(spearman([r[1] for r in rows],
+                                             [r[2] for r in rows]), ".3f")
+            + f"; by kernel {by_prov}")
+        log("search: mean regret on the card "
+            + ", ".join(f"{m} {np.mean(r):.4f}" for m, r in regrets.items()))
+    launches = {n: c.launches - before[n][0]
+                for n, c in DOMAIN_COUNTS.items()}
+    offline_leg()
+    dt = time.perf_counter() - t_phase
+    log(f"search phase: {dt:.1f} s of its {SEARCH_BUDGET_S:.0f} s budget")
+    if dt > SEARCH_BUDGET_S:
+        raise AssertionError(f"the search phase took {dt:.1f} s, over its "
+                             f"{SEARCH_BUDGET_S:.0f} s budget")
+    return launches
+
+
+def offline_leg():
+    """``examples/quickstart.py``'s flow through the port, each search
+    held equal to its run through the engine, then every registered
+    method on every task of the table."""
+    t0 = time.perf_counter()
+    ds = build_dataset()
+    task = ds.task("xgboost@santander", "cost")
+    engine = ExperimentEngine(search_runner, context={"dataset_seed": 0},
+                              executor="serial")
+    binding = bind_objective("offline", workload=task.workload,
+                             target="cost", dataset_seed=0)
+    b1 = b1_for_budget(OFFLINE_BUDGET, K=3)
+    cb = CloudBanditDriver(ds.domain, RBFOpt, b1=b1, seed=0)
+    while not cb.done:
+        batch = cb.ask_batch()
+        cb.tell_batch([task.objective(p, c) for p, c in batch])
+    res = cb.result()
+    hists = {"cb_rbfopt": res.history}
+    for m in ("random", "smac"):
+        hists[m] = run_search(m, task, ds.domain, OFFLINE_BUDGET, seed=0)
+    for m, hist in hists.items():
+        drv = get_method(m).make_driver(ds.domain, OFFLINE_BUDGET, 0,
+                                        target="cost")
+        via = drive_units(engine, [(drv, binding)])[0]
+        if (via.points, via.values) != (hist.points, hist.values):
+            raise AssertionError(f"offline {m}: the engine's history "
+                                 "differs from the inline loop's")
+    log(f"offline quickstart xgboost@santander cost B={OFFLINE_BUDGET}: "
+        f"CloudBandit b1={b1} eliminated {res.eliminated}, pulls "
+        f"{res.pulls}, picks {res.provider} {res.config} ${res.loss:.4f} "
+        f"(regret {task.regret(res.loss):.4f}); random regret "
+        f"{task.regret(min(hists['random'].values)):.4f}; smac regret "
+        f"{task.regret(min(hists['smac'].values)):.4f}; savings at N=64 "
+        f"{savings_for_history(task, res.history, n_production=64):.4f}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    tasks = [ds.task(w, t) for w in ds.workloads for t in ("cost", "time")]
+    t_all = time.perf_counter()
+    for m in method_names():
+        cells = []
+        for t in tasks:
+            drv = get_method(m).make_driver(ds.domain, OFFLINE_BUDGET, 0,
+                                            target=t.target)
+            kw = dict(workload=t.workload, target=t.target, dataset_seed=0)
+            cells.append((drv, bind_ladder("offline", **kw)
+                          if hasattr(drv, "attach_ladder")
+                          else bind_objective("offline", **kw)))
+        t1 = time.perf_counter()
+        hists = drive_units(engine, cells)
+        dt = time.perf_counter() - t1
+        regret = [t.regret(min(h.values)) for t, h in zip(tasks, hists)]
+        if not all(h.values for h in hists) or \
+                not all(math.isfinite(r) and r >= 0 for r in regret):
+            raise AssertionError(f"offline {m}: bad histories or regret")
+        log(f"offline {m}: {len(tasks)} tasks at B={OFFLINE_BUDGET}, mean "
+            f"regret {np.mean(regret):.4f} (max {max(regret):.4f}); "
+            f"computed {engine.stats.computed}, cached "
+            f"{engine.stats.cached}; {dt:.2f} s on the host")
+    dt = time.perf_counter() - t_all
+    log(f"offline: {len(method_names())} methods x {len(tasks)} tasks in "
+        f"{dt:.1f} s on the host")
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3264,6 +3493,7 @@ def main() -> None:
     train_full_width(smi)
 
     domain_launches = kernel_domain_phase()
+    search_launches = search_phase()
     if ssd.COUNT.wgmma:
         raise AssertionError(f"the float32 kernel search made {ssd.COUNT.wgmma}"
                              " ssd_scan launches on the tensor cores")
@@ -3280,12 +3510,13 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
         launches=launches + moe_launches, max_abs_err=err, **timing,
+        search_launches=search_launches["decode_attention"],
         readings=readings[1:]), dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",
         launches=ssd_launches + hybrid["launches"], max_abs_err=ssd_err,
-        **ssd_timing, readings=[dict(
+        **ssd_timing, search_launches=search_launches["ssd_scan"], readings=[dict(
             shape="zamba2-7b", launches=hybrid["launches"],
             max_abs_err=ssd_hybrid_err, **ssd_hybrid)]), dict(
         name="flash_attention_bf16", route="cuda",
@@ -3296,7 +3527,8 @@ def main() -> None:
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
-        launches=domain_launches["flash_attention"], **flash_f32_timing)]
+        launches=domain_launches["flash_attention"], **flash_f32_timing,
+        search_launches=search_launches["flash_attention"])]
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,7 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``configs``, ``distrib``, ``models``, ``kernels``, ``runtime``,
-``launch``) and imports nothing from it.  Entry points run on ``cuda``
+``launch``, and the search stack ``core``, ``exp``, ``multicloud``) and
+imports nothing from it.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; see :func:`resolve_device`.
 """
 from repro_torch.device import resolve_device

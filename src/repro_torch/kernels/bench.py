@@ -19,7 +19,7 @@ kernel), scored by the two rungs of the ``kernel`` fidelity ladder:
     oracle as ``maxerr``.
 
 Both keep the reference's ``(params, context) -> dict`` signature and
-payload.  ``context["device"]`` picks the device (``None``: ``cuda``).
+payload.  ``params["device"]`` picks the device (absent: ``cuda``).
 Shapes are named presets, as in the reference.
 """
 from __future__ import annotations
@@ -279,9 +279,10 @@ def eval_kernel_time(params: Dict[str, Any],
     """Top rung of the kernel ladder: the candidate's measured time in
     microseconds, the plain oracle's time and their ratio (a diagnostic,
     not the value), and the max |err| against the oracle (a fast but
-    wrong block shape must be visible).  ``context["device"]``: ``None``
-    means ``cuda``; tests pass ``"cpu"``."""
-    device = str(resolve_device(context.get("device")))
+    wrong block shape must be visible).  ``params["device"]`` picks the
+    device, absent meaning ``cuda``; the objective registry's units always
+    carry it, so it is part of their identity; tests pass ``"cpu"``."""
+    device = str(resolve_device(params.get("device")))
     provider, preset = params["provider"], params["preset"]
     reps = int(params.get("reps", 5))
     config = dict(params["config"])

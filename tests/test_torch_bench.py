@@ -145,7 +145,7 @@ def test_time_rung_measures_and_validates_on_cpu(provider):
         if prov != provider:
             continue
         r = bench.eval_kernel_time(
-            _params(prov, "tiny", config, reps=2), {"device": "cpu"})
+            _params(prov, "tiny", config, reps=2, device="cpu"), {})
         assert set(r) == {"value", "kernel_us", "ref_us", "ratio", "maxerr"}
         assert r["value"] == r["kernel_us"] > 0 and r["ref_us"] > 0
         assert r["ratio"] == pytest.approx(r["kernel_us"] / r["ref_us"])
@@ -156,8 +156,8 @@ def test_time_rung_measures_and_validates_on_cpu(provider):
 
 
 def test_time_rung_defaults_to_the_card():
-    """``context["device"]`` None means cuda: without a card it raises, it
-    never falls back to the CPU."""
+    """No ``device`` param means cuda: without a card it raises, it never
+    falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present; the cuda test covers this path")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -172,7 +172,7 @@ def test_time_rung_runs_without_autograd(monkeypatch):
     monkeypatch.setattr(ops, "ssd_scan", lambda *a, **kw: seen.append(
         torch.is_grad_enabled()) or real(*a, **kw))
     bench.eval_kernel_time(_params("ssd_scan", "tiny", {"chunk": 64},
-                                   reps=1), {"device": "cpu"})
+                                   reps=1, device="cpu"), {})
     assert seen and not any(seen)
 
 
