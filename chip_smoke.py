@@ -123,7 +123,24 @@ really ran there:
   ``mha_p_bf16``) fail, so p.v is held to p_hi + p_lo.  At head dim 256
   the CUDA-core kernel is timed in turns with it on the same inputs, and
   float32 runs ``flash_fwd_tf32_kernel``, timed in turns with the
-  CUDA-core kernel beside SDPA in float32.
+  CUDA-core kernel beside SDPA in float32;
+* the mesh phase, last, within ``MESH_BUDGET_S``: the example twins on
+  the card (``examples/torch_train_e2e.py``, whose loss must fall and
+  which must resume from its checkpoint, and
+  ``examples/torch_serve_batched.py``; neither may launch a port kernel,
+  as in the reference), fig7's router leg on the host (``ConfigRouter``
+  over ``cb_rbfopt`` through an aws outage, with fig7's SLOs), and in
+  processes of their own, side by side, ``python -m
+  repro_torch.launch.dryrun`` on a production cell that traces
+  (``MESH_CELLS``: its report printed, finite, on 256 chips),
+  ``examples/torch_autotune_mesh.py`` (CloudBandit over the sharding
+  strategies of the reduced qwen1.5-4b cell on a (4, 2) mesh of the fake
+  process group; a strategy the host's torch cannot trace is a failed
+  pull, named) and a 1 x 1 trace of that cell's train step, whose peak
+  memory less its arguments is held within ``MEM_TOL`` of the same step's
+  on the card (the most bytes live at an op boundary less what was
+  allocated before it; ``max_memory_allocated`` is logged beside it).  A
+  process that uses CUDA makes no mesh.
 
 Any failure raises, so the exit code is nonzero; without a CUDA device it
 stops before printing a result.
@@ -135,6 +152,7 @@ measurements, the card's name and power limit, and as the last line
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -147,8 +165,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -340,6 +358,50 @@ OFFLINE_BUDGET = 33
 #: the search phase's wall-time budget, seconds, kernel sweep and offline
 #: leg together (their readings are in PERF.md)
 SEARCH_BUDGET_S = 90.0
+# the example twins, the router leg and the sharded compile-cost path
+# (``mesh_phase``), held together to this many seconds
+MESH_BUDGET_S = 120.0
+#: a production cell that traces on fake DTensors on torch 2.11 and 2.13
+#: alike (PERF.md §6, PR 27: 3.8 to 8.2 s)
+MESH_CELLS = (("mamba2-130m", "long_500k"),)
+#: the reduced cell whose traced peak memory is held to the card's: the
+#: autotune twin's (qwen1.5-4b reduced, train_4k cut to seq 128 and batch
+#: 8, attention and CE chunks of 64), its train step traced on a 1 x 1
+#: mesh under ``fsdp_dp`` (the strategy of this cell that every torch the
+#: port has met can place; on one chip each strategy runs the same step)
+#: and run plainly on the card
+MEM_CELL = {"arch": "qwen1.5-4b", "shape": "train_4k", "seq_len": 128,
+            "global_batch": 8, "attn_chunk": 64, "ce_chunk": 64}
+#: the step's temporaries (peak less its arguments), traced, against
+#: the card's: the most bytes live at an op boundary less what was
+#: allocated before the step, held to this relative difference (PERF.md
+#: §6, PR 27: 0.48 %, the allocator's 512-byte rounding; scratch an op
+#: keeps inside itself lifts ``max_memory_allocated`` above both)
+MEM_TOL = 0.02
+#: the 1 x 1 trace of ``MEM_CELL``, in a process of its own
+ONE_CHIP_TRACE = """
+import dataclasses, json, sys
+from repro_torch.analysis.roofline import trace_plan
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import build_plan
+from repro_torch.models.blocks import ModelOpts
+c = json.loads(sys.argv[1])
+shape = dataclasses.replace(get_shape(c["shape"]), seq_len=c["seq_len"],
+                            global_batch=c["global_batch"])
+cost = trace_plan(build_plan(
+    get_config(c["arch"]).reduced(), shape, make_mesh(1, 1),
+    strategy="fsdp_dp",
+    opts=ModelOpts(attn_chunk=c["attn_chunk"], ce_chunk=c["ce_chunk"])))
+print(json.dumps({"peak_bytes": cost.peak_bytes,
+                  "arg_bytes": cost.arg_bytes, "flops": cost.flops}))
+"""
+# fig7's router leg (benchmarks/fig7_serve.py:61-65)
+ROUTER_WORKLOAD_STRIDE = 7
+ROUTER_BUDGET = 26
+ROUTER_HORIZON = 48
+ROUTER_SCHEDULE = "outage:aws:3:9"  # aws dark for ask rounds [3, 9)
+ROUTER_REQUESTS = 60
 
 
 def log(*a) -> None:
@@ -3365,6 +3427,231 @@ def offline_leg():
         f"{dt:.1f} s on the host")
 
 
+def _example(name):
+    """``examples/<name>.py`` as a module (examples/ is no package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_twins():
+    """``examples/torch_train_e2e.py`` (its default model, 100 steps, then
+    resumed to 110) and ``examples/torch_serve_batched.py`` (its defaults:
+    reduced mamba2-130m, 10 requests) on the card."""
+    train = _example("torch_train_e2e")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        first = train.main(["--steps", "100", "--out", tmp])["losses"]
+        again = train.main(["--steps", "110", "--out", tmp])["losses"]
+        t_train = time.time() - t0
+    if not (np.all(np.isfinite(first)) and len(first) == 100
+            and len(again) == 10):
+        raise AssertionError("train twin: steps or losses wrong")
+    if not np.mean(first[-10:]) < np.mean(first[:10]):
+        raise AssertionError("train twin: the loss did not fall")
+    serve = _example("torch_serve_batched")
+    args = serve.parse_args([])
+    t0 = time.time()
+    out = serve.run(*serve.build(args))
+    t_serve = time.time() - t0
+    tokens = sum(len(v) for v in out.values())
+    if len(out) != args.requests or tokens != args.requests * args.new_tokens:
+        raise AssertionError(f"serve twin: {len(out)} requests, {tokens} "
+                             "tokens")
+    log(f"  example twins: train {t_train:.1f} s (loss "
+        f"{np.mean(first[:10]):.4f} -> {np.mean(first[-10:]):.4f}, resumed "
+        f"{np.mean(again):.4f}); serve {t_serve:.1f} s ({tokens} tokens)")
+
+
+def router_leg():
+    """fig7's router leg (``benchmarks/fig7_serve.py:137-186``) through the
+    port's ``ConfigRouter``: ``cb_rbfopt`` routing one workload's requests
+    while the market takes aws down, with fig7's SLOs."""
+    from repro_torch.core.objectives import EvalFailure
+    from repro_torch.multicloud.market import MarketClock, get_overlay
+    from repro_torch.runtime.router import ConfigRouter
+
+    ds = build_dataset()
+    w = ds.workloads[::ROUTER_WORKLOAD_STRIDE][0]
+    task = ds.task(w, "cost")
+    overlay = get_overlay(0, ROUTER_HORIZON, 0.0, ROUTER_SCHEDULE)
+    router = ConfigRouter(overlay=overlay, clock=MarketClock())
+    router.register(w, get_method("cb_rbfopt").make_driver(
+        ds.domain, ROUTER_BUDGET, 0, target="cost"),
+        binding=bind_objective("offline", workload=w, target="cost",
+                               dataset_seed=int(ds.seed)))
+    served = []
+    for _ in range(ROUTER_REQUESTS):
+        d = router.route(w)
+        if overlay.available(d.tick, d.provider, d.config):
+            router.observe(d, overlay.value(
+                d.tick, task.objective(d.provider, d.config), d.provider,
+                "cost"))
+        else:
+            router.observe(d, EvalFailure(reason="backend down"))
+        served.append(d)
+    stats = router.stats(w)
+    kinds = {k: sum(1 for d in served if d.kind == k)
+             for k in ("explore", "exploit", "failover", "blind")}
+    dark = [d for d in served if 3 <= d.tick < 9]
+    if any(d.provider == "aws" and d.kind != "blind" for d in dark):
+        raise AssertionError("router: routed to aws while it was down")
+    if len(served) != ROUTER_REQUESTS or stats["told"] <= 0:
+        raise AssertionError(f"router: {len(served)} decisions, stats "
+                             f"{stats}")
+    log(f"  router leg: {w}, {kinds}, {len(dark)} decisions in the outage, "
+        f"best {router.best(w)}, told {stats['told']}")
+
+
+def card_step_memory():
+    """``MEM_CELL``'s train step run plainly on the card (no port kernel
+    is on its path).  A first step warms the allocator and cuBLAS's
+    workspace; the second is measured op by op.  -> dict of bytes: what
+    was allocated before the step, the most live at an op boundary (what
+    the trace counts: the storages the ops return), the step's
+    ``max_memory_allocated`` (max of each op's own peak), and the op with
+    the most scratch of its own above its outputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.steps import make_train_step
+    c = MEM_CELL
+    cfg = get_config(c["arch"]).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    opt_state = adamw_init(params)
+    batch = to_device(SyntheticLMData(cfg.vocab, c["seq_len"],
+                                      c["global_batch"]).batch_at(0), "cuda")
+    step = make_train_step(model, NOSHARD, ModelOpts(
+        attn_chunk=c["attn_chunk"], ce_chunk=c["ce_chunk"]))
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+
+    class _Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.boundary = self.peak = self.scratch = 0
+            self.scratch_op = None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = func(*args, **(kwargs or {}))
+            after = torch.cuda.memory_allocated()
+            peak = torch.cuda.max_memory_allocated()
+            self.boundary = max(self.boundary, after)
+            self.peak = max(self.peak, peak)
+            if peak - max(before, after) > self.scratch:
+                self.scratch = peak - max(before, after)
+                self.scratch_op = str(func)
+            return out
+
+    base = torch.cuda.memory_allocated()
+    watch = _Watch()
+    with watch:
+        step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    return {"base": base, "boundary": watch.boundary, "peak": watch.peak,
+            "scratch": watch.scratch, "scratch_op": watch.scratch_op}
+
+
+def hold_traced_peak(traced: dict, card: dict) -> None:
+    """The traced step's temporaries (peak less arguments) against the
+    card's at op boundaries, within ``MEM_TOL``; the card's
+    ``max_memory_allocated`` is logged beside them with the scratch that
+    lifts it (inside one op, which the trace does not see)."""
+    t_temp = traced["peak_bytes"] - traced["arg_bytes"]
+    c_temp = card["boundary"] - card["base"]
+    rel = abs(t_temp - c_temp) / c_temp
+    log(f"  peak memory, {MEM_CELL['arch']} reduced train step: traced on "
+        f"1 x 1 {traced['peak_bytes']:.0f} B ({traced['arg_bytes']:.0f} B "
+        f"arguments, {t_temp:.0f} B temporaries); the card {card['base']} B "
+        f"before the step, {card['boundary']} B at its fullest op boundary "
+        f"({c_temp} B temporaries), relative {rel:.4f} (tolerance "
+        f"{MEM_TOL}); max_memory_allocated {card['peak']} B "
+        f"({card['peak'] - card['base']} B temporaries), the most scratch "
+        f"inside one op {card['scratch']} B ({card['scratch_op']})")
+    if not rel <= MEM_TOL:
+        raise AssertionError(f"traced step temporaries {t_temp:.0f} B vs "
+                             f"the card's {c_temp} B")
+
+
+def mesh_phase():
+    """The sharded compile-cost path, in processes of their own (a process
+    that uses CUDA never makes a mesh): ``python -m
+    repro_torch.launch.dryrun`` on each of ``MESH_CELLS`` and
+    ``examples/torch_autotune_mesh.py`` (CloudBandit over the reduced
+    qwen1.5-4b cell on a (4, 2) mesh) side by side on the host, while
+    this process runs the example twins on the card (no port kernel may
+    launch) and the router leg.  Every report is printed; the phase holds
+    itself to ``MESH_BUDGET_S``."""
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for arch, shape in MESH_CELLS:
+            out = os.path.join(tmp, f"{arch}.{shape}.json")
+            procs.append((f"{arch} x {shape}", out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--out", out],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        procs.append(("one-chip trace", None, subprocess.Popen(
+            [sys.executable, "-c", ONE_CHIP_TRACE, json.dumps(MEM_CELL)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+        procs.append(("autotune twin", None, subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples",
+                                          "torch_autotune_mesh.py")],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+        try:
+            no_port_launches("the example twins", example_twins)
+            card = no_port_launches("the reduced train step",
+                                    card_step_memory)
+            router_leg()
+            for name, out, proc in procs:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, MESH_BUDGET_S - (time.time() - t0)))
+                if proc.returncode:
+                    raise AssertionError(f"{name}: exit {proc.returncode}: "
+                                         f"{stderr[-2000:]}")
+                if name == "one-chip trace":
+                    hold_traced_peak(json.loads(stdout.strip().splitlines()
+                                                [-1]), card)
+                    continue
+                if out is None:
+                    log(f"  {name}: " + "; ".join(
+                        line.strip() for line in stdout.splitlines()
+                        if line.strip()))
+                    # strategies the host's torch cannot trace: failed
+                    # pulls, each with the op DTensor names
+                    for line in stderr.splitlines():
+                        if line.startswith("reduced_compile:"):
+                            log(f"    {line[:90]} ... {line[-150:]}")
+                    continue
+                with open(out) as f:
+                    report = json.load(f)
+                terms = [report[k] for k in ("t_compute", "t_memory",
+                                             "t_collective", "t_step")]
+                if not (all(np.isfinite(terms)) and report["t_step"] > 0
+                        and report["chips"] == 256
+                        and report["flops_per_chip"] > 0):
+                    raise AssertionError(f"{name}: report {report}")
+                log(f"  dry-run {name} (traced in {report['lower_s']} s): "
+                    + json.dumps(report))
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    elapsed = time.time() - t0
+    log(f"mesh phase: {elapsed:.1f} s (budget {MESH_BUDGET_S:.0f} s)")
+    if elapsed > MESH_BUDGET_S:
+        raise AssertionError(f"the mesh phase took {elapsed:.1f} s")
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3501,6 +3788,8 @@ def main() -> None:
         raise AssertionError(f"the float32 kernel search made {fa.COUNT.tf32}"
                              f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
                              f", {fa.COUNT.wgmma} bf16 launches")
+
+    mesh_phase()
 
     flash_timing = {key: flash_readings[0][key] for key in (
         "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",

@@ -47,16 +47,16 @@ engine context — the one object ``drive_units`` needs to run any search
 driver against any objective through the engine (store memoization,
 executor fan-out, timeouts, retries).
 
-The builtins registered here form two fidelity ladders plus the
-market overlay: ``offline_proxy`` → ``offline`` (the paper's lookup
-table, family ``offline``); ``kernel_analytic`` → ``kernel_time`` (the
-config spaces of the port's CUDA kernels, :mod:`repro_torch.kernels.
+The builtins registered here form three fidelity ladders plus the
+dynamic market objective: ``offline_proxy`` → ``offline`` (noisy probe,
+exact table, family ``offline``); ``hlo_cost`` → ``compile_cost`` →
+``dryrun`` (analytic roofline estimate, roofline-scored trace on fake
+DTensors, and the full ``python -m repro_torch.launch.dryrun``
+subprocess — family ``sharding``); ``kernel_analytic`` → ``kernel_time``
+(the config spaces of the port's CUDA kernels, :mod:`repro_torch.kernels.
 bench`, family ``kernel``, keyed by device); and ``market`` (the offline
 table under a dynamic market overlay with structured failures,
-:mod:`repro_torch.multicloud.market`).  The ``sharding`` ladder
-(``hlo_cost`` → ``compile_cost`` → ``dryrun``) is not registered until
-the port has ``tuner/`` and ``launch/dryrun``; :func:`dryrun_command`
-and :func:`eval_dryrun` are kept for it.
+:mod:`repro_torch.multicloud.market`).
 """
 from __future__ import annotations
 
@@ -467,9 +467,9 @@ def _kernel_domain(params: Dict[str, Any]):
 
 
 # ---------------------------------------------------------------------------
-# Builtin: dryrun — full lower+compile cell via the existing subprocess
-# entry point (each cell needs the 512-device XLA flag set before jax
-# imports, so it can never run in-process)
+# Builtin: dryrun — a full traced cell via the subprocess entry point
+# (each cell lays its mesh on a process-wide fake process group of 512
+# ranks, so it runs in a process of its own)
 # ---------------------------------------------------------------------------
 #: the ModelOpts knobs the dryrun CLI accepts; anything else in a config
 #: would be silently dropped, so it is rejected instead
@@ -502,8 +502,8 @@ def dryrun_command(params: Dict[str, Any], out_path: str) -> list:
 
 
 def eval_dryrun(params: Dict[str, Any], context: Dict[str, Any]) -> dict:
-    """Lower + compile one (strategy, config) cell in a subprocess and
-    score it by roofline step time — the most expensive fidelity."""
+    """Trace one (strategy, config) cell in a subprocess and score it by
+    roofline step time — the most expensive fidelity."""
     from repro_torch.exp.runners import subprocess_timeout
     out_dir = context.get("out_dir") or os.path.join("results", "dryrun_evals")
     os.makedirs(out_dir, exist_ok=True)
@@ -543,9 +543,23 @@ def _register_builtins() -> None:
         context_params=("dataset_seed",),
         tags=("table", "paper"),
         family="offline", rung=None, cost_class="table")
-    # the "sharding" ladder (hlo_cost -> compile_cost -> dryrun) is not
-    # registered: the port has no tuner/ or launch/dryrun module yet.
-    # The offline table seen through a moving market: per-request units
+    # the "sharding" ladder: analytic roofline estimate (~free) ->
+    # roofline-scored XLA compile (seconds) -> full dryrun (minutes)
+    register_objective(
+        "compile_cost", "repro_torch.tuner.objective:eval_compile_cost",
+        domain_factory=_sharding_domain,
+        params=("arch", "shape", "mesh"),
+        defaults={"mesh": "pod"},
+        tags=("measured", "compile", "roofline"),
+        family="sharding", rung=1, cost_class="compile")
+    register_objective(
+        "dryrun", "repro_torch.core.objectives:eval_dryrun",
+        domain_factory=_sharding_domain,
+        params=("arch", "shape", "mesh"),
+        defaults={"mesh": "pod"},
+        tags=("measured", "compile", "subprocess"),
+        family="sharding", rung=None, cost_class="subprocess")
+    # the offline table seen through a moving market: per-request units
     # additionally carry the clock tick (see MarketOverlay / drive_units'
     # clock hook), and an outage/revocation returns the structured
     # failed-result schema instead of a value
@@ -558,6 +572,13 @@ def _register_builtins() -> None:
                   "walk_sigma": 0.0, "schedule": ""},
         context_params=("dataset_seed",),
         tags=("dynamic", "market"), cost_class="table")
+    register_objective(
+        "hlo_cost", "repro_torch.tuner.objective:eval_sharding_analytic",
+        domain_factory=_sharding_domain,
+        params=("arch", "shape", "mesh"),
+        defaults={"mesh": "pod"},
+        tags=("analytic", "roofline"),
+        family="sharding", rung=0, cost_class="analytic")
     register_objective(
         "offline_proxy", "repro_torch.core.objectives:eval_offline_proxy",
         domain_factory=_offline_domain,

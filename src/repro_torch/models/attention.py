@@ -223,10 +223,12 @@ def cross_attention(p, x, kv_src, cfg: ArchConfig, ctx: ShardCtx, *,
 def write_kv(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write one token's (B,1,Hkv,D) rows into a (B,S,Hkv,D) cache IN PLACE,
     at the scalar ``pos`` or at each slot's own ``(B,)`` position."""
-    B = cache.shape[0]
+    B, _, H, D = cache.shape
     posb = torch.as_tensor(pos, device=cache.device).long().reshape(-1).expand(B)
-    cache[torch.arange(B, device=cache.device), posb] = \
-        new[:, 0].to(cache.dtype)
+    # a scatter along the sequence keeps a cache sharded over batch and
+    # heads (a DTensor) in place, where an indexed write would not
+    cache.scatter_(1, posb.view(B, 1, 1, 1).expand(B, 1, H, D),
+                   new.to(cache.dtype))
 
 
 def decode_self_attention(p, x, k_cache, v_cache, cfg: ArchConfig,

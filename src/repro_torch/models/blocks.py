@@ -36,14 +36,13 @@ def remat_wrap(fn, opts: ModelOpts):
     outputs of the matrix products and recomputes the rest
     (``jax.checkpoint_policies.checkpoint_dots``).  Inert while grad is
     off (``layers.remat_call``), so the serving and prefill paths run
-    ``fn`` as it is."""
+    ``fn`` as it is.  Any other string means "full", as in the
+    reference."""
     if opts.remat == "none":
         return fn
-    if opts.remat == "full":
-        return functools.partial(remat_call, fn)
     if opts.remat == "dots":
         return functools.partial(remat_call, fn, context_fn=_save_dots)
-    raise ValueError(f"remat must be none, full or dots; got {opts.remat!r}")
+    return functools.partial(remat_call, fn)
 
 
 _aten = torch.ops.aten
@@ -91,6 +90,7 @@ def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
     through ``attention.banded_mha`` where the config has a window.
     Returns (h, aux loss): the MoE router's, an f32 zero without
     experts."""
+    p = ctx.weights(p)
     h = ctx.constrain(h, "batch", "seq", "act_embed")
     a = attn.self_attention(
         p["attn"], rmsnorm(p["ln1"], h), cfg, ctx,
@@ -111,6 +111,7 @@ def dense_block_decode(p, h, k_cache, v_cache, cfg: ArchConfig,
     """One-token step (``blocks.py:73``).  Writes this token's K/V into the
     caches in place (see ``attention.decode_self_attention``).
     Returns (h, k_new, v_new)."""
+    p = ctx.weights(p)
     a, k_new, v_new = attn.decode_self_attention(
         p["attn"], rmsnorm(p["ln1"], h), k_cache, v_cache, cfg, ctx,
         pos=pos, is_global=is_global, use_kernel=use_kernel)
@@ -138,6 +139,7 @@ def _gated(h, a, p):
 def cross_block(p, h, img, cfg: ArchConfig, ctx: ShardCtx,
                 opts: ModelOpts):
     """``blocks.py:104``: h attends to the image embeddings ``img``."""
+    p = ctx.weights(p)
     a = attn.cross_attention(p["xattn"], rmsnorm(p["ln"], h), img, cfg, ctx,
                              chunk=opts.attn_chunk)
     return _gated(h, a, p)
@@ -152,6 +154,7 @@ def cross_block_cached(p, h, xk, xv, cfg: ArchConfig, ctx: ShardCtx):
     model on the server's f32 cache) it promotes h and its scan raises a
     TypeError, and the port rounds the sum back instead.  Elsewhere the
     cast changes nothing."""
+    p = ctx.weights(p)
     q = attn.project_q(p["xattn"], rmsnorm(p["ln"], h), cfg)
     o = attn.chunked_mha(q, xk, xv, ctx, causal=False, chunk=1)
     a = attn.out_proj(p["xattn"], o, cfg)
@@ -168,6 +171,7 @@ def mamba_block_spec(cfg: ArchConfig) -> dict:
 
 def mamba_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts):
     """``blocks.py:128``: the only route to the ``ssd_scan`` kernel."""
+    p = ctx.weights(p)
     h = ctx.constrain(h, "batch", "seq", "act_embed")
     return h + ssm_mod.mamba_block(p["mixer"], rmsnorm(p["ln"], h), cfg, ctx,
                                    use_kernel=opts.use_kernel)
@@ -175,6 +179,7 @@ def mamba_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts):
 
 def mamba_block_decode(p, h, cache, cfg: ArchConfig, ctx: ShardCtx):
     """``blocks.py:134``: -> (h, new cache)."""
+    p = ctx.weights(p)
     y, cache = ssm_mod.mamba_decode_step(
         p["mixer"], rmsnorm(p["ln"], h), cache, cfg, ctx)
     return h + y, cache

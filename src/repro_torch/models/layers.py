@@ -103,7 +103,9 @@ def embed_spec(cfg: ArchConfig) -> dict:
 
 
 def embed(params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return params["tok"].to(dtype)[tokens]
+    # an embedding lookup (an indexed read's values), whose backward
+    # DTensor can place on a sharded table
+    return F.embedding(tokens, params["tok"].to(dtype))
 
 
 def unembed_matrix(params, cfg: ArchConfig, dtype: torch.dtype
@@ -139,11 +141,13 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
 
     def body(hc, yc):
         logits = ctx.constrain((hc @ w).float(), "batch", "seq", "vocab")
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            yc.clamp_min(0).long()[..., None])[..., 0]
+        # (B, chunk, 1) until the difference: on a vocab-sharded DTensor
+        # the gather's pending reduction (a masked partial) is made on
+        # the shape it was gathered at
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, yc.clamp_min(0).long()[..., None])
         valid = yc >= 0
-        return torch.sum((lse - gold) * valid), valid.sum()
+        return torch.sum((lse - gold)[..., 0] * valid), valid.sum()
 
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.int64, device=h.device)

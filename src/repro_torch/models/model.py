@@ -159,7 +159,7 @@ class Model:
         self._check_family()
         cfg = self.cfg
         dtype = compute_dtype(cfg)
-        params = precast(params, dtype)
+        params = _top_weights(precast(params, dtype), ctx)
         h = ctx.constrain(self._embed_in(params, batch, dtype),
                           "batch", "seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -287,12 +287,13 @@ class Model:
         self._check_family()
         cfg = self.cfg
         dtype = compute_dtype(cfg)
-        params = precast(params, dtype)
+        params = _top_weights(precast(params, dtype), ctx)
         if cfg.family == "audio":
             h, _ = self.forward(params, batch, ctx, opts)
             w = unembed_matrix(params["embed"], cfg, h.dtype)
             return (h @ w).float(), {}
-        h = embed(params["embed"], batch["tokens"], dtype)
+        h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
+                          "batch", "seq", "act_embed")
         positions = torch.arange(h.shape[1], device=h.device)[None]
 
         def mamba_stack(layers):
@@ -342,6 +343,7 @@ class Model:
                     unstack_groups(params["self"], g, k),
                     unstack(params["cross"], g)):
                 ks, vs = dense_stack(p_self, [True] * k)
+                p_cross = ctx.weights(p_cross)
                 xk, xv = attn_mod.project_kv(p_cross["xattn"], img, cfg)
                 h = B.cross_block_cached(p_cross, h, xk, xv, cfg, ctx)
                 parts.append((ks, vs, xk, xv))
@@ -421,8 +423,9 @@ class Model:
         if cfg.family == "audio":
             raise ValueError(f"{cfg.family} has no decode step")
         dtype = compute_dtype(cfg)
-        params = precast(params, dtype)
-        h = embed(params["embed"], batch["token"], dtype)   # (B,1,D)
+        params = _top_weights(precast(params, dtype), ctx)
+        h = ctx.constrain(embed(params["embed"], batch["token"], dtype),
+                          "batch", "seq", "act_embed")      # (B,1,D)
 
         def mamba_layer(p_i, ssm, conv):
             nonlocal h
@@ -473,6 +476,7 @@ class Model:
 
 def _dense_prefill(p, h, cfg, ctx, opts, positions, is_global):
     """``model.py:490``: a dense or MoE block that also returns its K/V."""
+    p = ctx.weights(p)
     hn = rmsnorm(p["ln1"], h)
     q = attn_mod.project_q(p["attn"], hn, cfg)
     k, v = attn_mod.project_kv(p["attn"], hn, cfg)
@@ -489,11 +493,21 @@ def _mamba_prefill(p, h, cfg, ctx):
     """``model.py:510``: a Mamba block that also returns (final ssm state,
     conv tail).  The tail is the last W-1 rows of xBC before the conv.
     The scan is ``ssd_reference``, as in the reference."""
+    p = ctx.weights(p)
     L = h.shape[1]
     y, state, xBC = ssm_mod._mixer(p["mixer"], rmsnorm(p["ln"], h), cfg, ctx,
                                    use_kernel=False)
     conv_tail = xBC[:, L - (cfg.ssm_conv_width - 1):, :]   # pre-activation
     return h + y, (state, conv_tail.to(h.dtype))
+
+
+def _top_weights(params, ctx: ShardCtx):
+    """The parameters outside the layer stacks (embedding, final norm,
+    audio's frame projection) gathered once for the step
+    (``ShardCtx.weights``); the stacks gather a layer at a time."""
+    top = {k: params[k] for k in ("embed", "ln_f", "frame_proj")
+           if k in params}
+    return {**params, **ctx.weights(top)}
 
 
 def _tile(x: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
@@ -524,6 +538,35 @@ def precast(params, dtype: torch.dtype):
         return pr
 
     return walk(params)
+
+
+# Logical axes of the decode caches, in ``Model.init_cache``'s structure
+# (``model.py:568``).  "kv_heads" and "kv_hd" both map to "model"; the
+# divisibility guard of ``logical_to_spec`` picks whichever divides (GQA
+# kv=8 on a 16-way model axis falls through to the head dim).  "kv_seq"
+# maps to "data" only in the single-sequence decode adaptation
+# (``repro_torch.launch.steps.make_rules``).
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "kv_hd")
+SSM_AXES = ("layers", "batch", "ssm_heads", None, "state")
+CONV_AXES = ("layers", "batch", None, "inner")
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    if cfg.family in ATTENTION_FAMILIES:
+        return {"k": KV_AXES, "v": KV_AXES}
+    if cfg.family == "ssm":
+        return {"ssm": SSM_AXES, "conv": CONV_AXES}
+    if cfg.family == "hybrid":
+        ax = {"ssm": ("layers",) + SSM_AXES,
+              "conv": ("layers",) + CONV_AXES, "k": KV_AXES, "v": KV_AXES}
+        if _groups(cfg)[2]:
+            ax["rem_ssm"], ax["rem_conv"] = SSM_AXES, CONV_AXES
+        return ax
+    if cfg.family == "vlm":
+        img_axes = ("layers", "batch", "img", "kv_heads", "kv_hd")
+        return {"k": ("layers",) + KV_AXES, "v": ("layers",) + KV_AXES,
+                "xk": img_axes, "xv": img_axes}
+    raise ValueError(f"{cfg.family} has no decode cache")
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -111,6 +111,9 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
 
     a = dt * A.float()[None, None, :]                    # (B, L, H) f32
     xw = x.float() * dt[..., None]                       # (B, L, H, P)
+    if ctx is not None:
+        a = ctx.constrain(a, "batch", "seq", "ssm_heads")
+        xw = ctx.constrain(xw, "batch", "seq", "ssm_heads", "ssm_hd")
     a_c = a.reshape(B_, n, Q, H)
     xw_c = xw.reshape(B_, n, Q, H, Pd)
     B_c = Bm.float().reshape(B_, n, Q, N)

@@ -1,0 +1,165 @@
+"""Which dry-run cells DTensor can trace, and where the rest stop.
+
+Every arch's reduced config, at each shape the registry runs it at (seq
+128, batch 8, or the shape's own batch where it is smaller), is traced
+on a (4, 2) mesh of the fake process group under every strategy of its
+sharding domain.  A cell either traces, with a finite roofline, or fails
+loudly: DTensor raises with the operation it cannot place named, and
+nothing catches or replicates around it in the port.  ``FAULTS`` is the
+list of cells that fail on the torch these tests run on (2.13), with
+the operation each names; ``ROADMAP.md`` (Queue 3) holds the same list,
+and a cell that starts or stops failing fails here.  The meshes live in
+three subprocesses, each with a fake process group of its own.
+
+Run as a script, it lists every cell on the torch it runs on, one line
+each (the trace's seconds, or the operation that stops it):
+
+    PYTHONPATH=src python tests/test_torch_dryrun_faults.py [processes]
+"""
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+from repro_torch.configs import REGISTRY, get_shape, shapes_for
+from repro_torch.tuner.strategies import sharding_domain
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+SEQ, BATCH = 128, 8
+PROCESSES = 3
+
+#: (arch, shape) -> the operation DTensor cannot place, at every strategy
+#: of the cell's domain: the MoE dispatch's segment starts
+#: (``models/moe.py``), and the one-token cache write along the sequence
+#: that ``long_500k``'s decode adaptation shards (``attention.write_kv``)
+MOE = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+FAULTS = {**{(arch, shape): "aten.searchsorted.Tensor"
+             for arch in MOE for shape in ("train_4k", "prefill_32k",
+                                           "decode_32k")},
+          ("gemma3-27b", "long_500k"): "aten.scatter_.src",
+          ("zamba2-7b", "long_500k"): "aten.scatter_.src"}
+
+
+def _cells():
+    out = []
+    for arch in sorted(REGISTRY):
+        cfg = REGISTRY[arch]
+        for shape, reason in shapes_for(cfg):
+            if shape.name not in SHAPES or reason is not None:
+                continue
+            for strategy in sharding_domain(cfg, shape).provider_names:
+                out.append((arch, shape.name, strategy))
+    return out
+
+
+CELLS = _cells()
+
+SCRIPT = """
+import dataclasses, json, math, sys, time
+from repro_torch.analysis.roofline import roofline_from_trace
+from repro_torch.configs import REGISTRY, get_shape
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import build_plan
+from repro_torch.models.blocks import ModelOpts
+
+seq, batch = int(sys.argv[2]), int(sys.argv[3])
+mesh = make_mesh(4, 2)
+opts = ModelOpts(attn_chunk=64, ce_chunk=64)
+res = {}
+for arch, shape_name, strategy in json.loads(sys.argv[1]):
+    full = get_shape(shape_name)
+    shape = dataclasses.replace(full, seq_len=seq,
+                                global_batch=min(full.global_batch, batch))
+    cfg = REGISTRY[arch].reduced()
+    key = f"{arch}|{shape_name}|{strategy}"
+    t0 = time.time()
+    try:
+        plan = build_plan(cfg, shape, mesh, strategy=strategy, opts=opts)
+        r = roofline_from_trace(plan, cfg=cfg, shape=shape,
+                                mesh_name="reduced", chips=8)
+    except Exception as exc:        # recorded: the test names the op
+        res[key] = {"error": type(exc).__name__ + ": "
+                    + " ".join(str(exc).split())}
+        continue
+    res[key] = {"t_step": r.t_step, "flops": r.flops_per_chip,
+                "peak": r.peak_memory_per_chip, "trace_s": time.time() - t0}
+print(json.dumps(res))
+"""
+
+
+def trace_cells(processes: int = PROCESSES) -> dict:
+    """Every cell of ``CELLS``, traced in ``processes`` subprocesses at
+    once -> {"arch|shape|strategy": the roofline's numbers or the error}."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    archs = sorted({c[0] for c in CELLS})
+    procs = []
+    for i in range(processes):
+        mine = [c for c in CELLS if archs.index(c[0]) % processes == i]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SCRIPT, json.dumps(mine), str(SEQ),
+             str(BATCH)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=ROOT))
+    res = {}
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, err[-4000:]
+            res.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+@pytest.fixture(scope="module")
+def traced():
+    return trace_cells()
+
+
+def test_every_cell_is_listed():
+    # the four shapes of every arch that runs them, each strategy of its
+    # domain; the faults name cells that exist
+    assert len(CELLS) == len(set(CELLS)) > 0
+    assert {c[:2] for c in CELLS} >= set(FAULTS)
+    assert all(get_shape(s).name == s for s in SHAPES)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids="|".join)
+def test_reduced_cell_traces_or_names_its_fault(traced, cell):
+    r = traced["|".join(cell)]
+    op = FAULTS.get(cell[:2])
+    if op is None:
+        assert "error" not in r, r.get("error")
+        assert math.isfinite(r["t_step"]) and r["t_step"] > 0
+        assert r["flops"] > 0 and r["peak"] > 0
+    else:
+        assert "error" in r, f"{cell} traces: take it out of FAULTS"
+        assert op in r["error"], r["error"]
+
+
+if __name__ == "__main__":
+    import torch
+    t0 = time.time()
+    res = trace_cells(int(sys.argv[1]) if len(sys.argv) > 1 else PROCESSES)
+    print(f"torch {torch.__version__}: {len(CELLS)} cells", flush=True)
+    for cell in CELLS:
+        r = res["|".join(cell)]
+        if "error" in r:
+            ops = sorted(set(re.findall(
+                r"aten\.[A-Za-z_0-9]+\.[A-Za-z_0-9]+", r["error"])))
+            print("FAIL", *cell, " ".join(ops) or "-", r["error"][-240:])
+        else:
+            print("OK", *cell, f"trace {r['trace_s']:.2f} s", r["t_step"],
+                  r["flops"], r["peak"])
+    print(f"{sum('error' not in r for r in res.values())} of {len(CELLS)} "
+          f"trace; listed in {time.time() - t0:.1f} s")

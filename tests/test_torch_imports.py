@@ -1,5 +1,6 @@
-"""Import hygiene of the port: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, or
+"""Import hygiene of the port: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and not the example twins (``examples/torch_*.py``)
+imports ``jax`` or the reference package ``repro``, or
 names a module of ``repro`` in a string (a ``"module:function"`` ref the
 objective registry imports at run time, a ``python -m`` command); and
 importing every module of the port, then resolving every objective and
@@ -15,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 #: a dotted name under ``repro`` (``repro.exp``, ``repro.core.x:fn``)
 REFERENCE_NAME = re.compile(r"(?<![\w.])repro\.[A-Za-z_]")
@@ -92,9 +94,11 @@ def test_importing_the_port_loads_neither():
         "from repro_torch.core.objectives import objective_specs\n"
         "from repro_torch.core.registry import method_specs\n"
         "from repro_torch.multicloud import multicloud_domain\n"
+        "cell = {'arch': 'qwen1.5-4b', 'shape': 'train_4k'}\n"
         "for spec in objective_specs():\n"
         "    assert spec.resolve().__module__.startswith('repro_torch.')\n"
-        "    spec.domain_factory(dict(spec.defaults))\n"
+        "    extra = cell if spec.family == 'sharding' else {}\n"
+        "    spec.domain_factory({**dict(spec.defaults), **extra})\n"
         "for spec in method_specs():\n"
         "    spec.make_driver(multicloud_domain(), 33, 0)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -203,8 +203,18 @@ def test_remat_is_inert_without_grad(monkeypatch):
 
 
 def test_remat_rejects_unknown_mode():
-    with pytest.raises(ValueError, match="remat"):
-        tblocks.remat_wrap(lambda x: x, ModelOpts(remat="some"))
+    """An unknown mode is not rejected: it means "full", as the
+    reference's ``remat_wrap`` reads it (its dry-run's ``--remat`` takes
+    any string): the same backward, the same gradients."""
+    assert _backward_ops("some") == _backward_ops("full")
+    jcfg, tcfg = _cfgs("qwen1.5-4b", "float32")
+    np_params, batch = _params(jcfg), _batch(jcfg)
+    some = _value_and_grad(tcfg, np_params, batch, remat="some")
+    full = _value_and_grad(tcfg, np_params, batch, remat="full")
+    assert some[0] == full[0]
+    assert some[1].keys() == full[1].keys()
+    for path in some[1]:
+        np.testing.assert_array_equal(some[1][path], full[1][path])
 
 
 def test_unstack_equals_layer_slices():
