@@ -111,8 +111,9 @@ really ran there:
   ``examples/quickstart.py``'s flow (CloudBandit over RBFOpt, ``random``
   and ``smac`` at B = 33 on ``xgboost@santander`` / cost, each held equal
   to its run through the engine) and every registered method at B = 33
-  on the whole table (30 workloads x 2 targets).  The phase holds itself
-  to ``SEARCH_BUDGET_S``;
+  on the whole table (30 workloads x 2 targets), the methods spread over
+  ``OFFLINE_WORKERS`` spawned processes.  The phase holds itself to
+  ``SEARCH_BUDGET_S``;
 * bf16 prefill attention: ``ops.mha`` at three full-width shapes
   (qwen1.5-4b; a gemma3-27b local layer; gemma-7b, head dim 256) on the
   tensor-core ``flash_attention`` kernel, whose SASS must hold ``HGMMA``
@@ -131,8 +132,10 @@ really ran there:
   as in the reference), fig7's router leg on the host (``ConfigRouter``
   over ``cb_rbfopt`` through an aws outage, with fig7's SLOs), and in
   processes of their own, side by side, ``python -m
-  repro_torch.launch.dryrun`` on a production cell that traces
-  (``MESH_CELLS``: its report printed, finite, on 256 chips),
+  repro_torch.launch.dryrun`` on the production cells ``MESH_CELLS``
+  (each report printed, finite, on 256 chips), the reduced
+  ``REPAIR_CELLS`` on a (4, 2) mesh (each finite: the MoE dispatch's
+  segment starts and the masked cache write under a mesh),
   ``examples/torch_autotune_mesh.py`` (CloudBandit over the sharding
   strategies of the reduced qwen1.5-4b cell on a (4, 2) mesh of the fake
   process group; a strategy the host's torch cannot trace is a failed
@@ -151,10 +154,13 @@ measurements, the card's name and power limit, and as the last line
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
@@ -355,15 +361,53 @@ SEARCH_BUDGET = {"cb_rbfopt": 11}
 KERNEL_BUDGET = 9
 SEARCH_SEEDS = (0, 1)
 OFFLINE_BUDGET = 33
+#: processes the offline leg spreads its methods over (the host's
+#: drivers fit their surrogates in Python; one method a process)
+OFFLINE_WORKERS = 8
 #: the search phase's wall-time budget, seconds, kernel sweep and offline
 #: leg together (their readings are in PERF.md)
 SEARCH_BUDGET_S = 90.0
 # the example twins, the router leg and the sharded compile-cost path
 # (``mesh_phase``), held together to this many seconds
 MESH_BUDGET_S = 120.0
-#: a production cell that traces on fake DTensors on torch 2.11 and 2.13
-#: alike (PERF.md §6, PR 27: 3.8 to 8.2 s)
-MESH_CELLS = (("mamba2-130m", "long_500k"),)
+#: production cells that trace on fake DTensors on torch 2.11 and 2.13
+#: alike (PERF.md §6): mamba2-130m x long_500k (3.8 to 8.2 s), and
+#: qwen1.5-4b x decode_32k, whose 20 heads do not split 16 ways (the head
+#: split's reshard) and whose decode writes a batch-sharded cache
+MESH_CELLS = (("mamba2-130m", "long_500k"), ("qwen1.5-4b", "decode_32k"))
+#: reduced cells (seq 128, batch up to 8, chunks of 64) traced on a
+#: (4, 2) mesh of the fake process group, each under the strategy given:
+#: phi3.5-moe's train step (the MoE dispatch's segment starts from
+#: per-expert counts; ``fsdp_dp``, which torch 2.11 places too) and
+#: gemma3-27b's decode at long_500k, whose cache is sharded along its
+#: sequence (the masked one-token write)
+REPAIR_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k", "fsdp_dp"),
+                ("gemma3-27b", "long_500k", "fsdp_tp"))
+#: ``REPAIR_CELLS`` traced in a process of their own
+REPAIR_TRACE = """
+import dataclasses, json, sys, time
+from repro_torch.analysis.roofline import roofline_from_trace
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import build_plan
+from repro_torch.models.blocks import ModelOpts
+mesh = make_mesh(4, 2)
+out = {}
+for arch, shape_name, strategy in json.loads(sys.argv[1]):
+    full = get_shape(shape_name)
+    shape = dataclasses.replace(full, seq_len=128,
+                                global_batch=min(full.global_batch, 8))
+    cfg = get_config(arch).reduced()
+    t0 = time.time()
+    plan = build_plan(cfg, shape, mesh, strategy=strategy,
+                      opts=ModelOpts(attn_chunk=64, ce_chunk=64))
+    r = roofline_from_trace(plan, cfg=cfg, shape=shape, mesh_name="reduced",
+                            chips=8).to_dict()
+    r["trace_s"] = time.time() - t0
+    r["strategy"] = strategy
+    out[f"{arch} x {shape_name}"] = r
+print(json.dumps(out))
+"""
 #: the reduced cell whose traced peak memory is held to the card's: the
 #: autotune twin's (qwen1.5-4b reduced, train_4k cut to seq 128 and batch
 #: 8, attention and CE chunks of 64), its train step traced on a 1 x 1
@@ -406,6 +450,14 @@ ROUTER_REQUESTS = 60
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def tokens_digest(results: dict) -> str:
+    """A served run's tokens, request by request, as a short digest: two
+    commits that serve the same bits print the same one."""
+    text = json.dumps({str(k): [int(t) for t in v]
+                       for k, v in sorted(results.items())})
+    return hashlib.sha1(text.encode()).hexdigest()[:16]
 
 
 def time_ms(fn, reps: int = 50) -> float:
@@ -1718,7 +1770,8 @@ def serve_full_width(cfg, init_dtype=torch.float32):
         f"{(generated + sum(len(r.prompt) - 1 for r in reqs)) / wall:.2f} "
         f"tokens/s incl. prompt feeding")
     log(f"decode_attention launches: {launches} = {cfg.n_layers} x {steps} "
-        f"steps; plain-version calls: {plain}")
+        f"steps; plain-version calls: {plain}; tokens digest "
+        f"{tokens_digest(results)}")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
@@ -2115,7 +2168,8 @@ def ssm_serve_full_width(model, params):
     generated = sum(len(v) for v in results.values())
     log(f"{SSM_ARCH} served {len(results)} requests: {steps} decode steps, "
         f"{generated} tokens generated, {wall:.3f} s, "
-        f"{wall / steps * 1e3:.3f} ms/step, {generated / wall:.2f} tokens/s")
+        f"{wall / steps * 1e3:.3f} ms/step, {generated / wall:.2f} tokens/s, "
+        f"tokens digest {tokens_digest(results)}")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every ssm request finished")
@@ -2195,7 +2249,8 @@ def serve_lockstep(model, params):
     log(f"{model.cfg.name} served {len(results)} requests (lockstep "
         f"fallback): {steps} decode steps, {generated} tokens generated, "
         f"{wall:.3f} s, {wall / steps * 1e3:.3f} ms/step, "
-        f"{generated / wall:.2f} tokens/s")
+        f"{generated / wall:.2f} tokens/s, tokens digest "
+        f"{tokens_digest(results)}")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
@@ -2789,7 +2844,8 @@ def gemma3_full_width():
     log(f"{GEMMA_ARCH} served {len(results)} requests per slot: "
         f"{server.steps} decode steps, {generated} tokens generated, "
         f"{wall:.3f} s, {wall / server.steps * 1e3:.3f} ms/step, "
-        f"{generated / wall:.2f} tokens/s")
+        f"{generated / wall:.2f} tokens/s, tokens digest "
+        f"{tokens_digest(results)}")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
@@ -3400,31 +3456,49 @@ def offline_leg():
         f"{task.regret(min(hists['smac'].values)):.4f}; savings at N=64 "
         f"{savings_for_history(task, res.history, n_production=64):.4f}; "
         f"{time.perf_counter() - t0:.2f} s")
-    tasks = [ds.task(w, t) for w in ds.workloads for t in ("cost", "time")]
     t_all = time.perf_counter()
-    for m in method_names():
-        cells = []
-        for t in tasks:
-            drv = get_method(m).make_driver(ds.domain, OFFLINE_BUDGET, 0,
-                                            target=t.target)
-            kw = dict(workload=t.workload, target=t.target, dataset_seed=0)
-            cells.append((drv, bind_ladder("offline", **kw)
-                          if hasattr(drv, "attach_ladder")
-                          else bind_objective("offline", **kw)))
-        t1 = time.perf_counter()
-        hists = drive_units(engine, cells)
-        dt = time.perf_counter() - t1
-        regret = [t.regret(min(h.values)) for t, h in zip(tasks, hists)]
-        if not all(h.values for h in hists) or \
-                not all(math.isfinite(r) and r >= 0 for r in regret):
-            raise AssertionError(f"offline {m}: bad histories or regret")
-        log(f"offline {m}: {len(tasks)} tasks at B={OFFLINE_BUDGET}, mean "
-            f"regret {np.mean(regret):.4f} (max {max(regret):.4f}); "
-            f"computed {engine.stats.computed}, cached "
-            f"{engine.stats.cached}; {dt:.2f} s on the host")
-    dt = time.perf_counter() - t_all
-    log(f"offline: {len(method_names())} methods x {len(tasks)} tasks in "
-        f"{dt:.1f} s on the host")
+    names = method_names()
+    # spawned, not forked: this process holds CUDA
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(OFFLINE_WORKERS, len(names)),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for m, n_tasks, regret, computed, cached, dt in pool.map(
+                offline_method, names):
+            log(f"offline {m}: {n_tasks} tasks at B={OFFLINE_BUDGET}, mean "
+                f"regret {np.mean(regret):.4f} (max {max(regret):.4f}); "
+                f"computed {computed}, cached {cached}; {dt:.2f} s on the "
+                f"host")
+    log(f"offline: {len(names)} methods x {n_tasks} tasks in "
+        f"{time.perf_counter() - t_all:.1f} s on the host, "
+        f"{min(OFFLINE_WORKERS, len(names))} processes")
+
+
+def offline_method(m: str):
+    """One registered method at B = ``OFFLINE_BUDGET`` on every task of
+    the table (30 workloads x 2 targets) through an engine of its own, in
+    a process of ``offline_leg``'s pool -> (method, tasks, regrets,
+    units computed, units cached, host s)."""
+    ds = build_dataset()
+    tasks = [ds.task(w, t) for w in ds.workloads for t in ("cost", "time")]
+    engine = ExperimentEngine(search_runner, context={"dataset_seed": 0},
+                              executor="serial")
+    cells = []
+    for t in tasks:
+        drv = get_method(m).make_driver(ds.domain, OFFLINE_BUDGET, 0,
+                                        target=t.target)
+        kw = dict(workload=t.workload, target=t.target, dataset_seed=0)
+        cells.append((drv, bind_ladder("offline", **kw)
+                      if hasattr(drv, "attach_ladder")
+                      else bind_objective("offline", **kw)))
+    t1 = time.perf_counter()
+    hists = drive_units(engine, cells)
+    dt = time.perf_counter() - t1
+    regret = [t.regret(min(h.values)) for t, h in zip(tasks, hists)]
+    if not all(h.values for h in hists) or \
+            not all(math.isfinite(r) and r >= 0 for r in regret):
+        raise AssertionError(f"offline {m}: bad histories or regret")
+    return (m, len(tasks), regret, engine.stats.computed,
+            engine.stats.cached, dt)
 
 
 def _example(name):
@@ -3577,6 +3651,25 @@ def hold_traced_peak(traced: dict, card: dict) -> None:
                              f"the card's {c_temp} B")
 
 
+def hold_repair_cells(reports: dict) -> int:
+    """``REPAIR_CELLS``' roofline reports: each finite, with work counted
+    -> how many traced."""
+    for name, r in reports.items():
+        terms = [r[k] for k in ("t_compute", "t_memory", "t_collective",
+                                "t_step")]
+        if not (all(np.isfinite(terms)) and r["t_step"] > 0
+                and r["flops_per_chip"] > 0
+                and r["peak_memory_per_chip"] > 0):
+            raise AssertionError(f"repair cell {name}: report {r}")
+        log(f"  dry-run {name} reduced on (4, 2) [{r['strategy']}] (traced "
+            f"in {r['trace_s']:.2f} s): t_step {r['t_step']}, FLOPs "
+            f"{r['flops_per_chip']}, collective bytes "
+            f"{r['coll_bytes_per_chip']}, peak {r['peak_memory_per_chip']}")
+    if len(reports) != len(REPAIR_CELLS):
+        raise AssertionError(f"repair cells: {sorted(reports)}")
+    return len(reports)
+
+
 def mesh_phase():
     """The sharded compile-cost path, in processes of their own (a process
     that uses CUDA never makes a mesh): ``python -m
@@ -3587,6 +3680,7 @@ def mesh_phase():
     launch) and the router leg.  Every report is printed; the phase holds
     itself to ``MESH_BUDGET_S``."""
     t0 = time.time()
+    traced = 0
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
@@ -3599,6 +3693,10 @@ def mesh_phase():
                 stderr=subprocess.PIPE, text=True)))
         procs.append(("one-chip trace", None, subprocess.Popen(
             [sys.executable, "-c", ONE_CHIP_TRACE, json.dumps(MEM_CELL)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+        procs.append(("repair cells", None, subprocess.Popen(
+            [sys.executable, "-c", REPAIR_TRACE, json.dumps(REPAIR_CELLS)],
             env=env, cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
         procs.append(("autotune twin", None, subprocess.Popen(
@@ -3621,6 +3719,10 @@ def mesh_phase():
                     hold_traced_peak(json.loads(stdout.strip().splitlines()
                                                 [-1]), card)
                     continue
+                if name == "repair cells":
+                    traced += hold_repair_cells(json.loads(
+                        stdout.strip().splitlines()[-1]))
+                    continue
                 if out is None:
                     log(f"  {name}: " + "; ".join(
                         line.strip() for line in stdout.splitlines()
@@ -3641,12 +3743,16 @@ def mesh_phase():
                     raise AssertionError(f"{name}: report {report}")
                 log(f"  dry-run {name} (traced in {report['lower_s']} s): "
                     + json.dumps(report))
+                traced += 1
         finally:
             for _, _, proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
     elapsed = time.time() - t0
+    log(f"mesh phase: {traced} of {len(MESH_CELLS) + len(REPAIR_CELLS)} "
+        f"dry-run cells traced ({len(MESH_CELLS)} production, "
+        f"{len(REPAIR_CELLS)} reduced)")
     log(f"mesh phase: {elapsed:.1f} s (budget {MESH_BUDGET_S:.0f} s)")
     if elapsed > MESH_BUDGET_S:
         raise AssertionError(f"the mesh phase took {elapsed:.1f} s")

@@ -215,8 +215,187 @@ class ShardCtx:
             return x
         return x.redistribute(self.mesh, placements)
 
+    def pad_front(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """(B, L, C) ``x`` with ``n`` zero rows in front of its sequence:
+        ``F.pad``, and under a mesh a concatenation with zeros, the same
+        values (torch 2.11's DTensor fails to plan ``F.pad``'s
+        redistribution on a mesh of more than one dim)."""
+        if self.mesh is None:
+            return torch.nn.functional.pad(x, (0, 0, n, 0))
+        return torch.cat([x.new_zeros((x.shape[0], n, x.shape[2])), x],
+                         dim=1)
+
+    def cumsum(self, x: torch.Tensor) -> torch.Tensor:
+        """``torch.cumsum`` along the last dim; under a mesh one whose
+        backward reverses the gradient with ``index_select`` where
+        torch's reverses it with ``flip``, the same values (torch before
+        2.13 places no flip)."""
+        if self.mesh is None:
+            return torch.cumsum(x, dim=-1)
+        return _CumSum.apply(x)
+
+    def _axes_of(self, x: torch.Tensor, dim: int) -> Tuple[str, ...]:
+        """The mesh axes that shard ``x``'s ``dim`` (none with no mesh)."""
+        if self.mesh is None:
+            return ()
+        from torch.distributed.tensor import Shard
+        dim %= x.dim()
+        return tuple(a for a, pl in zip(self.mesh.mesh_dim_names,
+                                        x.placements)
+                     if isinstance(pl, Shard) and pl.dim == dim)
+
+    def gold_grad(self, grad: torch.Tensor, labels: torch.Tensor,
+                  like: torch.Tensor) -> torch.Tensor:
+        """The gradient of ``gather(like, -1, labels)`` for ``like`` of
+        shape (..., V) and ``labels`` and ``grad`` of shape (..., 1):
+        ``grad`` at each row's label and zero elsewhere, ``torch.gather``'s
+        own backward (zeros and a ``scatter_add``).
+
+        Under a mesh it is ``where(arange(V) == labels, grad, 0)``, each
+        shard comparing its own slice of the vocab (the arange from its
+        global offset), as GSPMD partitions an iota compare: it keeps
+        ``like``'s placement, where DTensor places the scatter's zeros
+        replicated.  Each row has one nonzero, so both give the same
+        bits."""
+        if self.mesh is None:
+            return torch.zeros_like(like).scatter_add_(-1, labels, grad)
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        axes = self._axes_of(like, -1)
+        rows = tuple(Replicate() if a in axes else p
+                     for a, p in zip(self.mesh.mesh_dim_names,
+                                     like.placements))
+        local = labels.redistribute(self.mesh, rows).to_local()
+        shape, offset = compute_local_shape_and_global_offset(
+            like.shape, self.mesh, like.placements)
+        vocab = torch.arange(offset[-1], offset[-1] + shape[-1],
+                             device=local.device)
+        hit = DTensor.from_local(vocab == local, self.mesh, like.placements,
+                                 run_check=False, shape=like.shape,
+                                 stride=like.stride())
+        # 0 + grad, as the scatter_add sums it (a -0.0 becomes +0.0)
+        return torch.where(hit, grad + 0.0, 0.0)
+
+    def write_rows(self, cache: torch.Tensor, new: torch.Tensor,
+                   pos) -> None:
+        """Write one token's (B, 1, ...) rows ``new`` into the (B, S, ...)
+        ``cache`` IN PLACE, at the scalar ``pos`` or at each slot's own
+        ``(B,)`` position: a scatter along the sequence.
+
+        Where the mesh shards the cache, the write is a masked select over
+        the local shard, ``where(s == pos, new, cache)`` copied back: how
+        GSPMD partitions a ``dynamic_update_slice`` along a sharded
+        sequence (every shard compares its own positions), with the local
+        shard's bytes.  On a cache split only over batch or heads XLA
+        updates in place and moves the token's rows alone; torch 2.11's
+        DTensor places ``scatter_`` only on a replicated tensor."""
+        B = cache.shape[0]
+        posb = torch.as_tensor(pos, device=cache.device).long()
+        posb = posb.reshape(-1).expand(B)
+        new = new.to(cache.dtype)
+        tail = (1,) * (cache.dim() - 2)
+        if self.mesh is not None and any(
+                self._axes_of(cache, d) for d in range(cache.dim())):
+            seq = torch.arange(cache.shape[1], device=cache.device)
+            hit = (seq == posb[:, None]).reshape(B, -1, *tail)
+            cache.copy_(torch.where(hit, new, cache))
+            return
+        cache.scatter_(1, posb.view(B, 1, *tail).expand(new.shape), new)
+
+    def _whole_heads(self, x: torch.Tensor, dim: int, heads: int,
+                     drop: Tuple[str, ...] = ()) -> torch.Tensor:
+        """``x`` redistributed, where it has to be, so that ``dim`` holds
+        whole heads: the mesh axes that shard it keep their longest
+        prefix whose size divides ``heads`` and the rest, and the axes in
+        ``drop``, are replicated."""
+        axes = self._axes_of(x, dim)
+        if not axes and not drop:
+            return x
+        from torch.distributed.tensor import Replicate
+        keep = _best_prefix(self.mesh, axes, heads) if axes else None
+        keep = () if keep is None else _names(keep)
+        pl = tuple(Replicate() if a in drop or (a in axes and a not in keep)
+                   else p
+                   for a, p in zip(self.mesh.mesh_dim_names, x.placements))
+        if pl == tuple(x.placements):
+            return x
+        return x.redistribute(self.mesh, pl)
+
+    def _split(self, x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+        x = self._whole_heads(x, dim, heads)
+        shape = x.shape
+        return x.reshape(*shape[:dim], heads, shape[dim] // heads,
+                         *shape[dim + 1:])
+
+    def _merge(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        x = self._whole_heads(x, dim, x.shape[dim],
+                              drop=self._axes_of(x, dim + 1))
+        return x.flatten(dim, dim + 1)
+
+    def split_heads(self, x: torch.Tensor, heads: int, dim: int = -1
+                    ) -> torch.Tensor:
+        """``x``'s ``dim`` of size ``heads * d`` split into (heads, d).
+
+        Under a mesh that shards that dim over axes that hold no whole
+        heads, ``x`` is first redistributed so that the heads dim keeps
+        the longest prefix of those axes whose size divides ``heads`` and
+        is replicated over the rest: the placement ``logical_to_spec``'s
+        divisibility guard gives the split shape, and the reshard GSPMD
+        inserts before such a reshape.  The gradient is merged back as
+        :meth:`merge_heads` merges."""
+        dim %= x.dim()
+        if self.mesh is None:
+            return self._split(x, heads, dim)
+        return _Regroup.apply(x, self, heads, dim, True)
+
+    def merge_heads(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """``x``'s dims (dim, dim + 1), (heads, d), merged into one: the
+        mirror of :meth:`split_heads`.  Under a mesh, the heads dim keeps
+        the longest prefix of its axes that divides the heads (DTensor
+        may have split them unevenly, settling a pending sum) and the
+        ``d`` dim, which a merge cannot keep sharded, is replicated; the
+        gradient is split back as :meth:`split_heads` splits."""
+        dim %= x.dim()
+        if self.mesh is None:
+            return self._merge(x, dim)
+        return _Regroup.apply(x, self, x.shape[dim], dim, False)
+
 
 NOSHARD = ShardCtx()
+
+
+class _Regroup(torch.autograd.Function):
+    """A head split (``split``) or merge under a mesh whose gradient is
+    regrouped the same way back: autograd's own backward of a reshape
+    views the gradient as it lies, whatever its placement."""
+
+    @staticmethod
+    def forward(ctx, x, shard: ShardCtx, heads: int, dim: int, split: bool):
+        ctx.args = shard, heads, dim, split
+        return shard._split(x, heads, dim) if split else shard._merge(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, heads, dim, split = ctx.args
+        g = shard._merge(g, dim) if split else shard._split(g, heads, dim)
+        return g, None, None, None, None
+
+
+class _CumSum(torch.autograd.Function):
+    """``torch.cumsum`` along the last dim whose backward, the suffix sum
+    of the gradient, reverses with ``index_select``
+    (``ShardCtx.cumsum``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.cumsum(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = g.dim() - 1
+        rev = torch.arange(g.shape[d] - 1, -1, -1, device=g.device)
+        return g.index_select(d, rev).cumsum(d).index_select(d, rev)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -181,7 +181,10 @@ def make_prefill_step(model: Model, ctx: ShardCtx, opts: ModelOpts):
 def make_decode_step(model: Model, ctx: ShardCtx, opts: ModelOpts):
     def decode_step(params, batch, cache):
         logits, cache = model.decode_step(params, batch, cache, ctx, opts)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        # dim 1, not -1: DTensor's argmax over a sharded vocab gathers
+        # each shard's pick along the reduced dim, and torch 2.13's
+        # all_gather_single mis-shapes a negative gather dim at batch 1
+        next_token = torch.argmax(logits, dim=1).to(torch.int32)
         return next_token, logits, cache
 
     return decode_step

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distrib.logical import P, ShardCtx
+from repro_torch.distrib.logical import NOSHARD, P, ShardCtx
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import remat_call, rope
 
@@ -34,30 +34,27 @@ def attn_spec(cfg: ArchConfig, cross: bool = False) -> dict:
     return spec
 
 
-def project_q(p, x, cfg: ArchConfig):
+def project_q(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
     dt = x.dtype
     q = x @ p["wq"].to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    B, S = x.shape[:2]
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    return ctx.split_heads(q, cfg.n_heads)
 
 
-def project_kv(p, x, cfg: ArchConfig):
+def project_kv(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
     dt = x.dtype
     k = x @ p["wk"].to(dt)
     v = x @ p["wv"].to(dt)
     if "bk" in p:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    B, S = x.shape[:2]
-    return (k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    return (ctx.split_heads(k, cfg.n_kv_heads),
+            ctx.split_heads(v, cfg.n_kv_heads))
 
 
-def out_proj(p, o, cfg: ArchConfig):
-    B, S = o.shape[:2]
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(o.dtype)
+def out_proj(p, o, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
+    return ctx.merge_heads(o) @ p["wo"].to(o.dtype)
 
 
 def _mask(qpos, kpos, *, causal, is_global, window):
@@ -83,15 +80,14 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
     backward holds one chunk's f32 (B, Hkv, G, chunk, Sk) scores at a
     time.
     """
-    B, Sq, Hq, D = q.shape
+    _, Sq, _, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     chunk = min(chunk, Sq)
     if Sq % chunk:
         raise ValueError(f"Sq={Sq} is not a multiple of chunk={chunk}")
     kpos = torch.arange(Sk, device=q.device)
-    qg = q.reshape(B, Sq, Hkv, G, D)
+    qg = ctx.split_heads(q, Hkv, dim=2)                  # (B,Sq,Hkv,G,D)
     kf = k.float()
 
     def block(qc, kf, v, start: int):
@@ -105,7 +101,7 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
 
     outs = [remat_call(block, qg[:, start:start + chunk], kf, v, start)
             for start in range(0, Sq, chunk)]
-    o = torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+    o = ctx.merge_heads(torch.cat(outs, dim=1), dim=2)
     return ctx.constrain(o, "batch", "seq", "act_heads", None)
 
 
@@ -122,15 +118,14 @@ def banded_mha(q, k, v, ctx: ShardCtx, *, window: int, q_offset: int = 0,
     slices of K and V, not copies.  Precision and the per-chunk
     ``remat_call`` are ``chunked_mha``'s.
     """
-    B, Sq, Hq, D = q.shape
+    _, Sq, _, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     chunk = min(chunk, Sq)
     if Sq % chunk:
         raise ValueError(f"Sq={Sq} is not a multiple of chunk={chunk}")
     band = min(Sk, _round_up(window + chunk, chunk))
-    qg = q.reshape(B, Sq, Hkv, G, D)
+    qg = ctx.split_heads(q, Hkv, dim=2)                  # (B,Sq,Hkv,G,D)
     kf = k.float()
 
     def block(qc, kc, vc, start: int, k0: int):
@@ -149,7 +144,7 @@ def banded_mha(q, k, v, ctx: ShardCtx, *, window: int, q_offset: int = 0,
         outs.append(remat_call(block, qg[:, start:start + chunk],
                                kf[:, k0:k0 + band], v[:, k0:k0 + band],
                                start, k0))
-    o = torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+    o = ctx.merge_heads(torch.cat(outs, dim=1), dim=2)
     return ctx.constrain(o, "batch", "seq", "act_heads", None)
 
 
@@ -167,11 +162,10 @@ def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
     token's K/V enter the softmax as one extra slot; without them the
     cache must already hold position ``pos``.
     """
-    B, _, Hq, D = q.shape
+    B, _, _, D = q.shape
     _, Sk, Hkv, _ = k_cache.shape
-    G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, G, D)
+    qg = ctx.split_heads(q[:, 0], Hkv, dim=1)            # (B,Hkv,G,D)
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
     kpos = torch.arange(Sk, device=q.device)
     posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1)  # (1,1)|(B,1)
@@ -190,15 +184,15 @@ def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
         o = o.to(v_cache.dtype)
     else:
         o = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
-    return o.reshape(B, 1, Hq, D)
+    return ctx.merge_heads(o, dim=1)[:, None]
 
 
 def self_attention(p, x, cfg: ArchConfig, ctx: ShardCtx, *, positions,
                    is_global=True, chunk: int = 1024, banded: bool = False):
     """``attention.py:244``: with ``banded`` and a sliding window,
     ``banded_mha`` (the window applies whatever ``is_global`` says)."""
-    q = project_q(p, x, cfg)
-    k, v = project_kv(p, x, cfg)
+    q = project_q(p, x, cfg, ctx)
+    k, v = project_kv(p, x, cfg, ctx)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if banded and cfg.sliding_window:
@@ -207,28 +201,17 @@ def self_attention(p, x, cfg: ArchConfig, ctx: ShardCtx, *, positions,
         o = chunked_mha(q, k, v, ctx, causal=cfg.causal,
                         is_global=is_global, window=cfg.sliding_window,
                         chunk=chunk)
-    return out_proj(p, o, cfg)
+    return out_proj(p, o, cfg, ctx)
 
 
 def cross_attention(p, x, kv_src, cfg: ArchConfig, ctx: ShardCtx, *,
                     chunk: int = 1024):
     """``attention.py:262``: x attends to ``kv_src`` (the VLM's image-patch
     embeddings); no mask, no RoPE."""
-    q = project_q(p, x, cfg)
-    k, v = project_kv(p, kv_src, cfg)
+    q = project_q(p, x, cfg, ctx)
+    k, v = project_kv(p, kv_src, cfg, ctx)
     o = chunked_mha(q, k, v, ctx, causal=False, chunk=chunk)
-    return out_proj(p, o, cfg)
-
-
-def write_kv(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
-    """Write one token's (B,1,Hkv,D) rows into a (B,S,Hkv,D) cache IN PLACE,
-    at the scalar ``pos`` or at each slot's own ``(B,)`` position."""
-    B, _, H, D = cache.shape
-    posb = torch.as_tensor(pos, device=cache.device).long().reshape(-1).expand(B)
-    # a scatter along the sequence keeps a cache sharded over batch and
-    # heads (a DTensor) in place, where an indexed write would not
-    cache.scatter_(1, posb.view(B, 1, 1, 1).expand(B, 1, H, D),
-                   new.to(cache.dtype))
+    return out_proj(p, o, cfg, ctx)
 
 
 def decode_self_attention(p, x, k_cache, v_cache, cfg: ArchConfig,
@@ -247,13 +230,13 @@ def decode_self_attention(p, x, k_cache, v_cache, cfg: ArchConfig,
     Returns (out, k_new, v_new), k_new/v_new in the cache dtype.
     """
     B = x.shape[0]
-    q = project_q(p, x, cfg)                       # (B,1,Hq,D)
-    k_new, v_new = project_kv(p, x, cfg)           # (B,1,Hkv,D)
+    q = project_q(p, x, cfg, ctx)                  # (B,1,Hq,D)
+    k_new, v_new = project_kv(p, x, cfg, ctx)      # (B,1,Hkv,D)
     posv = torch.as_tensor(pos, device=x.device).reshape(-1, 1).expand(B, 1)
     q = rope(q, posv, cfg.rope_theta)
     k_new = rope(k_new, posv, cfg.rope_theta)
-    write_kv(k_cache, k_new, posv[:, 0])
-    write_kv(v_cache, v_new, posv[:, 0])
+    ctx.write_rows(k_cache, k_new, posv[:, 0])
+    ctx.write_rows(v_cache, v_new, posv[:, 0])
     if use_kernel:
         if cfg.sliding_window:
             raise ValueError(
@@ -268,5 +251,5 @@ def decode_self_attention(p, x, k_cache, v_cache, cfg: ArchConfig,
         o = decode_mha(q, k_cache, v_cache, ctx, pos=pos,
                        is_global=is_global, window=cfg.sliding_window,
                        k_new=k_new, v_new=v_new)
-    return (out_proj(p, o.to(x.dtype), cfg),
+    return (out_proj(p, o.to(x.dtype), cfg, ctx),
             k_new.to(k_cache.dtype), v_new.to(v_cache.dtype))

@@ -155,9 +155,9 @@ def cross_block_cached(p, h, xk, xv, cfg: ArchConfig, ctx: ShardCtx):
     TypeError, and the port rounds the sum back instead.  Elsewhere the
     cast changes nothing."""
     p = ctx.weights(p)
-    q = attn.project_q(p["xattn"], rmsnorm(p["ln"], h), cfg)
+    q = attn.project_q(p["xattn"], rmsnorm(p["ln"], h), cfg, ctx)
     o = attn.chunked_mha(q, xk, xv, ctx, causal=False, chunk=1)
-    a = attn.out_proj(p["xattn"], o, cfg)
+    a = attn.out_proj(p["xattn"], o, cfg, ctx)
     return _gated(h, a, p).to(h.dtype)
 
 

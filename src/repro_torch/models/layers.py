@@ -122,6 +122,25 @@ def logits_last(params, cfg: ArchConfig, h_last: torch.Tensor
     return (h_last @ w).float()
 
 
+class GoldLogit(torch.autograd.Function):
+    """``gather(logits, -1, idx)``, each row's logit at its label, with
+    ``ShardCtx.gold_grad`` as its backward: gather's own with no mesh, and
+    under a mesh an elementwise form that keeps the logits' vocab split,
+    where DTensor places gather's backward replicated (a (B, chunk, V)
+    f32 tensor on every chip)."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, shard: ShardCtx):
+        ctx.shard = shard
+        ctx.save_for_backward(logits, idx)
+        return torch.gather(logits, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, idx = ctx.saved_tensors
+        return ctx.shard.gold_grad(grad, idx, logits), None, None
+
+
 def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
                           labels: torch.Tensor, ctx: ShardCtx,
                           chunk: int = 1024) -> torch.Tensor:
@@ -145,7 +164,8 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
         # the gather's pending reduction (a masked partial) is made on
         # the shape it was gathered at
         lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-        gold = torch.gather(logits, -1, yc.clamp_min(0).long()[..., None])
+        gold = GoldLogit.apply(logits, yc.clamp_min(0).long()[..., None],
+                               ctx)
         valid = yc >= 0
         return torch.sum((lse - gold)[..., 0] * valid), valid.sum()
 

@@ -344,7 +344,8 @@ class Model:
                     unstack(params["cross"], g)):
                 ks, vs = dense_stack(p_self, [True] * k)
                 p_cross = ctx.weights(p_cross)
-                xk, xv = attn_mod.project_kv(p_cross["xattn"], img, cfg)
+                xk, xv = attn_mod.project_kv(p_cross["xattn"], img, cfg,
+                                             ctx)
                 h = B.cross_block_cached(p_cross, h, xk, xv, cfg, ctx)
                 parts.append((ks, vs, xk, xv))
             cache = dict(zip(("k", "v", "xk", "xv"),
@@ -478,14 +479,14 @@ def _dense_prefill(p, h, cfg, ctx, opts, positions, is_global):
     """``model.py:490``: a dense or MoE block that also returns its K/V."""
     p = ctx.weights(p)
     hn = rmsnorm(p["ln1"], h)
-    q = attn_mod.project_q(p["attn"], hn, cfg)
-    k, v = attn_mod.project_kv(p["attn"], hn, cfg)
+    q = attn_mod.project_q(p["attn"], hn, cfg, ctx)
+    k, v = attn_mod.project_kv(p["attn"], hn, cfg, ctx)
     q = attn_mod.rope(q, positions, cfg.rope_theta)
     k = attn_mod.rope(k, positions, cfg.rope_theta)
     o = attn_mod.chunked_mha(
         q, k, v, ctx, causal=cfg.causal, is_global=is_global,
         window=cfg.sliding_window, chunk=opts.attn_chunk)
-    h = h + attn_mod.out_proj(p["attn"], o, cfg)
+    h = h + attn_mod.out_proj(p["attn"], o, cfg, ctx)
     return h + B.ffn(p, rmsnorm(p["ln2"], h), cfg, ctx), (k, v)
 
 

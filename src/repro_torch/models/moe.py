@@ -67,12 +67,23 @@ def _route(p, xg: torch.Tensor, cfg: ArchConfig):
 
     flat_ids = gate_ids.reshape(G, -1)                      # (G, N)
     order = torch.argsort(flat_ids, dim=-1, stable=True)
-    sorted_ids = torch.gather(flat_ids, -1, order).contiguous()
     inv_order = torch.argsort(order, dim=-1, stable=True)   # slot -> sorted
-    experts = torch.arange(E, device=xg.device).expand(G, E).contiguous()
-    seg_start = torch.searchsorted(sorted_ids, experts, right=False)
-    seg_end = torch.searchsorted(sorted_ids, experts, right=True)
+    seg_start, seg_end = _segments(flat_ids, E)
     return gate_w, gate_ids, order, inv_order, seg_start, seg_end
+
+
+def _segments(flat_ids: torch.Tensor, n_experts: int):
+    """Each expert's segment [start, end) of a group's slots sorted by
+    expert, from the slots' expert ids (G, N) -> two (G, E) int64.
+
+    The reference searches the sorted ids (``moe.py:74-79``); counting
+    each expert's slots and summing the counts gives the same integers
+    from elementwise ops and a cumsum, which a mesh places (DTensor has
+    no sharding rule for ``searchsorted``)."""
+    experts = torch.arange(n_experts, device=flat_ids.device)
+    counts = (flat_ids[:, :, None] == experts).sum(-2)      # (G, E)
+    seg_end = torch.cumsum(counts, dim=-1)
+    return seg_end - counts, seg_end
 
 
 def _groups(x: torch.Tensor, cfg: ArchConfig):

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distrib.logical import P, ShardCtx
+from repro_torch.distrib.logical import NOSHARD, P, ShardCtx
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import remat_call, rmsnorm, rmsnorm_spec
 
@@ -63,27 +63,27 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, xBC, dt
 
 
-def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """``ssm.py:47``: depthwise causal conv of width W, xBC (B, L, C),
     w (W, C).  The taps are added one by one in xBC's dtype, in tap order,
     then the bias, then silu; ``F.conv1d`` would round once in f32 and
     differ in bf16."""
     W = w.shape[0]
     L = xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    pad = ctx.pad_front(xBC, W - 1)
     out = torch.zeros_like(xBC)
     for i in range(W):
         out = out + pad[:, i:i + L] * w[i].to(xBC.dtype)
     return silu(out + b.to(xBC.dtype))
 
 
-def _segsum(a: torch.Tensor) -> torch.Tensor:
+def _segsum(a: torch.Tensor, ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """``ssm.py:58``: (..., Q) -> lower-triangular segment sums (..., Q, Q),
     ``-inf`` above the diagonal, so that ``exp`` gives 0 there (selected,
     never multiplied by a mask)."""
     Q = a.shape[-1]
-    cum = torch.cumsum(a, dim=-1)
+    cum = ctx.cumsum(a)
     d = cum[..., :, None] - cum[..., None, :]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
     return d.masked_fill(~mask, float("-inf"))
@@ -91,7 +91,7 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 
 def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
                   init_state: Optional[torch.Tensor] = None,
-                  ctx: Optional[ShardCtx] = None
+                  ctx: ShardCtx = NOSHARD
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD (``ssm.py:67``).
 
@@ -111,9 +111,8 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
 
     a = dt * A.float()[None, None, :]                    # (B, L, H) f32
     xw = x.float() * dt[..., None]                       # (B, L, H, P)
-    if ctx is not None:
-        a = ctx.constrain(a, "batch", "seq", "ssm_heads")
-        xw = ctx.constrain(xw, "batch", "seq", "ssm_heads", "ssm_hd")
+    a = ctx.constrain(a, "batch", "seq", "ssm_heads")
+    xw = ctx.constrain(xw, "batch", "seq", "ssm_heads", "ssm_hd")
     a_c = a.reshape(B_, n, Q, H)
     xw_c = xw.reshape(B_, n, Q, H, Pd)
     B_c = Bm.float().reshape(B_, n, Q, N)
@@ -124,8 +123,8 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
 
     def body(state, ac, xc, bc, cc):
         ah = ac.transpose(1, 2)                          # (B, H, Q)
-        cum = torch.cumsum(ah, dim=-1)
-        Lmat = torch.exp(_segsum(ah))                    # (B, H, Q, Q)
+        cum = ctx.cumsum(ah)
+        Lmat = torch.exp(_segsum(ah, ctx))               # (B, H, Q, Q)
         G = torch.einsum("bqn,bsn->bqs", cc, bc)         # (B, Q, Q)
         M = G[:, None] * Lmat
         y_diag = torch.einsum("bhqs,bshp->bqhp", M, xc)
@@ -155,14 +154,13 @@ def _mixer(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     the output; the prefill (``model.py:510``) also keeps the state and the
     conv's input, whose tail seeds the decode cache."""
     dt_ = x.dtype
-    B_, L, _ = x.shape
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
 
     zxbcdt = x @ p["in_proj"].to(dt_)
     z, xBC_in, dt = _split_proj(cfg, zxbcdt)
-    xBC = ctx.constrain(_causal_conv(xBC_in, p["conv_w"], p["conv_b"]),
+    xBC = ctx.constrain(_causal_conv(xBC_in, p["conv_w"], p["conv_b"], ctx),
                         "batch", "seq", "inner")
-    xs = xBC[..., :di].reshape(B_, L, h, pd)
+    xs = ctx.split_heads(xBC[..., :di], h)
     Bm = xBC[..., di:di + n]
     Cm = xBC[..., di + n:]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -174,7 +172,7 @@ def _mixer(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     else:
         y, state = ssd_reference(xs, dt, A, Bm, Cm, p["D"],
                                  chunk=cfg.ssm_chunk, ctx=ctx)
-    y = y.reshape(B_, L, di)
+    y = ctx.merge_heads(y)
     y = rmsnorm(p["norm"], y * silu(z))
     y = ctx.constrain(y, "batch", "seq", "act_ffn")
     return y @ p["out_proj"].to(dt_), state, xBC_in
@@ -218,8 +216,7 @@ def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     ``out_proj``, as in the reference.
     """
     dt_ = x.dtype
-    B_ = x.shape[0]
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
 
     zxbcdt = x[:, 0] @ p["in_proj"].to(dt_)              # (B, ...)
     z, xBC, dt = _split_proj(cfg, zxbcdt)
@@ -233,9 +230,14 @@ def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     xBC = silu(conv_out)
     new_conv = hist[:, 1:]
 
-    xs = xBC[..., :di].reshape(B_, h, pd).float()
+    xs = ctx.split_heads(xBC[..., :di], h).float()
     Bm = xBC[..., di:di + n].float()
     Cm = xBC[..., di + n:].float()
+    # the heads placed by the logical rule before the nonlinearity (heads
+    # that do not divide the mesh axis replicated): DTensor would settle
+    # the product's pending sum by splitting them into uneven shards,
+    # which the state's products cannot merge
+    dt = ctx.constrain(dt, "batch", "ssm_heads")
     dt = F.softplus(dt.float() + p["dt_bias"].float())     # (B, H)
     A = -torch.exp(p["A_log"].float())
 
@@ -244,7 +246,7 @@ def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
         "bh,bhp,bn->bhpn", dt, xs, Bm)
     y = torch.einsum("bhpn,bn->bhp", state, Cm) \
         + xs * p["D"].float()[None, :, None]
-    y = y.reshape(B_, di)
+    y = ctx.merge_heads(y)
     y = rmsnorm(p["norm"], y * silu(z.float()))
     y = (y.to(dt_) @ p["out_proj"].to(dt_))[:, None]
     return y, {"ssm": state, "conv": new_conv}

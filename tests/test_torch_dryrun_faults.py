@@ -7,9 +7,10 @@ sharding domain.  A cell either traces, with a finite roofline, or fails
 loudly: DTensor raises with the operation it cannot place named, and
 nothing catches or replicates around it in the port.  ``FAULTS`` is the
 list of cells that fail on the torch these tests run on (2.13), with
-the operation each names; ``ROADMAP.md`` (Queue 3) holds the same list,
-and a cell that starts or stops failing fails here.  The meshes live in
-three subprocesses, each with a fake process group of its own.
+the operation each names (none do); ``ROADMAP.md`` (Queue 3) holds the
+same list, and a cell that starts or stops failing fails here.  The
+meshes live in three subprocesses, each with a fake process group of
+its own.
 
 Run as a script, it lists every cell on the torch it runs on, one line
 each (the trace's seconds, or the operation that stops it):
@@ -37,15 +38,12 @@ SEQ, BATCH = 128, 8
 PROCESSES = 3
 
 #: (arch, shape) -> the operation DTensor cannot place, at every strategy
-#: of the cell's domain: the MoE dispatch's segment starts
-#: (``models/moe.py``), and the one-token cache write along the sequence
-#: that ``long_500k``'s decode adaptation shards (``attention.write_kv``)
-MOE = ("phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
-FAULTS = {**{(arch, shape): "aten.searchsorted.Tensor"
-             for arch in MOE for shape in ("train_4k", "prefill_32k",
-                                           "decode_32k")},
-          ("gemma3-27b", "long_500k"): "aten.scatter_.src",
-          ("zamba2-7b", "long_500k"): "aten.scatter_.src"}
+#: of the cell's domain.  Empty on 2.13: every cell traces since the MoE
+#: dispatch's segment starts come from slot counts (``moe._segments``)
+#: and the one-token cache write on a sharded cache is a masked select
+#: (``ShardCtx.write_rows``); the torch before it stops on more
+#: (ROADMAP.md, Queue 3)
+FAULTS = {}
 
 
 def _cells():
