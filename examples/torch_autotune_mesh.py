@@ -57,9 +57,13 @@ def eval_reduced(params: dict, context: dict) -> dict:
     try:
         t, report = _objective().evaluate(params["provider"],
                                           dict(params["config"]))
-    except (NotImplementedError, RuntimeError) as exc:
+    except (NotImplementedError, RuntimeError, AssertionError) as exc:
+        # DTensor names a placement it cannot make "Sharding propagation
+        # failed ..." or, for a redistribution it has no path for,
+        # "redistribute ... not supported" / "Redistribution ... is
+        # unsupported"
         reason = " ".join(str(exc).split())
-        if "sharding" not in reason.lower():
+        if not any(w in reason.lower() for w in ("sharding", "redistribut")):
             raise
         print(f"reduced_compile: {params['provider']} does not trace on "
               f"torch {torch.__version__}: {reason[-300:]}",

@@ -303,6 +303,82 @@ class ShardCtx:
             return
         cache.scatter_(1, posb.view(B, 1, *tail).expand(new.shape), new)
 
+    def einsum(self, eq: str, *operands: torch.Tensor) -> torch.Tensor:
+        """``torch.einsum(eq, *operands)``.
+
+        Under a mesh, where each rank's product of its own shards is its
+        shard of the result (:func:`_local_plan`: every mesh axis splits
+        one letter the same way in each operand that holds it, and the
+        others are whole on that axis), the product is taken on the local
+        shards through ``local_map``: no view of a DTensor (torch 2.11's
+        DTensor refuses the one ``einsum`` makes to fold two sharded batch
+        dims into ``bmm``'s one) and no collective.  A split contracted
+        letter, or one operand's pending sum, leaves a pending sum.
+        Otherwise DTensor plans ``torch.einsum`` as ever, and raises where
+        it cannot."""
+        import functools
+        return self._local(functools.partial(torch.einsum, eq), eq, operands)
+
+    def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` for an activation ``x`` (..., S, D) and a weight ``w``
+        (D, F).
+
+        Under a mesh that splits a dim of ``x`` between its first and its
+        last (the sequence), which the product would fold into the first
+        (torch 2.11's DTensor refuses that view), both are first placed as
+        DTensor places them for the folded ``x @ w``: ``x`` gathered on a
+        mesh axis that splits ``w``'s F, moved onto D on one that splits
+        ``w``'s D, kept on one that leaves ``w`` whole; ``w`` gathered on
+        an axis that splits both ``x``'s batch and ``w``'s D.  The
+        backward of each redistribution returns the gradient to the
+        operand's placements.
+        The product is then taken on the local shards, as :meth:`einsum`
+        takes it.  Otherwise ``x @ w``."""
+        if self.mesh is None or not (_is_dtensor(x) and _is_dtensor(w)):
+            return x @ w
+        from torch.distributed.tensor import Replicate, Shard
+        n = x.dim()
+        if not any(type(p) is Shard and 0 < p.dim < n - 1
+                   for p in x.placements):
+            return x @ w
+        pl, wpl = list(x.placements), list(w.placements)
+        for i, (p, q) in enumerate(zip(x.placements, w.placements)):
+            if type(p) is Shard and 0 < p.dim < n - 1:
+                if q == Shard(1):
+                    pl[i] = Replicate()
+                elif q == Shard(0):
+                    pl[i] = Shard(n - 1)
+            elif p == Shard(0) and q == Shard(0):
+                wpl[i] = Replicate()
+        plan = _local_plan(_matmul_eq(n), ((x.shape, tuple(pl)),
+                                           (w.shape, tuple(wpl))), self.mesh)
+        if plan is None:
+            return x @ w
+        if tuple(pl) != tuple(x.placements):
+            x = x.redistribute(self.mesh, tuple(pl))
+        if tuple(wpl) != tuple(w.placements):
+            w = w.redistribute(self.mesh, tuple(wpl))
+        return self._local(torch.matmul, _matmul_eq(n), (x, w))
+
+    def _local(self, fn, eq: str, operands):
+        """``fn(*operands)``, which computes ``torch.einsum(eq, ...)``: on
+        the local shards where :func:`_local_plan` finds the product
+        local, else as it is."""
+        if self.mesh is None:
+            return fn(*operands)
+        plan = _local_plan(eq, [(x.shape, tuple(x.placements)
+                                 if _is_dtensor(x) else None)
+                                for x in operands], self.mesh)
+        if plan is None:
+            return fn(*operands)
+        from torch.distributed.tensor.experimental import local_map
+        out, grads = plan
+        return local_map(
+            fn, out_placements=list(out),
+            in_placements=tuple(x.placements if _is_dtensor(x) else None
+                                for x in operands),
+            in_grad_placements=grads, device_mesh=self.mesh)(*operands)
+
     def _whole_heads(self, x: torch.Tensor, dim: int, heads: int,
                      drop: Tuple[str, ...] = ()) -> torch.Tensor:
         """``x`` redistributed, where it has to be, so that ``dim`` holds
@@ -363,6 +439,85 @@ class ShardCtx:
 
 
 NOSHARD = ShardCtx()
+
+
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "placements") and hasattr(x, "to_local")
+
+
+def _local_plan(eq: str, operands, mesh):
+    """Whether the einsum ``eq`` of operands given as (shape, placements)
+    pairs (placements ``None`` for a plain tensor, read as replicated) on
+    ``mesh`` is each rank's product of its own shards -> (the result's
+    placements, each operand's gradient placements, ``None`` for a plain
+    tensor), or ``None``.
+
+    It is, on each mesh axis, where
+    * every operand is whole (replicated): so are the result and the
+      gradients;
+    * one letter is split the same way (``Shard``) in every operand that
+      holds it and the others are whole: the result is split along it
+      (a pending sum where it is contracted); the gradient of an operand
+      that holds it is split as the operand is, that of one that does not
+      is a pending sum of each rank's part;
+    * one operand is a pending sum and the others are whole: the result
+      is a pending sum, that operand's gradient whole and the others'
+      pending sums.
+    Each letter must split evenly over the axes that split it, as
+    ``local_map`` infers the result's shape from the local one."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if "->" not in eq or "." in eq:
+        return None
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    if len(ins) != len(operands) or any(len(set(s)) != len(s) for s in ins):
+        return None
+    placed = [pl if pl is not None else (Replicate(),) * mesh.ndim
+              for _, pl in operands]
+    sizes = {c: shape[i] for (shape, _), s in zip(operands, ins)
+             for i, c in enumerate(s)}
+    ways = dict.fromkeys(sizes, 1)
+    out_pl, grads = [], [[] for _ in operands]
+    for axis in range(mesh.ndim):
+        pls = [p[axis] for p in placed]
+        if all(isinstance(p, Replicate) for p in pls):
+            out_pl.append(Replicate())
+            for g in grads:
+                g.append(Replicate())
+            continue
+        pending = [k for k, p in enumerate(pls) if isinstance(p, Partial)]
+        if pending:
+            if len(pending) > 1 or pls[pending[0]] != Partial() or not all(
+                    isinstance(p, (Partial, Replicate)) for p in pls):
+                return None
+            out_pl.append(Partial())
+            for k, g in enumerate(grads):
+                g.append(Replicate() if k == pending[0] else Partial())
+            continue
+        if not all(type(p) in (Shard, Replicate) for p in pls):
+            return None
+        split = {ins[k][p.dim] for k, p in enumerate(pls)
+                 if isinstance(p, Shard)}
+        if len(split) != 1:
+            return None
+        c = split.pop()
+        for k, (p, s) in enumerate(zip(pls, ins)):
+            if p != (Shard(s.index(c)) if c in s else Replicate()):
+                return None
+            grads[k].append(p if c in s else Partial())
+        out_pl.append(Shard(out.index(c)) if c in out else Partial())
+        ways[c] *= mesh.size(axis)
+    if any(sizes[c] % w for c, w in ways.items()):
+        return None
+    return tuple(out_pl), tuple(
+        tuple(g) if pl is not None else None
+        for (_, pl), g in zip(operands, grads))
+
+
+def _matmul_eq(n: int) -> str:
+    """The einsum of ``x @ w`` for an ``n``-dim ``x`` and a 2-dim ``w``."""
+    rows = "abcdefgh"[:n - 1]
+    return f"{rows}y,yz->{rows}z"
 
 
 class _Regroup(torch.autograd.Function):

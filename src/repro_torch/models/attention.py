@@ -36,7 +36,7 @@ def attn_spec(cfg: ArchConfig, cross: bool = False) -> dict:
 
 def project_q(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
+    q = ctx.matmul(x, p["wq"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
     return ctx.split_heads(q, cfg.n_heads)
@@ -44,8 +44,8 @@ def project_q(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
 
 def project_kv(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
     dt = x.dtype
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = ctx.matmul(x, p["wk"].to(dt))
+    v = ctx.matmul(x, p["wv"].to(dt))
     if "bk" in p:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
@@ -54,7 +54,7 @@ def project_kv(p, x, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
 
 
 def out_proj(p, o, cfg: ArchConfig, ctx: ShardCtx = NOSHARD):
-    return ctx.merge_heads(o) @ p["wo"].to(o.dtype)
+    return ctx.matmul(ctx.merge_heads(o), p["wo"].to(o.dtype))
 
 
 def _mask(qpos, kpos, *, causal, is_global, window):
@@ -92,12 +92,12 @@ def chunked_mha(q, k, v, ctx: ShardCtx, *, causal: bool = True,
 
     def block(qc, kf, v, start: int):
         qpos = q_offset + start + torch.arange(chunk, device=q.device)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
+        s = ctx.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
         m = _mask(qpos, kpos, causal=causal, is_global=is_global,
                   window=window)
         s = torch.where(m[None, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+        return ctx.einsum("bkgqs,bskd->bqkgd", p, v)
 
     outs = [remat_call(block, qg[:, start:start + chunk], kf, v, start)
             for start in range(0, Sq, chunk)]
@@ -131,12 +131,12 @@ def banded_mha(q, k, v, ctx: ShardCtx, *, window: int, q_offset: int = 0,
     def block(qc, kc, vc, start: int, k0: int):
         qpos = q_offset + start + torch.arange(chunk, device=q.device)
         kpos = k0 + torch.arange(band, device=q.device)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kc) * scale
+        s = ctx.einsum("bqkgd,bskd->bkgqs", qc.float(), kc) * scale
         m = (kpos[None, :] <= qpos[:, None]) & \
             (kpos[None, :] > (qpos[:, None] - window))
         s = torch.where(m[None, None, None], s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(vc.dtype)
-        return torch.einsum("bkgqs,bskd->bqkgd", p, vc)
+        return ctx.einsum("bkgqs,bskd->bqkgd", p, vc)
 
     outs = []
     for start in range(0, Sq, chunk):
@@ -166,7 +166,7 @@ def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
     _, Sk, Hkv, _ = k_cache.shape
     scale = 1.0 / math.sqrt(D)
     qg = ctx.split_heads(q[:, 0], Hkv, dim=1)            # (B,Hkv,G,D)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    s = ctx.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
     kpos = torch.arange(Sk, device=q.device)
     posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1)  # (1,1)|(B,1)
     m = (kpos[None, :] < posb) if k_new is not None else (kpos[None, :] <= posb)
@@ -174,16 +174,16 @@ def decode_mha(q, k_cache, v_cache, ctx: ShardCtx, *, pos, is_global=True,
         m = m & ((kpos[None, :] > posb - window) | bool(is_global))
     s = torch.where(m[:, None, None, :], s, NEG_INF)
     if k_new is not None:
-        s_self = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                              k_new.to(q.dtype).float()) * scale
+        s_self = ctx.einsum("bkgd,bskd->bkgs", qg.float(),
+                            k_new.to(q.dtype).float()) * scale
         s = torch.cat([s, s_self], dim=-1)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     if k_new is not None:
-        o = torch.einsum("bkgs,bskd->bkgd", p[..., :-1], v_cache) + \
+        o = ctx.einsum("bkgs,bskd->bkgd", p[..., :-1], v_cache) + \
             p[..., -1:] * v_new.to(v_cache.dtype).reshape(B, Hkv, 1, D)
         o = o.to(v_cache.dtype)
     else:
-        o = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
+        o = ctx.einsum("bkgs,bskd->bkgd", p, v_cache)
     return ctx.merge_heads(o, dim=1)[:, None]
 
 

@@ -99,7 +99,7 @@ def dense_block(p, h, cfg: ArchConfig, ctx: ShardCtx, opts: ModelOpts, *,
     h = h + a
     hn = rmsnorm(p["ln2"], h)
     if cfg.n_experts:
-        aux = moe_mod.router_aux_loss(p["moe"], hn, cfg)
+        aux = moe_mod.router_aux_loss(p["moe"], hn, cfg, ctx)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + ffn(p, hn, cfg, ctx), aux

@@ -88,11 +88,12 @@ def mlp(params, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
     dt = x.dtype
     if cfg.activation in ("swiglu", "geglu"):
         act = activation(cfg)
-        h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+        h = act(ctx.matmul(x, params["wg"].to(dt))) * ctx.matmul(
+            x, params["wi"].to(dt))
     else:
-        h = _gelu_tanh(x @ params["wi"].to(dt))
+        h = _gelu_tanh(ctx.matmul(x, params["wi"].to(dt)))
     h = ctx.constrain(h, "batch", "seq", "act_ffn")
-    return h @ params["wo"].to(dt)
+    return ctx.matmul(h, params["wo"].to(dt))
 
 
 def embed_spec(cfg: ArchConfig) -> dict:
@@ -159,7 +160,8 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
     w = unembed_matrix(params, cfg, h.dtype)              # (D, V)
 
     def body(hc, yc):
-        logits = ctx.constrain((hc @ w).float(), "batch", "seq", "vocab")
+        logits = ctx.constrain(ctx.matmul(hc, w).float(), "batch", "seq",
+                               "vocab")
         # (B, chunk, 1) until the difference: on a vocab-sharded DTensor
         # the gather's pending reduction (a masked partial) is made on
         # the shape it was gathered at

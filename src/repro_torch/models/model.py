@@ -130,11 +130,13 @@ class Model:
         return np.array([g for _, g in self.cfg.layer_pattern()], bool)
 
     # ---------------- forward and loss ----------------
-    def _embed_in(self, params, batch, dtype: torch.dtype) -> torch.Tensor:
+    def _embed_in(self, params, batch, dtype: torch.dtype,
+                  ctx: ShardCtx = NOSHARD) -> torch.Tensor:
         """``model.py:99``: audio projects its frame embeddings, every
         other family embeds its tokens."""
         if self.cfg.family == "audio":
-            return batch["frames"].to(dtype) @ params["frame_proj"].to(dtype)
+            return ctx.matmul(batch["frames"].to(dtype),
+                              params["frame_proj"].to(dtype))
         return embed(params["embed"], batch["tokens"], dtype)
 
     def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
@@ -160,7 +162,7 @@ class Model:
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         params = _top_weights(precast(params, dtype), ctx)
-        h = ctx.constrain(self._embed_in(params, batch, dtype),
+        h = ctx.constrain(self._embed_in(params, batch, dtype, ctx),
                           "batch", "seq", "act_embed")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         positions = torch.arange(h.shape[1], device=h.device)[None]
@@ -291,7 +293,7 @@ class Model:
         if cfg.family == "audio":
             h, _ = self.forward(params, batch, ctx, opts)
             w = unembed_matrix(params["embed"], cfg, h.dtype)
-            return (h @ w).float(), {}
+            return ctx.matmul(h, w).float(), {}
         h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
                           "batch", "seq", "act_embed")
         positions = torch.arange(h.shape[1], device=h.device)[None]

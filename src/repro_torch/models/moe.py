@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distrib.logical import P, ShardCtx
+from repro_torch.distrib.logical import NOSHARD, P, ShardCtx
 from repro_torch.models.layers import activation
 
 
@@ -148,13 +148,16 @@ def dropped_slots(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return (seg_end - seg_start - C).clamp_min(0).sum()
 
 
-def router_aux_loss(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def router_aux_loss(p, x: torch.Tensor, cfg: ArchConfig,
+                    ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """``moe.py:124``: Switch-style load balance, E * sum_e f_e * p_e,
     where f_e is the share of tokens whose top expert (``argmax``: the
     first on a tie) is e and p_e the mean router probability."""
-    B, S, D = x.shape
-    xt = x.reshape(B * S, D).float()
-    probs = torch.softmax(xt @ p["router"].float(), dim=-1)
+    B, S, _ = x.shape
+    # the (B, S, E) product, then its rows: the same values as flattening
+    # x first, without folding a sharded sequence into the batch
+    probs = torch.softmax(ctx.matmul(x.float(), p["router"].float()),
+                          dim=-1).reshape(B * S, -1)
     top1 = torch.argmax(probs, dim=-1)
     f = torch.nn.functional.one_hot(top1, cfg.n_experts).float().mean(0)
     pbar = probs.mean(0)

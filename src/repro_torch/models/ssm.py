@@ -125,15 +125,15 @@ def ssd_reference(x, dt, A, Bm, Cm, D, chunk: int,
         ah = ac.transpose(1, 2)                          # (B, H, Q)
         cum = ctx.cumsum(ah)
         Lmat = torch.exp(_segsum(ah, ctx))               # (B, H, Q, Q)
-        G = torch.einsum("bqn,bsn->bqs", cc, bc)         # (B, Q, Q)
+        G = ctx.einsum("bqn,bsn->bqs", cc, bc)           # (B, Q, Q)
         M = G[:, None] * Lmat
-        y_diag = torch.einsum("bhqs,bshp->bqhp", M, xc)
+        y_diag = ctx.einsum("bhqs,bshp->bqhp", M, xc)
         state_decay = torch.exp(cum)                     # (B, H, Q)
-        y_off = torch.einsum("bqn,bhpn,bhq->bqhp", cc, state, state_decay)
+        y_off = ctx.einsum("bqn,bhpn,bhq->bqhp", cc, state, state_decay)
         total = cum[..., -1]                             # (B, H)
         decay_to_end = torch.exp(cum[..., -1:] - cum)    # (B, H, Q)
-        new_contrib = torch.einsum("bqn,bhq,bqhp->bhpn", bc, decay_to_end,
-                                   xc)
+        new_contrib = ctx.einsum("bqn,bhq,bqhp->bhpn", bc, decay_to_end,
+                                 xc)
         state = state * torch.exp(total)[..., None, None] + new_contrib
         return state, y_diag + y_off
 
@@ -156,7 +156,7 @@ def _mixer(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     dt_ = x.dtype
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
 
-    zxbcdt = x @ p["in_proj"].to(dt_)
+    zxbcdt = ctx.matmul(x, p["in_proj"].to(dt_))
     z, xBC_in, dt = _split_proj(cfg, zxbcdt)
     xBC = ctx.constrain(_causal_conv(xBC_in, p["conv_w"], p["conv_b"], ctx),
                         "batch", "seq", "inner")
@@ -175,7 +175,7 @@ def _mixer(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     y = ctx.merge_heads(y)
     y = rmsnorm(p["norm"], y * silu(z))
     y = ctx.constrain(y, "batch", "seq", "act_ffn")
-    return y @ p["out_proj"].to(dt_), state, xBC_in
+    return ctx.matmul(y, p["out_proj"].to(dt_)), state, xBC_in
 
 
 def mamba_block(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
@@ -242,9 +242,9 @@ def mamba_decode_step(p, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     A = -torch.exp(p["A_log"].float())
 
     decay = torch.exp(dt * A[None, :])                   # (B, H)
-    state = cache["ssm"] * decay[..., None, None] + torch.einsum(
+    state = cache["ssm"] * decay[..., None, None] + ctx.einsum(
         "bh,bhp,bn->bhpn", dt, xs, Bm)
-    y = torch.einsum("bhpn,bn->bhp", state, Cm) \
+    y = ctx.einsum("bhpn,bn->bhp", state, Cm) \
         + xs * p["D"].float()[None, :, None]
     y = ctx.merge_heads(y)
     y = rmsnorm(p["norm"], y * silu(z.float()))

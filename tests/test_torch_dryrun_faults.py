@@ -12,8 +12,20 @@ same list, and a cell that starts or stops failing fails here.  The
 meshes live in three subprocesses, each with a fake process group of
 its own.
 
+While a cell traces, a dispatch mode on the stack (``Folds``) sees each
+operation on DTensors before DTensor places it and records every view
+that flattens a split dim into the dim before it: the view torch 2.11's
+DTensor refuses ("Attempted to flatten multiple dimensions, with
+dimension ... being sharded").  ``FOLDS`` lists the cells that still
+make one, and a cell that starts or stops folding fails here, so 2.11's
+commonest stop is held on the torch these tests run on.
+
 Run as a script, it lists every cell on the torch it runs on, one line
-each (the trace's seconds, or the operation that stops it):
+each: the trace's counts (FLOPs, bytes, collective bytes by kind, peak
+per chip), its folds and its seconds, or the operation that stops it;
+two trees' listings can be diffed.  ``PYTHONPATH`` is kept for the
+subprocesses, behind ``src``, so a directory laid over torch's own
+(another release's ``torch/distributed``) reaches them too:
 
     PYTHONPATH=src python tests/test_torch_dryrun_faults.py [processes]
 """
@@ -45,6 +57,37 @@ PROCESSES = 3
 #: (ROADMAP.md, Queue 3)
 FAULTS = {}
 
+#: (arch, shape, strategy) of the cells whose trace still folds a split
+#: dim into the one before it in a view (the op the ``Folds`` guard
+#: records, which torch 2.11's DTensor refuses), each with that op.
+#: ``ShardCtx.einsum`` and ``ShardCtx.matmul`` take every other product
+#: on the local shards.  In these, 2.13's DTensor leaves the query a
+#: pending sum (it gathers the projection's weight rather than settle its
+#: input's sum), and a pending sum against a head-split key is no local
+#: product, so the scores' einsum is DTensor's, which folds batch and
+#: heads; 2.11 settles that sum in the projection and takes the local
+#: product, and these cells trace there (ROADMAP.md, Queue 3)
+FOLDS = dict.fromkeys((
+    ("gemma-7b", "decode_32k", "fsdp_tp"),
+    ("gemma-7b", "decode_32k", "fsdp_tp_nosp"),
+    ("gemma-7b", "decode_32k", "tp_serve"),
+    ("gemma3-27b", "decode_32k", "fsdp_tp"),
+    ("gemma3-27b", "decode_32k", "fsdp_tp_nosp"),
+    ("gemma3-27b", "decode_32k", "tp_serve"),
+    ("llama-3.2-vision-90b", "train_4k", "fsdp_tp_nosp"),
+    ("llama-3.2-vision-90b", "prefill_32k", "fsdp_tp_nosp"),
+    ("llama-3.2-vision-90b", "prefill_32k", "tp_serve"),
+    ("llama-3.2-vision-90b", "decode_32k", "fsdp_tp"),
+    ("llama-3.2-vision-90b", "decode_32k", "fsdp_tp_nosp"),
+    ("llama-3.2-vision-90b", "decode_32k", "tp_serve"),
+    ("minitron-8b", "decode_32k", "fsdp_tp"),
+    ("minitron-8b", "decode_32k", "fsdp_tp_nosp"),
+    ("minitron-8b", "decode_32k", "tp_serve"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "fsdp_tp"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "fsdp_tp_nosp"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "tp_serve"),
+), "aten._unsafe_view.default")
+
 
 def _cells():
     out = []
@@ -62,11 +105,49 @@ CELLS = _cells()
 
 SCRIPT = """
 import dataclasses, json, math, sys, time
+import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._ops._view_ops import Flatten, view_groups
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.analysis.roofline import roofline_from_trace
 from repro_torch.configs import REGISTRY, get_shape
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_plan
 from repro_torch.models.blocks import ModelOpts
+
+VIEWS = {"view", "_unsafe_view", "reshape"}
+
+
+def _flattens(cmd):
+    if isinstance(cmd, Flatten):
+        yield cmd
+    for inp in cmd.inputs():
+        yield from _flattens(inp)
+
+
+class Folds(TorchDispatchMode):
+    # on the stack while a cell traces, so it sees each DTensor-level op
+    # before DTensor does: a view that flattens input dims (i, j, ...)
+    # with a dim after i sharded is the fold torch 2.11 refuses
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        x = args[0] if args else None
+        if (func._overloadpacket.__name__ in VIEWS
+                and isinstance(x, DTensor)):
+            # recorded before DTensor places the view, which 2.11 refuses
+            shape = torch.empty(x.shape, device="meta").reshape(
+                args[1]).shape
+            split = {getattr(pl, "dim", None) for pl in x.placements}
+            for flat in (f for cmd in view_groups(x.shape, shape)
+                         for f in _flattens(cmd)):
+                if any(d.input_dim in split for d in flat.input_dims[1:]):
+                    self.seen.add(f"{func} {tuple(x.shape)} -> "
+                                  f"{tuple(shape)} {x.placements}")
+        return func(*args, **(kwargs or {}))
+
 
 seq, batch = int(sys.argv[2]), int(sys.argv[3])
 mesh = make_mesh(4, 2)
@@ -78,17 +159,22 @@ for arch, shape_name, strategy in json.loads(sys.argv[1]):
                                 global_batch=min(full.global_batch, batch))
     cfg = REGISTRY[arch].reduced()
     key = f"{arch}|{shape_name}|{strategy}"
+    folds = Folds()
     t0 = time.time()
     try:
         plan = build_plan(cfg, shape, mesh, strategy=strategy, opts=opts)
-        r = roofline_from_trace(plan, cfg=cfg, shape=shape,
-                                mesh_name="reduced", chips=8)
+        with folds:
+            r = roofline_from_trace(plan, cfg=cfg, shape=shape,
+                                    mesh_name="reduced", chips=8)
     except Exception as exc:        # recorded: the test names the op
         res[key] = {"error": type(exc).__name__ + ": "
-                    + " ".join(str(exc).split())}
+                    + " ".join(str(exc).split()),
+                    "folds": sorted(folds.seen)}
         continue
     res[key] = {"t_step": r.t_step, "flops": r.flops_per_chip,
-                "peak": r.peak_memory_per_chip, "trace_s": time.time() - t0}
+                "bytes": r.bytes_per_chip, "coll": r.coll_breakdown,
+                "peak": r.peak_memory_per_chip, "trace_s": time.time() - t0,
+                "folds": sorted(folds.seen)}
 print(json.dumps(res))
 """
 
@@ -96,7 +182,8 @@ print(json.dumps(res))
 def trace_cells(processes: int = PROCESSES) -> dict:
     """Every cell of ``CELLS``, traced in ``processes`` subprocesses at
     once -> {"arch|shape|strategy": the roofline's numbers or the error}."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), *filter(None, [os.environ.get("PYTHONPATH")])]))
     archs = sorted({c[0] for c in CELLS})
     procs = []
     for i in range(processes):
@@ -129,6 +216,7 @@ def test_every_cell_is_listed():
     # domain; the faults name cells that exist
     assert len(CELLS) == len(set(CELLS)) > 0
     assert {c[:2] for c in CELLS} >= set(FAULTS)
+    assert set(CELLS) >= set(FOLDS)
     assert all(get_shape(s).name == s for s in SHAPES)
 
 
@@ -145,6 +233,19 @@ def test_reduced_cell_traces_or_names_its_fault(traced, cell):
         assert op in r["error"], r["error"]
 
 
+@pytest.mark.parametrize("cell", CELLS, ids="|".join)
+def test_reduced_cell_folds_no_split_dim(traced, cell):
+    """The trace's views on DTensors, as the ``Folds`` mode saw them: none
+    flattens a split dim into the one before it, but in ``FOLDS``."""
+    folds = traced["|".join(cell)]["folds"]
+    op = FOLDS.get(cell)
+    if op is None:
+        assert not folds, folds
+    else:
+        assert folds, f"{cell} folds no split dim: take it out of FOLDS"
+        assert all(f.startswith(op) for f in folds), folds
+
+
 if __name__ == "__main__":
     import torch
     t0 = time.time()
@@ -152,12 +253,17 @@ if __name__ == "__main__":
     print(f"torch {torch.__version__}: {len(CELLS)} cells", flush=True)
     for cell in CELLS:
         r = res["|".join(cell)]
+        folds = f"folds {len(r['folds'])}"
         if "error" in r:
             ops = sorted(set(re.findall(
                 r"aten\.[A-Za-z_0-9]+\.[A-Za-z_0-9]+", r["error"])))
-            print("FAIL", *cell, " ".join(ops) or "-", r["error"][-240:])
+            print("FAIL", *cell, folds, " ".join(ops) or "-",
+                  r["error"][-240:])
         else:
-            print("OK", *cell, f"trace {r['trace_s']:.2f} s", r["t_step"],
-                  r["flops"], r["peak"])
+            coll = " ".join(f"{k} {v}" for k, v in sorted(r["coll"].items()))
+            print("OK", *cell, folds, f"flops {r['flops']!r}",
+                  f"bytes {r['bytes']!r}", coll, f"peak {r['peak']!r}",
+                  f"t_step {r['t_step']!r}", f"trace {r['trace_s']:.2f} s")
     print(f"{sum('error' not in r for r in res.values())} of {len(CELLS)} "
-          f"trace; listed in {time.time() - t0:.1f} s")
+          f"trace, {sum(bool(r['folds']) for r in res.values())} fold; "
+          f"listed in {time.time() - t0:.1f} s")

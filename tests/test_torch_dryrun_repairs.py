@@ -189,6 +189,125 @@ def test_chunked_ce_with_gold_logit(dt, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# ShardCtx.einsum and ShardCtx.matmul with no mesh, and the local plan
+# ---------------------------------------------------------------------------
+def _site_operands():
+    """Each product site's equation with operands of the reduced
+    qwen1.5-4b's and mamba2-130m's shapes (batch 2, a chunk of 16)."""
+    q = tconfigs.get_config("qwen1.5-4b").reduced()
+    m = tconfigs.get_config("mamba2-130m").reduced()
+    B, C, S = 2, 16, 32
+    K, G, D = q.n_kv_heads, q.n_heads // q.n_kv_heads, q.head_dim
+    H, Pd, N = m.ssm_heads, m.ssm_head_dim, m.ssm_state
+    return {
+        "chunked_scores": ("bqkgd,bskd->bkgqs", [(B, C, K, G, D),
+                                                 (B, S, K, D)]),
+        "chunked_values": ("bkgqs,bskd->bqkgd", [(B, K, G, C, S),
+                                                 (B, S, K, D)]),
+        "decode_scores": ("bkgd,bskd->bkgs", [(B, K, G, D), (B, S, K, D)]),
+        "decode_values": ("bkgs,bskd->bkgd", [(B, K, G, S), (B, S, K, D)]),
+        "ssd_gram": ("bqn,bsn->bqs", [(B, C, N), (B, C, N)]),
+        "ssd_diag": ("bhqs,bshp->bqhp", [(B, H, C, C), (B, C, H, Pd)]),
+        "ssd_off": ("bqn,bhpn,bhq->bqhp", [(B, C, N), (B, H, Pd, N),
+                                            (B, H, C)]),
+        "ssd_state": ("bqn,bhq,bqhp->bhpn", [(B, C, N), (B, H, C),
+                                              (B, C, H, Pd)]),
+        "mamba_update": ("bh,bhp,bn->bhpn", [(B, H), (B, H, Pd), (B, N)]),
+        "mamba_read": ("bhpn,bn->bhp", [(B, H, Pd, N), (B, N)]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_site_operands()))
+def test_noshard_einsum_is_torch_einsum(name):
+    """With no mesh ``ShardCtx.einsum`` is ``torch.einsum``: the same
+    bits, forward and gradients, at each site's equation."""
+    eq, shapes = _site_operands()[name]
+    rng = np.random.default_rng(3)
+    fulls = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in shapes]
+    outs = []
+    for fn in (NOSHARD.einsum, torch.einsum):
+        xs = [t.clone().requires_grad_(True) for t in fulls]
+        out = fn(eq, *xs)
+        out.backward(torch.ones_like(out))
+        outs.append([out] + [x.grad for x in xs])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_noshard_matmul_is_matmul(dt):
+    """With no mesh ``ShardCtx.matmul`` is ``x @ w`` bit for bit, forward
+    and gradients, at the reduced qwen1.5-4b's projection shapes."""
+    cfg = tconfigs.get_config("qwen1.5-4b").reduced()
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.standard_normal((2, 32, cfg.d_model))
+                          .astype(np.float32)).to(getattr(torch, dt))
+    w0 = torch.from_numpy(rng.standard_normal((cfg.d_model, cfg.q_dim))
+                          .astype(np.float32)).to(getattr(torch, dt))
+    outs = []
+    for fn in (NOSHARD.matmul, torch.matmul):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        out = fn(x, w)
+        out.backward(torch.ones_like(out))
+        outs.append((out, x.grad, w.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+class _Mesh:
+    """What ``_local_plan`` reads of a mesh: its dims and their sizes."""
+    ndim = 2
+
+    @staticmethod
+    def size(axis):
+        return (4, 2)[axis]
+
+
+@pytest.mark.parametrize("eq,shapes,pls,out,grads", [
+    # batch and heads split, the same in both: a local product
+    ("bkgd,bskd->bkgs", [(8, 4, 2, 16), (8, 32, 4, 16)],
+     [("S0", "S1"), ("S0", "S2")], ("S0", "S1"),
+     [("S0", "S1"), ("S0", "S2")]),
+    # a free dim of one operand split, the other whole on that axis: its
+    # gradient is a pending sum
+    ("bsd,df->bsf", [(8, 32, 16), (16, 8)], [("S0", "R"), ("R", "S1")],
+     ("S0", "S2"), [("S0", "P"), ("P", "S1")]),
+    # the contracted dim split in both: a pending-sum result
+    ("bsf,fd->bsd", [(8, 32, 8), (8, 16)], [("S0", "S2"), ("R", "S0")],
+     ("S0", "P"), [("S0", "S2"), ("P", "S0")]),
+    # one operand a pending sum, the other whole: a pending sum
+    ("bkgd,bskd->bkgs", [(8, 4, 2, 16), (8, 32, 4, 16)],
+     [("S0", "P"), ("S0", "R")], ("S0", "P"), [("S0", "R"), ("S0", "P")]),
+    # a plain tensor is whole; its gradient has no placements
+    ("bqn,nm->bqm", [(8, 16, 4), (4, 6)], [("S0", "R"), None],
+     ("S0", "R"), [("S0", "R"), None]),
+    # two letters split over one axis, or a letter split in one operand
+    # and whole in another that holds it: no local product
+    ("bqn,bsn->bqs", [(8, 16, 4), (8, 16, 4)], [("S0", "S1"), ("S0", "S1")],
+     None, None),
+    ("bkgd,bskd->bkgs", [(8, 4, 2, 16), (8, 32, 4, 16)],
+     [("S0", "S1"), ("S0", "R")], None, None),
+    # heads that do not split evenly: no local product
+    ("bkgd,bskd->bkgs", [(8, 5, 2, 16), (8, 32, 5, 16)],
+     [("S0", "S1"), ("S0", "S2")], None, None),
+])
+def test_local_plan(eq, shapes, pls, out, grads):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.distrib.logical import _local_plan
+
+    def placed(names):
+        return None if names is None else tuple(
+            Replicate() if n == "R" else Partial() if n == "P"
+            else Shard(int(n[1:])) for n in names)
+
+    plan = _local_plan(eq, [(s, placed(p)) for s, p in zip(shapes, pls)],
+                       _Mesh)
+    if out is None:
+        assert plan is None
+    else:
+        assert plan == (placed(out), tuple(placed(g) for g in grads))
+
+
+# ---------------------------------------------------------------------------
 # on a mesh: 8 gloo processes
 # ---------------------------------------------------------------------------
 WORKER = textwrap.dedent("""
@@ -289,6 +408,128 @@ WORKER = textwrap.dedent("""
     (torch.cumsum(plain_x, -1) * ws_full).sum().backward()
     res["cumsum"] = (torch.equal(cs.full_tensor(), torch.cumsum(xs_full, -1))
                      and torch.equal(xs.grad.full_tensor(), plain_x.grad))
+
+    # the products on the local shards: ShardCtx.einsum at every equation
+    # of the model's sites and ShardCtx.matmul of a sequence-split
+    # activation, forward and gradients, against the plain ops on the
+    # whole tensors: bit for bit where only batch dims (in every operand)
+    # are split, so each rank multiplies whole matrices of the plain
+    # product, and no pending sum is left; else f32 2e-5 (a split row or
+    # column dim gives the CPU's GEMM another blocking, a split
+    # contracted dim a pending sum)
+    from torch.distributed.tensor import Partial
+    from repro_torch.distrib.logical import _local_plan
+
+    def close(a, b, exact):
+        if exact:
+            return torch.equal(a, b)
+        return torch.allclose(a, b, rtol=2e-5, atol=2e-5)
+
+    def pending(t):
+        return any(isinstance(q, Partial) for q in t.placements)
+
+    def product(name, fn, plain, fulls, pls, batch_only):
+        ins = [distribute_tensor(t, mesh, pl).requires_grad_(True)
+               for t, pl in zip(fulls, pls)]
+        with implicit_replication():
+            out = fn(*ins)
+            up = torch.randn(out.shape, generator=g)
+            (out * up).sum().backward()
+        refs = [t.clone().requires_grad_(True) for t in fulls]
+        ref = plain(*refs)
+        (ref * up).sum().backward()
+        exact = batch_only and not pending(out)
+        res[f"{name}_out"] = close(out.full_tensor(), ref, exact)
+        res[f"{name}_grads"] = all(
+            close(a.grad.full_tensor(), b.grad,
+                  batch_only and not pending(a.grad))
+            for a, b in zip(ins, refs))
+        res[f"{name}_exact"] = exact
+        return ins, out
+
+    def batch_only(eq, pls):
+        ins = eq.split("->")[0].split(",")
+        split = {s[q.dim] for s, pl in zip(ins, pls) for q in pl
+                 if isinstance(q, Shard)}
+        return all(c in s for c in split for s in ins)
+
+    S0, S1, S2, R = Shard(0), Shard(1), Shard(2), Replicate()
+    B, Q, S, K, G, D, H, P, N = 4, 8, 16, 4, 2, 8, 4, 6, 8
+    rnd = lambda *shape: torch.randn(*shape, generator=g)
+    EINSUMS = {
+        # attention: batch over "data", KV heads over "model"
+        "chunked_scores": ("bqkgd,bskd->bkgqs", [rnd(B, Q, K, G, D),
+                           rnd(B, S, K, D)], [(S0, S2), (S0, S2)]),
+        "chunked_values": ("bkgqs,bskd->bqkgd", [rnd(B, K, G, Q, S),
+                           rnd(B, S, K, D)], [(S0, S1), (S0, S2)]),
+        "decode_scores": ("bkgd,bskd->bkgs", [rnd(B, K, G, D),
+                          rnd(B, S, K, D)], [(S0, S1), (S0, S2)]),
+        "decode_values": ("bkgs,bskd->bkgd", [rnd(B, K, G, S),
+                          rnd(B, S, K, D)], [(S0, S1), (S0, S2)]),
+        # the SSD's intra-chunk products: batch over "data", the chunk's
+        # rows or the heads over "model"
+        "ssd_gram": ("bqn,bsn->bqs", [rnd(B, Q, N), rnd(B, Q, N)],
+                     [(S0, S1), (S0, R)]),
+        "ssd_diag": ("bhqs,bshp->bqhp", [rnd(B, H, Q, Q), rnd(B, Q, H, P)],
+                     [(S0, S1), (S0, S2)]),
+        "ssd_off": ("bqn,bhpn,bhq->bqhp", [rnd(B, Q, N), rnd(B, H, P, N),
+                    rnd(B, H, Q)], [(S0, R), (S0, S1), (S0, S1)]),
+        "ssd_state": ("bqn,bhq,bqhp->bhpn", [rnd(B, Q, N), rnd(B, H, Q),
+                      rnd(B, Q, H, P)], [(S0, R), (S0, S1), (S0, S2)]),
+        # the Mamba decode's state update and read
+        "mamba_update": ("bh,bhp,bn->bhpn", [rnd(B, H), rnd(B, H, P),
+                         rnd(B, N)], [(S0, S1), (S0, S1), (S0, R)]),
+        "mamba_read": ("bhpn,bn->bhp", [rnd(B, H, P, N), rnd(B, N)],
+                       [(S0, S1), (S0, R)]),
+        # a contracted dim split: the keys over "model", a pending sum
+        "values_split_keys": ("bkgs,bskd->bkgd", [rnd(B, K, G, S),
+                              rnd(B, S, K, D)], [(S0, Shard(3)), (S0, S1)]),
+    }
+    for name, (eq, fulls, pls) in EINSUMS.items():
+        product(f"einsum_{name}",
+                lambda *xs, eq=eq: ctx.einsum(eq, *xs),
+                lambda *xs, eq=eq: torch.einsum(eq, *xs), fulls, pls,
+                batch_only(eq, pls))
+        res[f"einsum_{name}_local"] = _local_plan(
+            eq, [(t.shape, pl) for t, pl in zip(fulls, pls)], mesh) is not None
+    # a pending-sum operand against a whole one: a pending-sum result
+    qf, kf = rnd(B, K, G, D), rnd(B, S, K, D)
+    half = distribute_tensor(qf, mesh, (S0, R)).to_local() * 0.5
+    qp = DTensor.from_local(half, mesh, (S0, Partial()), run_check=False)
+    kr = distribute_tensor(kf, mesh, (S0, R))
+    with implicit_replication():
+        op = ctx.einsum("bkgd,bskd->bkgs", qp, kr)
+    res["einsum_pending_operand"] = (
+        tuple(op.placements) == (S0, Partial())
+        and close(op.full_tensor(), torch.einsum("bkgd,bskd->bkgs", qf, kf),
+                  False))
+    # two letters split on one axis: no local product, DTensor's einsum
+    cq, cs = rnd(B, Q, N), rnd(B, S, N)
+    a = distribute_tensor(cq, mesh, (S0, S1))
+    b = distribute_tensor(cs, mesh, (S0, S1))
+    with implicit_replication():
+        via = ctx.einsum("bqn,bsn->bqs", a, b)
+        own = torch.einsum("bqn,bsn->bqs", a, b)
+    res["einsum_falls_through"] = (
+        _local_plan("bqn,bsn->bqs", [(cq.shape, a.placements),
+                                     (cs.shape, b.placements)], mesh) is None
+        and tuple(via.placements) == tuple(own.placements)
+        and torch.equal(via.full_tensor(), own.full_tensor())
+        and close(via.full_tensor(), torch.einsum("bqn,bsn->bqs", cq, cs),
+                  False))
+
+    # ShardCtx.matmul: (B, S, D) split over batch and sequence against a
+    # weight split over F (gathered sequence), over D (the activation
+    # moved onto D, a pending sum), whole (the sequence kept), and split
+    # over D on the batch's axis and over F on the sequence's (the weight
+    # gathered on the first, the sequence on the second)
+    xf = rnd(B, S, D)
+    for name, wpl in (("cols", (R, S1)), ("rows", (R, S0)),
+                      ("whole", (R, R)), ("both", (S0, S1))):
+        ins, out = product(f"matmul_{name}", ctx.matmul,
+                           lambda x, w: x @ w, [xf, rnd(D, 6)],
+                           [(S0, S1), wpl], False)
+        res[f"matmul_{name}_placed"] = [repr(q) for q in out.placements]
     if rank == 0:
         print(json.dumps(res))
     dist.destroy_process_group()
@@ -343,6 +584,49 @@ def test_conv_pad_and_cumsum_on_a_mesh(gloo):
     """The concatenation and the flip-free backward give F.pad's and
     torch.cumsum's values and gradient bit for bit."""
     assert gloo["pad"] and gloo["cumsum"]
+
+
+#: the site equations whose split letters are batch dims of the product
+#: (in every operand): each rank multiplies whole matrices, bit for bit
+BATCH_SPLIT = ("chunked_scores", "chunked_values", "decode_scores",
+               "decode_values", "ssd_diag")
+
+
+@pytest.mark.parametrize("name", BATCH_SPLIT + (
+    "ssd_gram", "ssd_off", "ssd_state", "mamba_update", "mamba_read",
+    "values_split_keys"))
+def test_einsum_on_local_shards(gloo, name):
+    """``ShardCtx.einsum`` at each site's equation with batch over one
+    axis and heads (or the chunk's rows) over the other is a local
+    product and gives the plain einsum's values and gradients: bit for
+    bit where only batch dims are split; a split row dim (another GEMM
+    blocking on the CPU) or a split key dim (a pending sum) at 2e-5."""
+    assert gloo[f"einsum_{name}_local"]
+    assert gloo[f"einsum_{name}_out"] and gloo[f"einsum_{name}_grads"]
+    assert gloo[f"einsum_{name}_exact"] == (name in BATCH_SPLIT)
+
+
+def test_einsum_pending_operand_and_fall_through(gloo):
+    """A pending-sum operand against whole ones is local (a pending-sum
+    result); two letters split over one axis are not, and DTensor's own
+    einsum plans it (2.13 places it), with its placements and values."""
+    assert gloo["einsum_pending_operand"]
+    assert gloo["einsum_falls_through"]
+
+
+@pytest.mark.parametrize("name,placed", [
+    ("cols", ["Shard(dim=0)", "Shard(dim=2)"]),
+    ("rows", ["Shard(dim=0)", "Partial(sum)"]),
+    ("whole", ["Shard(dim=0)", "Shard(dim=1)"]),
+    ("both", ["Shard(dim=0)", "Shard(dim=2)"])])
+def test_matmul_of_a_sequence_split_activation(gloo, name, placed):
+    """``ShardCtx.matmul`` of (B, S, D) split over batch and sequence: the
+    placements DTensor gives ``x @ w`` (F split, a pending sum over a
+    split D, the sequence kept, the weight's D gathered where it shares
+    the batch's axis), the plain product's values and gradients at 2e-5
+    (rows or columns split, or a pending sum)."""
+    assert gloo[f"matmul_{name}_placed"] == placed
+    assert gloo[f"matmul_{name}_out"] and gloo[f"matmul_{name}_grads"]
 
 
 def test_gold_logit_keeps_the_vocab_split(gloo):
