@@ -125,6 +125,16 @@ really ran there:
   the CUDA-core kernel is timed in turns with it on the same inputs, and
   float32 runs ``flash_fwd_tf32_kernel``, timed in turns with the
   CUDA-core kernel beside SDPA in float32;
+* flash attention on layouts TMA cannot read (``check_flash_unaligned``,
+  ``measure_flash_unaligned``): the wrapper stages what TMA cannot read
+  into new contiguous tensors and launches the same two kernels, every
+  call one counted staged launch of them in both dtypes at every instance
+  head dim (q one element past an aligned address, k and v rows D + 1
+  elements apart, out likewise), held to ``mha_ref``, to the split-p or
+  3xTF32 gate and, bit for bit, to the kernel on contiguous copies; timed
+  at the gemma-7b (f32 and bf16, D = 256) and qwen1.5-4b prefill shapes in
+  turns with the kernel on contiguous copies, the copies alone, the
+  CUDA-core kernel (held to ``mha_ref`` on the same views) and SDPA;
 * the mesh phase, last, within ``MESH_BUDGET_S``: the example twins on
   the card (``examples/torch_train_e2e.py``, whose loss must fall and
   which must resume from its checkpoint, and
@@ -135,9 +145,12 @@ really ran there:
   repro_torch.launch.dryrun`` on the production cells ``MESH_CELLS``
   (each report printed, finite, on 256 chips), the reduced
   ``REPAIR_CELLS`` on a (4, 2) mesh (each finite: the MoE dispatch's
-  segment starts, the masked cache write under a mesh, and the products
-  ``ShardCtx.einsum`` and ``ShardCtx.matmul`` take on the local shards;
-  the phase fails if one stops),
+  segment starts, the masked cache write under a mesh, the products
+  ``ShardCtx.einsum`` and ``ShardCtx.matmul`` take on the local shards and
+  the embedding lookup ``ShardCtx.embed`` takes on each rank's vocab
+  slice; the phase fails if one stops), the ``DEPTH_CELLS`` on (16, 16)
+  at full width and 2 layers (the MoE grouping of a sequence-split input,
+  the tied table's gradient sum),
   ``examples/torch_autotune_mesh.py`` (CloudBandit over the sharding
   strategies of the reduced qwen1.5-4b cell on a (4, 2) mesh of the fake
   process group; a strategy the host's torch cannot trace is a failed
@@ -222,7 +235,7 @@ TF32_OPS = 495e12                                   # tensor cores, dense
 SPIN_CYCLES = 2_000_000   # ~1 ms of the card's clock queued before each rep
 WGMMA_KERNEL = "flash_fwd_wgmma_kernel"           # bf16 flash attention
 TF32_KERNEL = "flash_fwd_tf32_kernel"             # f32 flash attention
-F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores: what TMA cannot read
+F32_FLASH_KERNEL = "flash_fwd_kernel"   # CUDA cores, run only when named
 SSD_STATE_KERNEL = "chunk_state_wgmma_kernel"     # bf16 ssd_scan, launch 1
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
 SSD_LAUNCHES = (SSD_STATE_KERNEL, "state_pass_kernel",
@@ -388,14 +401,44 @@ MESH_CELLS = (("mamba2-130m", "long_500k"), ("qwen1.5-4b", "decode_32k"))
 #: scores and values (qwen1.5-4b decode, batch and heads split),
 #: ``chunked_mha`` with its backward (hubert-xlarge train, batch and
 #: heads split), ``ssd_reference``'s intra-chunk products (mamba2-130m
-#: prefill, batch and heads split) and the projections of a
-#: sequence-split activation (qwen1.5-4b train under ``fsdp_tp``)
+#: prefill, batch and heads split), the projections of a
+#: sequence-split activation (qwen1.5-4b train under ``fsdp_tp``) and the
+#: embedding lookup on a vocab-split table, each rank reading its own
+#: slice (``ShardCtx.embed``; qwen1.5-4b train under ``fsdp_tp_nosp``)
 REPAIR_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k", "fsdp_dp"),
                 ("gemma3-27b", "long_500k", "fsdp_tp"),
                 ("qwen1.5-4b", "decode_32k", "tp_serve"),
                 ("hubert-xlarge", "train_4k", "fsdp_tp_nosp"),
                 ("mamba2-130m", "prefill_32k", "tp_serve"),
-                ("qwen1.5-4b", "train_4k", "fsdp_tp"))
+                ("qwen1.5-4b", "train_4k", "fsdp_tp"),
+                ("qwen1.5-4b", "train_4k", "fsdp_tp_nosp"))
+#: production cells at full width, their depth cut to 2 layers, traced on
+#: the (16, 16) mesh: the stops that only the production shapes reach
+#: (phi3.5-moe's MoE grouping of a sequence-split input,
+#: ``ShardCtx.fold_groups``; mamba2-130m's tied table, whose two
+#: gradients meet in its own placement, ``ShardCtx.transpose``)
+DEPTH_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k", "fsdp_tp", 2),
+               ("mamba2-130m", "train_4k", "fsdp_tp", 2))
+#: ``DEPTH_CELLS`` traced in a process of their own
+DEPTH_TRACE = """
+import dataclasses, json, sys, time
+from repro_torch.analysis.roofline import roofline_from_trace
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch.mesh import make_production_mesh, mesh_chip_count
+from repro_torch.launch.steps import build_plan
+mesh = make_production_mesh(multi_pod=False)
+out = {}
+for arch, shape_name, strategy, layers in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    shape = get_shape(shape_name)
+    t0 = time.time()
+    plan = build_plan(cfg, shape, mesh, strategy=strategy)
+    r = roofline_from_trace(plan, cfg=cfg, shape=shape, mesh_name="pod",
+                            chips=mesh_chip_count(mesh)).to_dict()
+    r["trace_s"] = time.time() - t0
+    out[f"{arch} x {shape_name} x {strategy} at {layers} layers"] = r
+print(json.dumps(out))
+"""
 #: ``REPAIR_CELLS`` traced in a process of their own
 REPAIR_TRACE = """
 import dataclasses, json, sys, time
@@ -1074,6 +1117,89 @@ def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
                 per_launch=per_launch)
 
 
+def measure_ssd_f32_small():
+    """``ssd_scan`` in float32 at the small preset's shape and incumbent
+    chunk, as the kernel search runs it most (every call of the search is
+    float32, so launches 1 and 3 run their CUDA-core instances
+    ``chunk_state_kernel`` and ``chunk_scan_kernel``): the call, and each
+    launch's device time in profiler windows of 5 calls (two, in turns)
+    beside its own bound, its products as f32 FMAs at 67 TFLOP/s or its
+    bytes, whichever is longer."""
+    B, L, H, P, N = bench.PRESETS["small"]["ssd_scan"]
+    chunk = bench._BLOCKS["small"]["ssd"][0]
+    args = ssd_inputs(B, L, H, P, N, torch.float32, seed=121)
+    call = lambda: ssd.ssd_scan(*args, chunk=chunk)  # noqa: E731
+    ssd.COUNT.reset()
+    call()
+    torch.cuda.synchronize()
+    if (ssd.COUNT.launches, ssd.COUNT.wgmma) != (1, 0):
+        raise AssertionError("float32 ssd_scan at the small preset: "
+                             f"{ssd.COUNT}, not one CUDA-core call")
+    ms = time_ms(call)
+    per = {k: [] for k in SSD_CUDA_CORE + SSD_LAUNCHES[1:2]}
+    for _ in range(2):
+        rows = []
+        for _ in range(2):    # a window CUPTI left empty is taken again
+            rows = rows or profile_window(call, 5, "call")
+        if not rows:
+            raise AssertionError("no profiler window of float32 ssd_scan "
+                                 "showed device time")
+        for k in per:
+            hits = [r for r in rows if k in r[1]]
+            per[k].append(sum(r[0] for r in hits)
+                          / max(sum(r[2] for r in hits), 1))
+    Q, n = chunk, L // chunk
+    xb, nb = B * L * H * P * 4, B * L * N * 4
+    dtb, cumb, stb = B * L * H * 4, B * H * n * Q * 4, B * H * n * P * N * 4
+    small = 2 * H * 4
+    tri = Q * (Q + 1) // 2
+    ops_cb, ops_w = B * n * tri * N * 2, B * H * n * tri * P * 2
+    ops_c = B * H * (n - 1) * Q * P * N * 2
+    ops_s = B * H * n * Q * P * N * 2
+    own = {"chunk_state_kernel": (xb + dtb + nb + small + cumb + stb, ops_s),
+           "state_pass_kernel": (2 * stb + B * H * P * N * 4 + B * H * n * 4,
+                                 2 * B * H * n * P * N),
+           "chunk_scan_kernel": (2 * xb + dtb + 2 * nb + small + cumb + stb,
+                                 ops_cb + ops_w + ops_c)}
+    readings = []
+    for k, (nbytes, ops) in own.items():
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / PEAK_OPS[torch.float32] * 1e3
+        t = float(np.mean(per[k]))
+        readings.append(dict(shape="small preset float32", name=k, ms=t,
+                             turns=per[k], bound_ms=max(b_ms, o_ms),
+                             bound_by="bytes" if b_ms >= o_ms
+                             else "operations"))
+        log(f"ssd_scan small preset float32 (B={B} L={L} H={H} P={P} N={N} "
+            f"chunk={chunk}), launch {k}: "
+            f"{' / '.join(f'{v:.4f}' for v in per[k])} ms (profiler, 5 calls"
+            f" each), bound {max(b_ms, o_ms):.6f} ms ({nbytes} bytes at 3.35 "
+            f"TB/s, {ops} flops at 67 TFLOP/s), {t / max(b_ms, o_ms):.2f}x")
+    log(f"ssd_scan small preset float32: the call {ms:.4f} ms")
+    return dict(ms=ms, readings=readings)
+
+
+SSD_F32_SMALL = "--ssd-f32-small"   # the argument of the process below
+
+
+def ssd_f32_small_apart():
+    """:func:`measure_ssd_f32_small` in a process of its own (this script
+    with ``SSD_F32_SMALL``, on the libraries built here), so that its
+    profiler windows and this process's share no profiler state: in one
+    process, every profiler window after it had come back with no device
+    events.  Its log is echoed; returns its result."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           SSD_F32_SMALL], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [ssd f32 small] {line}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the float32 ssd_scan reading exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def ssd_hybrid_inputs():
     """zamba2-7b's shape and layout (``SSD_HYBRID``): bf16 strided views
     of the conv output, row stride d_inner + 2N = 7,296 elements, bf16 D,
@@ -1119,19 +1245,25 @@ def flash_inputs(B, Hq, Hkv, Sq, D, dtype, seed, Sk=None):
     return randn(B, Hq, Sq, D), randn(B, Hkv, Sk, D), randn(B, Hkv, Sk, D)
 
 
-def _flash_compare(name, q, k, v, causal, window, bq, bk, kernel=None):
+def _flash_compare(name, q, k, v, causal, window, bq, bk, kernel=None,
+                   out=None, staged=0):
     """One call against ``mha_ref``; it must be one launch of ``kernel``
-    (default: the dtype's tensor-core kernel)."""
+    (default: the dtype's tensor-core kernel), on staged copies where
+    ``staged``."""
     if kernel is None:
         kernel = TF32_KERNEL if q.dtype == torch.float32 else WGMMA_KERNEL
     fa.COUNT.reset()
     out = fa.flash_attention(q, k, v, causal=causal, window=window, bq=bq,
-                             bk=bk)
+                             bk=bk, out=out)
     torch.cuda.synchronize()
-    counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32)
-    if counts != (1, int(kernel == WGMMA_KERNEL), int(kernel == TF32_KERNEL)):
+    counts = (fa.COUNT.launches, fa.COUNT.wgmma, fa.COUNT.tf32,
+              fa.COUNT.staged)
+    if counts != (1, int(kernel == WGMMA_KERNEL), int(kernel == TF32_KERNEL),
+                  staged):
         raise AssertionError(f"flash_attention {name}: (launches, wgmma, "
-                             f"tf32) {counts}, not one launch of {kernel}")
+                             f"tf32, staged) {counts}, not one launch of "
+                             f"{kernel}" + (" on staged copies" if staged
+                                           else ""))
     ref = mha_ref(q, k, v, causal=causal, window=window).float()
     dt = q.dtype
     err = (out.float() - ref).abs().max().item()
@@ -1170,9 +1302,9 @@ def check_flash_attention():
     padded to an instance (48, 80, 112, 200) and the D = 256 instance
     (bf16 and f32 each on its tensor-core kernel at every bq of one and
     two warpgroups and passes against every domain bk and bk = 100, with
-    a window, GQA, MQA and rows that keep no key), float32 and bf16 at
-    D = 256 that TMA cannot read (CUDA cores), and the window = Sk ==
-    causal property."""
+    a window, GQA, MQA and rows that keep no key), the layouts TMA cannot
+    read (:func:`check_flash_unaligned`), and the window = Sk == causal
+    property."""
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [   # B, Hq, Hkv, S, D, causal, window, dtype
         (2, 4, 4, 256, 64, True, 0, f32), (1, 8, 2, 256, 64, True, 0, f32),
@@ -1267,31 +1399,7 @@ def check_flash_attention():
                                    seed=112 + i + 20 * j, Sk=Sk)
             out = _flash_compare(name, q, k, v, causal, window, bq, bk)
             _check_dead_rows(out, v, window)
-    # D = 256 that TMA cannot read (k's and v's rows 257 elements apart:
-    # 514 bytes in bf16, 1028 in f32): the CUDA-core kernel, in both dtypes
-    for j, dt in enumerate((bf16, f32)):
-        q, k, v = flash_inputs(1, 4, 2, 256, 256, dt, seed=118 + 20 * j)
-        wide = [torch.zeros(1, 2, 256, 257, dtype=dt, device="cuda")
-                for _ in range(2)]
-        for t, src in zip(wide, (k, v)):
-            t[..., :256] = src
-        for bq, bk in ((128, 128), (64, 32)):
-            _flash_compare(f"{str(dt)[6:]} D=256 rows 257 elements apart", q,
-                           wide[0][..., :256], wide[1][..., :256], True, 0,
-                           bq, bk, F32_FLASH_KERNEL)
-    # float32 that TMA cannot read (k's and v's rows 65 floats apart, q 4
-    # bytes past an aligned address): the CUDA-core kernel
-    q, k, v = flash_inputs(1, 4, 2, 256, 64, f32, seed=98)
-    wide = [torch.zeros(1, 2, 256, 65, device="cuda") for _ in range(2)]
-    for t, src in zip(wide, (k, v)):
-        t[..., :64] = src
-    shifted = torch.zeros(q.numel() + 1, device="cuda")[1:].view(q.shape)
-    shifted.copy_(q)
-    for bq, bk in ((128, 128), (64, 32)):
-        _flash_compare("f32 rows 65 floats apart", q, wide[0][..., :64],
-                       wide[1][..., :64], True, 0, bq, bk, F32_FLASH_KERNEL)
-        _flash_compare("f32 q base not 16-byte aligned", shifted, k, v, True,
-                       0, bq, bk, F32_FLASH_KERNEL)
+    check_flash_unaligned()
     q, k, v = flash_inputs(2, 4, 2, 256, 64, f32, seed=73)
     a = fa.flash_attention(q, k, v, causal=True, window=0)
     b = fa.flash_attention(q, k, v, causal=True, window=256)
@@ -1300,6 +1408,207 @@ def check_flash_attention():
         "(tol 1e-5)")
     if diff > 1e-5:
         raise AssertionError("window = Sk differs from causal")
+
+
+def unaligned(t, how):
+    """A view holding ``t``'s values (a contiguous (B,H,S,D) tensor) that
+    TMA cannot read: ``"base"`` starts one element past an aligned
+    address (a bf16 row then starts 2 bytes past one), ``"rows"`` keeps
+    its rows D + 1 elements apart (rows at every alignment of the
+    element size)."""
+    if how == "base":
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+    else:
+        view = torch.zeros(*t.shape[:3], t.shape[3] + 1, dtype=t.dtype,
+                           device=t.device)[..., :t.shape[3]]
+    view.copy_(t)
+    return view
+
+
+def _tma_twin(name, q, k, v, out, causal, window, bq, bk):
+    """The kernel on contiguous copies of the same values, made here: the
+    staged call's ``out`` must equal it bit for bit."""
+    fa.COUNT.reset()
+    twin = fa.flash_attention(*(t.clone(memory_format=torch.contiguous_format)
+                                for t in (q, k, v)),
+                              causal=causal, window=window, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    if fa.COUNT.staged or fa.COUNT.launches != 1:
+        raise AssertionError(f"{name}: the contiguous copy did not run the "
+                             "kernel unstaged")
+    if not torch.equal(out, twin):
+        diff = (out.float() - twin.float()).abs().max().item()
+        raise AssertionError(f"flash_attention {name}: the staged call "
+                             f"differs from the kernel on contiguous copies "
+                             f"by {diff:.3e}")
+
+
+def check_flash_unaligned():
+    """The layouts TMA cannot read, in both dtypes at every instance head
+    dim: q one element past an aligned address (bf16 rows 2-byte aligned
+    only), k and v rows D + 1 elements apart (rows at every alignment),
+    and an out whose rows are D + 1 elements apart.  Each call is one
+    counted staged launch of the dtype's tensor-core kernel, held to
+    ``mha_ref`` at the dtype's tolerance and to the kernel on contiguous
+    copies of the same values, bit for bit; the float32 calls to the
+    3xTF32 gate, the bfloat16 ones to the split-p gate, at one shape
+    each."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 0
+    for dt in (bf16, f32):
+        kernel = WGMMA_KERNEL if dt == bf16 else TF32_KERNEL
+        for D in fa.HEAD_DIMS:
+            for i, (Hq, Hkv, Sq, Sk, causal, window, bq, bk, layout) in \
+                    enumerate((
+                        (4, 2, 256, 256, True, 0, 128, 128, "q base"),
+                        (4, 2, 256, 256, True, 0, 64, 32, "k, v rows"),
+                        (4, 4, 384, 384, False, 0, 96, 64, "q, k, v, out"),
+                        (4, 1, 256, 64, True, 32, 64, 32, "k, v rows"),
+                        (2, 1, 200, 100, True, 40, 40, 100, "q base"))):
+                q, k, v = flash_inputs(1, Hq, Hkv, Sq, D, dt,
+                                       seed=300 + 10 * D + i, Sk=Sk)
+                out = None
+                if "q" in layout and "base" in layout:
+                    q = unaligned(q, "base")
+                if "k" in layout:
+                    k, v = unaligned(k, "rows"), unaligned(v, "rows")
+                if "out" in layout:
+                    q = unaligned(q, "base")
+                    out = unaligned(torch.zeros_like(q.contiguous()),
+                                    "rows")
+                name = (f"{str(dt)[6:]} D={D} {layout} not TMA-aligned "
+                        f"(Sq={Sq} Sk={Sk} bq={bq} bk={bk} window={window})")
+                got = _flash_compare(name, q, k, v, causal, window, bq, bk,
+                                     kernel, out=out, staged=1)
+                _check_dead_rows(got, v, window)
+                _tma_twin(name, q, k, v, got, causal, window, bq, bk)
+                n += 1
+    # the gates at one shape each, D = 128 (qwen1.5-4b's head dim)
+    q, k, v = flash_inputs(1, 8, 2, 1024, 128, f32, seed=390)
+    qu, ku, vu = unaligned(q, "base"), unaligned(k, "rows"), \
+        unaligned(v, "rows")
+    out = _flash_compare("f32 gate shape", qu, ku, vu, True, 0, 128, 128,
+                         TF32_KERNEL, staged=1)
+    tf32_gate(f"{TF32_KERNEL} (f32, staged)", out,
+              mha_ref(q, k, v, causal=True), q, k, v)
+    q, k, v = flash_inputs(1, 8, 2, 1024, 128, bf16, seed=391)
+    out = _flash_compare("bf16 gate shape", unaligned(q, "base"),
+                         unaligned(k, "rows"), unaligned(v, "rows"), True, 0,
+                         128, 128, WGMMA_KERNEL, staged=1)
+    ref = mha_ref(q, k, v, causal=True)
+    err, share, ok = split_p_gate(out, ref)
+    p_err, p_share, p_ok = split_p_gate(
+        mha_p_bf16(q, k, v, causal=True, window=0), ref)
+    log(f"flash_attention {WGMMA_KERNEL} (bf16, staged): "
+        f"split-p gate {err:.3e} / {share:.4%} (mha_p_bf16 {p_err:.3e} / "
+        f"{p_share:.4%})")
+    if not ok or p_ok:
+        raise AssertionError(f"{WGMMA_KERNEL} (staged) fails the split-p "
+                             "gate, or the bf16-p control passes it")
+    log(f"flash_attention: {n} calls on layouts TMA cannot read, each one "
+        "staged launch of the tensor-core kernel, each equal to its bits "
+        "on contiguous copies")
+
+
+def measure_flash_unaligned():
+    """The three prefill shapes (gemma-7b in f32 and bf16 at head dim
+    256, qwen1.5-4b in bf16 at 128) on a layout TMA cannot read: q one
+    element past an aligned address, k and v rows D + 1 elements apart.
+    Each is one counted staged launch through the public
+    ``flash_attention`` (counts set to 0 just before), held to the kernel
+    on contiguous copies bit for bit and to its dtype's gate; at head dim
+    256 ``flash_fwd_kernel`` on the same views is held to ``mha_ref`` at
+    ``TOL``.  Then timed in turns: the staged call, the kernel on
+    contiguous copies, the three copies alone, ``flash_fwd_kernel`` (at
+    head dim 256) and SDPA (contiguous copies; ``allow_tf32`` off in
+    float32), and back.  The bound is the kernel's (the same work)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = [(f"{FLASH_D256[0]} float32", torch.float32) + FLASH_D256[1:],
+              (FLASH_D256[0], torch.bfloat16) + FLASH_D256[1:],
+              (FLASH_FULL[0][0], torch.bfloat16) + FLASH_FULL[0][1:6]]
+    readings = []
+    for name, dt, B, S, Hq, Hkv, D in shapes:
+        kernel = TF32_KERNEL if dt == torch.float32 else WGMMA_KERNEL
+        q, k, v = (t.transpose(1, 2).contiguous()
+                   for t in flash_full_inputs(B, S, Hq, Hkv, D, dt))
+        qu, ku, vu = unaligned(q, "base"), unaligned(k, "rows"), \
+            unaligned(v, "rows")
+        fa.COUNT.reset()
+        out = fa.flash_attention(qu, ku, vu, causal=True)
+        torch.cuda.synchronize()
+        counts = (fa.COUNT.launches, fa.COUNT.staged, fa.COUNT.plain)
+        if counts != (1, 1, 0):
+            raise AssertionError(f"{name} not TMA-aligned: (launches, staged,"
+                                 f" plain) = {counts}, not one staged "
+                                 f"{kernel} launch")
+        _tma_twin(f"{name} not TMA-aligned", qu, ku, vu, out, True, 0, 128,
+                  128)
+        ref = mha_ref(q, k, v, causal=True)
+        if dt == torch.float32:
+            err = tf32_gate(f"{name} not TMA-aligned", out, ref, q, k, v)
+        else:
+            err, share, ok = split_p_gate(out, ref)
+            if not ok:
+                raise AssertionError(f"{kernel} (staged) fails the split-p "
+                                     f"gate at {name}")
+        fns = {"staged": lambda: fa.flash_attention(qu, ku, vu, causal=True),
+               "tma": lambda: fa.flash_attention(q, k, v, causal=True),
+               "copies": lambda: [fa._copy(t) for t in (qu, ku, vu)],
+               "sdpa": lambda: sdpa(q, k, v, is_causal=True,
+                                    enable_gqa=True)}
+        order = ["staged", "tma", "copies", "sdpa", "sdpa", "copies", "tma",
+                 "staged"]
+        if D == 256:
+            fns["cuda_core"] = lambda: fa._flash_attention_instance(
+                qu, ku, vu, kernel=F32_FLASH_KERNEL, causal=True)
+            cc_err = (fns["cuda_core"]().float() - ref.float()).abs().max(
+                ).item()
+            if cc_err > TOL[dt]:
+                raise AssertionError(f"{F32_FLASH_KERNEL} disagrees with "
+                                     f"mha_ref at {name} not TMA-aligned: "
+                                     f"{cc_err:.3e}")
+            order = ["staged", "tma", "copies", "cuda_core", "sdpa", "sdpa",
+                     "cuda_core", "copies", "tma", "staged"]
+        del out, ref
+        times, turns = {key: [] for key in fns}, []
+        for key in order:
+            times[key].append(time_ms(fns[key],
+                                      reps=10 if key == "cuda_core" else 20))
+            turns.append(f"{key} {times[key][-1]:.4f}")
+        plain_ms = time_ms(lambda: mha_ref(q, k, v, causal=True), reps=5)
+        pairs = B * Hq * _pairs(S, 0)
+        flops = 2 * D * pairs                  # each of q.k and p.v
+        nbytes = q.element_size() * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (6 * flops / TF32_OPS if dt == torch.float32
+                  else 3 * flops / PEAK_OPS[torch.bfloat16]) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        ms = float(np.mean(times["staged"]))
+        log(f"flash_attention {name} not TMA-aligned (q base + 1 element, "
+            f"k and v rows {D + 1} elements apart; B={B} S={S} Hq={Hq} "
+            f"Hkv={Hkv} D={D}, causal, {kernel} staged): max_abs_err "
+            f"{err:.3e}, bit-equal to the kernel on contiguous copies"
+            + (f", {F32_FLASH_KERNEL} {cc_err:.3e}" if D == 256 else "")
+            + f"; in turns, ms: {', '.join(turns)}; plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms; staged/tma "
+            f"{ms / np.mean(times['tma']):.3f}, staged/sdpa "
+            f"{ms / np.mean(times['sdpa']):.3f}, staged/bound "
+            f"{ms / bound_ms:.2f}")
+        reading = dict(shape=f"{name} not TMA-aligned, staged", kernel=kernel,
+                       launches=counts[0], max_abs_err=err, ms=ms,
+                       ms_in_turns=times["staged"], tma_ms=times["tma"],
+                       copies_ms=times["copies"], plain_ms=plain_ms,
+                       library_ms=float(np.mean(times["sdpa"])),
+                       bound_ms=bound_ms,
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations")
+        if D == 256:
+            reading["cuda_core_ms"] = times["cuda_core"]
+        readings.append(reading)
+        del q, k, v, qu, ku, vu, fns
+        torch.cuda.empty_cache()
+    return readings
 
 
 def ptxas_entries(text, kernel):
@@ -3671,8 +3980,9 @@ def hold_traced_peak(traced: dict, card: dict) -> None:
                              f"the card's {c_temp} B")
 
 
-def hold_repair_cells(reports: dict) -> int:
-    """``REPAIR_CELLS``' roofline reports: each finite, with work counted
+def hold_repair_cells(reports: dict, cells) -> int:
+    """The roofline reports of ``cells`` (``REPAIR_CELLS``, reduced on (4,
+    2), or ``DEPTH_CELLS``, on (16, 16)): each finite, with work counted
     -> how many traced."""
     for name, r in reports.items():
         terms = [r[k] for k in ("t_compute", "t_memory", "t_collective",
@@ -3681,12 +3991,12 @@ def hold_repair_cells(reports: dict) -> int:
                 and r["flops_per_chip"] > 0
                 and r["peak_memory_per_chip"] > 0):
             raise AssertionError(f"repair cell {name}: report {r}")
-        log(f"  dry-run {name} reduced on (4, 2) (traced in "
+        log(f"  dry-run {name} (traced in "
             f"{r['trace_s']:.2f} s): t_step {r['t_step']}, FLOPs "
             f"{r['flops_per_chip']}, bytes {r['bytes_per_chip']}, "
             f"collective bytes {r['coll_breakdown']}, peak "
             f"{r['peak_memory_per_chip']}")
-    if len(reports) != len(REPAIR_CELLS):
+    if len(reports) != len(cells):
         raise AssertionError(f"repair cells: {sorted(reports)}")
     return len(reports)
 
@@ -3720,6 +4030,10 @@ def mesh_phase():
             [sys.executable, "-c", REPAIR_TRACE, json.dumps(REPAIR_CELLS)],
             env=env, cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
+        procs.append(("depth cells", None, subprocess.Popen(
+            [sys.executable, "-c", DEPTH_TRACE, json.dumps(DEPTH_CELLS)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
         procs.append(("autotune twin", None, subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "examples",
                                           "torch_autotune_mesh.py")],
@@ -3740,9 +4054,11 @@ def mesh_phase():
                     hold_traced_peak(json.loads(stdout.strip().splitlines()
                                                 [-1]), card)
                     continue
-                if name == "repair cells":
-                    traced += hold_repair_cells(json.loads(
-                        stdout.strip().splitlines()[-1]))
+                if name in ("repair cells", "depth cells"):
+                    traced += hold_repair_cells(
+                        json.loads(stdout.strip().splitlines()[-1]),
+                        REPAIR_CELLS if name == "repair cells"
+                        else DEPTH_CELLS)
                     continue
                 if out is None:
                     log(f"  {name}: " + "; ".join(
@@ -3771,30 +4087,19 @@ def mesh_phase():
                     proc.kill()
                     proc.wait()
     elapsed = time.time() - t0
-    log(f"mesh phase: {traced} of {len(MESH_CELLS) + len(REPAIR_CELLS)} "
-        f"dry-run cells traced ({len(MESH_CELLS)} production, "
-        f"{len(REPAIR_CELLS)} reduced)")
+    log(f"mesh phase: {traced} of "
+        f"{len(MESH_CELLS) + len(REPAIR_CELLS) + len(DEPTH_CELLS)} dry-run "
+        f"cells traced ({len(MESH_CELLS)} production, {len(REPAIR_CELLS)} "
+        f"reduced, {len(DEPTH_CELLS)} production at cut depth)")
     log(f"mesh phase: {elapsed:.1f} s (budget {MESH_BUDGET_S:.0f} s)")
     if elapsed > MESH_BUDGET_S:
         raise AssertionError(f"the mesh phase took {elapsed:.1f} s")
 
 
-def main() -> None:
-    t_start = time.time()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    t0 = time.time()
-    logs = build.build_all(KERNELS)
-    log(f"built {KERNELS} in {time.time() - t0:.1f} s")
+def check_build(logs):
+    """Each built library's ptxas report (``build.build_all``'s logs):
+    registers and spills logged; no spill in a decode instance, a wgmma
+    instance or a D = 256 tf32 instance."""
     for name, text in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         if not regs:
@@ -3840,6 +4145,28 @@ def main() -> None:
                     f"loads) {spilled} in {len(regs)} kernels" if reports
                     else "decode_attention: ptxas gave no spill report")
 
+
+def main() -> None:
+    t_start = time.time()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    if sys.argv[1:] == [SSD_F32_SMALL]:
+        print(json.dumps(measure_ssd_f32_small()), flush=True)
+        return
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    logs = build.build_all(KERNELS)
+    log(f"built {KERNELS} in {time.time() - t0:.1f} s")
+    check_build(logs)
+
     # lengths of the served run: prompt 8-64 plus up to 32 new tokens
     main_lengths = np.random.default_rng(3).integers(
         PROMPT_LEN[0], PROMPT_LEN[1] + NEW_TOKENS + 1, BATCH)
@@ -3882,6 +4209,8 @@ def main() -> None:
     flash_readings = measure_flash_attention()
     flash_f32_timing = measure_flash_f32()
     flash_f32_timing["readings"].append(measure_flash_f32_d256())
+    flash_readings_unaligned = measure_flash_unaligned()    # f32, bf16, bf16
+    flash_f32_timing["readings"].append(flash_readings_unaligned[0])
 
     model, server, launches, run = serve_full_width(get_config(ARCH))
     profile_steps(model, server)
@@ -3916,6 +4245,8 @@ def main() -> None:
                              f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
                              f", {fa.COUNT.wgmma} bf16 launches")
 
+    ssd_small = ssd_f32_small_apart()
+
     mesh_phase()
 
     flash_timing = {key: flash_readings[0][key] for key in (
@@ -3934,12 +4265,15 @@ def main() -> None:
         launches=ssd_launches + hybrid["launches"], max_abs_err=ssd_err,
         **ssd_timing, search_launches=search_launches["ssd_scan"], readings=[dict(
             shape="zamba2-7b", launches=hybrid["launches"],
-            max_abs_err=ssd_hybrid_err, **ssd_hybrid)]), dict(
+            max_abs_err=ssd_hybrid_err, **ssd_hybrid), dict(
+            shape="small preset float32, CUDA-core instances",
+            launches=domain_launches["ssd_scan"], ms=ssd_small["ms"],
+            per_launch=ssd_small["readings"])]), dict(
         name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
         launches=sum(r["launches"] for r in flash_readings), **flash_timing,
-        readings=flash_readings[1:]), dict(
+        readings=flash_readings[1:] + flash_readings_unaligned[1:]), dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",

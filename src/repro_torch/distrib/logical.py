@@ -277,6 +277,110 @@ class ShardCtx:
         # 0 + grad, as the scatter_add sums it (a -0.0 becomes +0.0)
         return torch.where(hit, grad + 0.0, 0.0)
 
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        """The rows of the (V, D) ``table`` (cast to ``dtype``) at
+        ``tokens``: ``F.embedding``.
+
+        Under a mesh that splits the table's vocab, each rank looks up
+        its own slice of the vocab on the local shards (``local_map``):
+        a token outside the slice gives a zero row, and the result is a
+        plain pending sum over the vocab's axes, which the caller settles
+        into the activation's placement, as GSPMD partitions a gather
+        from a row-split table.  The tokens are first gathered over those
+        axes; the table never is.  The backward is the lookup's own
+        scatter-add onto the local slice: the gradient comes back split
+        as the table is, and a pending sum over the axes that split the
+        tokens (torch 2.11's DTensor cannot move the pending gradient of
+        its own masked lookup).  Otherwise ``F.embedding``."""
+        w = table.to(dtype)
+        if self.mesh is None or not (_is_dtensor(w) and _is_dtensor(tokens)
+                                     and self._axes_of(w, 0)):
+            return torch.nn.functional.embedding(tokens, w)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        from torch.distributed.tensor.experimental import local_map
+        tok_pl, out_pl, grad_pl = [], [], []
+        for p, t in zip(w.placements, tokens.placements):
+            if p == Shard(0):                        # the vocab split
+                tok_pl.append(Replicate())
+                out_pl.append(Partial())
+                grad_pl.append(p)
+            elif isinstance(p, Replicate) and type(t) in (Shard, Replicate):
+                tok_pl.append(t)
+                out_pl.append(t)
+                grad_pl.append(Partial() if isinstance(t, Shard) else p)
+            else:
+                return torch.nn.functional.embedding(tokens, w)
+        tok_pl = tuple(tok_pl)
+        if any(tokens.shape[p.dim] % self.mesh.size(i)
+               for i, p in enumerate(tok_pl) if isinstance(p, Shard)):
+            return torch.nn.functional.embedding(tokens, w)
+        if tok_pl != tuple(tokens.placements):
+            tokens = tokens.redistribute(self.mesh, tok_pl)
+        shape, offset = compute_local_shape_and_global_offset(
+            w.shape, self.mesh, w.placements)
+        first, rows = offset[0], shape[0]
+
+        def lookup(w_loc, tok_loc):
+            local = tok_loc.long() - first
+            hit = (local >= 0) & (local < rows)
+            found = torch.nn.functional.embedding(
+                torch.where(hit, local, 0), w_loc)
+            return torch.where(hit[..., None], found, 0.0)
+
+        return local_map(lookup, out_placements=out_pl,
+                         in_placements=(tuple(w.placements), tok_pl),
+                         in_grad_placements=(tuple(grad_pl), tok_pl),
+                         device_mesh=self.mesh)(w, tokens)
+
+    def fold_groups(self, x: torch.Tensor, groups: int) -> torch.Tensor:
+        """(B, S, D) ``x`` as (``groups``, B / groups * S, D): each group
+        the tokens of B / groups rows, in order (a view).
+
+        Under a mesh that splits the sequence, ``x`` is first gathered
+        over the axes that split it, as DTensor (2.13) places this view:
+        the fold then flattens no split dim into the one before it, which
+        torch 2.11's DTensor refuses.  The gradient is placed as the
+        folded view was before it is unfolded, and then returned to
+        ``x``'s placement."""
+        B, S, D = x.shape
+        if self.mesh is None or not self._axes_of(x, 1):
+            return x.reshape(groups, B // groups * S, D)
+        return _Fold.apply(x, self, (groups, B // groups * S, D), True)
+
+    def unfold_groups(self, y: torch.Tensor, batch: int) -> torch.Tensor:
+        """(G, Tg, D) ``y`` as (``batch``, G * Tg / batch, D): the mirror
+        of :meth:`fold_groups`.  Under a mesh the gradient, which may
+        come back split along the sequence, is gathered over the axes
+        that split it before it is folded, then returned to ``y``'s
+        placement."""
+        G, Tg, D = y.shape
+        shape = (batch, G * Tg // batch, D)
+        if self.mesh is None or not _is_dtensor(y):
+            return y.reshape(shape)
+        return _Fold.apply(y, self, shape, False)
+
+    def _gather_axes(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x`` replicated over the mesh axes ``axes``."""
+        from torch.distributed.tensor import Replicate
+        pl = tuple(Replicate() if a in axes else p
+                   for a, p in zip(self.mesh.mesh_dim_names, x.placements))
+        return x if pl == tuple(x.placements) else x.redistribute(
+            self.mesh, pl)
+
+    def transpose(self, w: torch.Tensor) -> torch.Tensor:
+        """``w.T`` of a 2-dim ``w``.  Under a mesh its gradient comes back
+        in ``w``'s own placements: a tied table's gradient from the
+        logits product then meets the lookup's, which its FSDP gather
+        reduce-scatters there, in one placement where autograd sums them
+        (torch 2.11's DTensor cannot move the lookup's split gradient onto
+        the product's pending sum)."""
+        if self.mesh is None or not _is_dtensor(w):
+            return w.T
+        return _GradIn.apply(w, self.mesh).T
+
     def write_rows(self, cache: torch.Tensor, new: torch.Tensor,
                    pos) -> None:
         """Write one token's (B, 1, ...) rows ``new`` into the (B, S, ...)
@@ -535,6 +639,53 @@ class _Regroup(torch.autograd.Function):
         shard, heads, dim, split = ctx.args
         g = shard._merge(g, dim) if split else shard._split(g, heads, dim)
         return g, None, None, None, None
+
+
+class _Fold(torch.autograd.Function):
+    """A view between (B, S, D) and (G, B / G * S, D) under a mesh
+    (``ShardCtx.fold_groups``, ``unfold_groups``): whichever of the two
+    is the (B, S, D) side, input or gradient, is gathered over the mesh
+    axes that split its sequence before it is folded, and the other
+    side's gradient is returned to its forward placement (autograd's own
+    backward of a view would fold the gradient as it lies, a split dim
+    inside the fold)."""
+
+    @staticmethod
+    def forward(ctx, x, shard: ShardCtx, shape, fold: bool):
+        ctx.args = shard, tuple(x.placements), tuple(x.shape), fold
+        if fold:                        # (B, S, D) -> (G, Tg, D)
+            x = shard._gather_axes(x, shard._axes_of(x, 1))
+        out = x.reshape(shape)
+        ctx.out = tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, placements, shape, fold = ctx.args
+        if not fold:                    # the gradient folds
+            g = shard._gather_axes(g, shard._axes_of(g, 1))
+        elif tuple(g.placements) != ctx.out:
+            g = g.redistribute(shard.mesh, ctx.out)
+        g = g.reshape(shape)
+        if tuple(g.placements) != placements:
+            g = g.redistribute(shard.mesh, placements)
+        return g, None, None, None
+
+
+class _GradIn(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    input's own placements (``ShardCtx.transpose``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.placements = mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None
 
 
 class _CumSum(torch.autograd.Function):

@@ -10,16 +10,19 @@ tensor cores (wgmma, K and V by TMA, p.v as bf16(p) + bf16(p - bf16(p))
 in f32); float32 runs ``flash_fwd_tf32_kernel`` on the tensor cores, each
 f32 product as three tf32 products (big.big + big.small + small.big, big
 = tf32(x), small = tf32(x - big); at head dim 256 q.k as the sum of its
-two 128-column halves; :func:`flash_tf32x3_ref` emulates it).  Both need
-TMA to read q, k, v and out (16-byte aligned base addresses and strides),
-except where the head dim is padded into new tensors.  float32 that TMA
-cannot read and bfloat16 at head dim 256 that TMA cannot read run
-``flash_fwd_kernel`` on CUDA cores.  The kernels have head dims 32, 64,
+two 128-column halves; :func:`flash_tf32x3_ref` emulates it).  Both read
+q, k and v by TMA, which needs 16-byte aligned base addresses and
+strides (of out too, which they store in pairs), except where the head
+dim is padded into new tensors.  Where TMA cannot read one of them, the
+call is staged (:func:`staged_for`): that tensor's values are copied into
+a new contiguous one (out: written there and copied back), so the output
+is the TMA kernel's on those values, bit for bit.  ``flash_fwd_kernel``
+(f32 FMAs on CUDA cores) runs only when named
+(:func:`_flash_attention_instance`).  The kernels have head dims 32, 64,
 128 and 256; any other D up to 256 is padded with zero columns to the
 next of them, scaled by ``1/sqrt(D)`` of the true D and sliced back,
-which leaves every score and output unchanged.  A bfloat16 call at head
-dim 128 or below that the tensor-core kernel cannot take raises; nothing
-falls back or is retried.
+which leaves every score and output unchanged.  Nothing falls back or is
+retried.
 
 :func:`flash_attention` takes the reference's layout: q ``(B,Hq,Sq,D)``,
 k and v ``(B,Hkv,Sk,D)`` in one of float32 or bfloat16, ``Hq`` a multiple
@@ -33,9 +36,9 @@ v may be any strided views whose last dimension is contiguous, so
 The plain version is ``kernels.ref.mha_ref``, the same function.  On CPU
 tensors the wrapper runs it and counts ``COUNT.plain``; on CUDA tensors it
 launches a kernel (``COUNT.launches``; ``COUNT.wgmma`` and ``COUNT.tf32``
-count those of the bfloat16 and the float32 tensor-core kernel) or
-raises.  It raises when autograd would need a gradient: the reference
-defines none.
+count those of the bfloat16 and the float32 tensor-core kernel,
+``COUNT.staged`` those of them on staged copies) or raises.  It raises
+when autograd would need a gradient: the reference defines none.
 """
 from __future__ import annotations
 
@@ -64,12 +67,14 @@ class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
     wgmma: int = 0           # of them, bfloat16 tensor-core launches
     tf32: int = 0            # of them, float32 tensor-core launches
+    staged: int = 0          # of them, on copies of what TMA cannot read
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
         self.launches = 0
         self.wgmma = 0
         self.tf32 = 0
+        self.staged = 0
         self.plain = 0
 
 
@@ -138,45 +143,37 @@ def _tma_aligned(t) -> bool:
         for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
-def _check_wgmma(q, k, v, out) -> None:
-    """Raise on what the bfloat16 tensor-core kernel does not take: a base
-    address or stride of q, k, v or out that is not a multiple of 16 bytes
-    (TMA reads q, k and v; out is written two columns at a time)."""
+def _check_tma(kernel, q, k, v, out) -> None:
+    """Raise on what a TMA kernel does not take: a base address or stride
+    of q, k, v or out that is not a multiple of 16 bytes (TMA reads q, k
+    and v; out is written two columns at a time)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if not _tma_aligned(t):
             raise ValueError(
-                f"bfloat16 flash attention needs {name}'s base address and "
-                f"strides to be multiples of {_TMA_ALIGN} bytes; got "
-                f"strides {t.stride()} at address {t.data_ptr()}")
+                f"{kernel} needs {name}'s base address and strides to be "
+                f"multiples of {_TMA_ALIGN} bytes; got strides {t.stride()} "
+                f"at address {t.data_ptr()}")
 
 
 def kernel_for(q, k, v, out=None) -> str:
     """The kernel a call on the card runs for these tensors (the instance
-    rule), from dtype, head dim and alignment alone, before any launch.
-    "TMA can read" means: q, k, v and ``out`` (if given) have 16-byte
-    aligned base addresses and strides, or the head dim is padded (the
-    launch then takes new contiguous tensors).
+    rule), before any launch: ``flash_fwd_wgmma_kernel`` for bfloat16 and
+    ``flash_fwd_tf32_kernel`` for float32, on the tensor cores at every
+    head dim and every layout (what TMA cannot read is staged first,
+    :func:`staged_for`).  ``flash_fwd_kernel`` runs only when named
+    (:func:`_flash_attention_instance`)."""
+    return WGMMA_KERNEL if q.dtype == torch.bfloat16 else TF32_KERNEL
 
-    * bfloat16 at an instance head dim up to 128: ``flash_fwd_wgmma_kernel``
-      (which raises on a layout TMA cannot read);
-    * bfloat16 at instance head dim 256 that TMA can read:
-      ``flash_fwd_wgmma_kernel``;
-    * float32 at any instance head dim that TMA can read:
-      ``flash_fwd_tf32_kernel``;
-    * anything else, whatever TMA cannot read but bfloat16 below 256:
-      ``flash_fwd_kernel`` on CUDA cores.
 
-    Every float32 call and every bfloat16 call at head dim 256 thus has a
-    kernel: at those the rule narrows nothing."""
-    D = q.shape[3]
-    Dk = instance_dim(D)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and Dk <= 128:
-        return WGMMA_KERNEL
-    tensors = (q, k, v) if out is None else (q, k, v, out)
-    if Dk != D or all(_tma_aligned(t) for t in tensors):
-        return WGMMA_KERNEL if bf16 else TF32_KERNEL
-    return CUDA_CORE_KERNEL
+def staged_for(q, k, v, out=None) -> tuple:
+    """The tensors, by name (``"q"``, ``"k"``, ``"v"``, ``"out"``), that a
+    call on the card copies into new contiguous tensors before its launch
+    because TMA cannot read them (:func:`_tma_aligned`); none where the
+    head dim is padded, as the padded copies are new tensors already."""
+    if instance_dim(q.shape[3]) != q.shape[3]:
+        return ()
+    named = (("q", q), ("k", k), ("v", v), ("out", out))
+    return tuple(n for n, t in named if t is not None and not _tma_aligned(t))
 
 
 def instance_dim(D: int) -> int:
@@ -194,6 +191,11 @@ def _pad(t, Dk: int):
     out = t.new_zeros(t.shape[:-1] + (Dk,))
     out[..., :t.shape[-1]] = t
     return out
+
+
+def _copy(t):
+    """t's values in a new contiguous tensor, which TMA can read."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def _strides(t):
@@ -226,7 +228,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"unsupported device {q.device}")
     kernel = kernel_for(q, k, v, out)
     if Dk == q.shape[3]:
-        return _launch(q, k, v, out, kernel, causal, window, bq, bk)
+        staged = staged_for(q, k, v, out)
+        if not staged:
+            return _launch(q, k, v, out, kernel, causal, window, bq, bk)
+        qs, ks, vs = (_copy(t) if n in staged else t
+                      for n, t in (("q", q), ("k", k), ("v", v)))
+        dst = torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+            if "out" in staged else out
+        got = _launch(qs, ks, vs, dst, kernel, causal, window, bq, bk,
+                      staged=True)
+        return got if dst is out else out.copy_(got)
     padded = _launch(_pad(q, Dk), _pad(k, Dk), _pad(v, Dk),
                      torch.empty(q.shape[:3] + (Dk,), dtype=q.dtype,
                                  device=q.device),
@@ -238,10 +249,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def _flash_attention_instance(q, k, v, *, kernel: str, causal: bool = True,
                               window: int = 0, bq: int = 128, bk: int = 128):
     """:func:`flash_attention` on the card through the named kernel, at an
-    instance head dim (on CUDA cores where the rule picks a tensor-core
-    kernel, float32 at any head dim or bfloat16 at head dim 256, to time
-    the two side by side); raises where that kernel does not take the
-    inputs."""
+    instance head dim, unstaged: the one the rule names or
+    ``flash_fwd_kernel`` on CUDA cores (float32 at any head dim, bfloat16
+    at head dim 256), to time the two side by side; raises where that
+    kernel does not take the inputs (a tensor-core kernel on a layout TMA
+    cannot read)."""
     bq, bk = _check(q, k, v, window, bq, bk)
     if q.device.type != "cuda" or instance_dim(q.shape[3]) != q.shape[3]:
         raise ValueError("want CUDA tensors at an instance head dim")
@@ -251,13 +263,14 @@ def _flash_attention_instance(q, k, v, *, kernel: str, causal: bool = True,
                    bk)
 
 
-def _launch(q, k, v, out, kernel, causal, window, bq, bk, scale=None):
+def _launch(q, k, v, out, kernel, causal, window, bq, bk, scale=None,
+            staged=False):
     """One launch of ``kernel`` at an instance's head dim; ``scale``
-    defaults to ``1/sqrt(D)``."""
+    defaults to ``1/sqrt(D)``; ``staged`` counts it in ``COUNT.staged``."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if kernel == WGMMA_KERNEL:
-        _check_wgmma(q, k, v, out)
+    if kernel in (WGMMA_KERNEL, TF32_KERNEL):
+        _check_tma(kernel, q, k, v, out)
     lib = _library()
     code, dtype = _KERNEL_CODE[kernel], _DTYPE_CODE[q.dtype]
     smem = lib.flash_attention_smem_bytes(code, dtype, D, bq, bk)
@@ -280,6 +293,7 @@ def _launch(q, k, v, out, kernel, causal, window, bq, bk, scale=None):
     COUNT.launches += 1
     COUNT.wgmma += kernel == WGMMA_KERNEL
     COUNT.tf32 += kernel == TF32_KERNEL
+    COUNT.staged += staged
     return out
 
 

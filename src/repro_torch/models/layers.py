@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distrib.logical import P, ShardCtx
+from repro_torch.distrib.logical import NOSHARD, P, ShardCtx
 
 
 def remat_call(fn, *args, context_fn=noop_context_fn, **kwargs):
@@ -103,16 +103,17 @@ def embed_spec(cfg: ArchConfig) -> dict:
     return spec
 
 
-def embed(params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    # an embedding lookup (an indexed read's values), whose backward
-    # DTensor can place on a sharded table
-    return F.embedding(tokens, params["tok"].to(dtype))
+def embed(params, tokens: torch.Tensor, dtype: torch.dtype,
+          ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+    # an embedding lookup (an indexed read's values); on a vocab-split
+    # table each rank reads its own slice (``ShardCtx.embed``)
+    return ctx.embed(params["tok"], tokens, dtype)
 
 
-def unembed_matrix(params, cfg: ArchConfig, dtype: torch.dtype
-                   ) -> torch.Tensor:
+def unembed_matrix(params, cfg: ArchConfig, dtype: torch.dtype,
+                   ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["tok"].to(dtype).T
+        return ctx.transpose(params["tok"].to(dtype))
     return params["unembed"].to(dtype)
 
 
@@ -157,7 +158,7 @@ def chunked_cross_entropy(params, cfg: ArchConfig, h: torch.Tensor,
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
-    w = unembed_matrix(params, cfg, h.dtype)              # (D, V)
+    w = unembed_matrix(params, cfg, h.dtype, ctx)         # (D, V)
 
     def body(hc, yc):
         logits = ctx.constrain(ctx.matmul(hc, w).float(), "batch", "seq",

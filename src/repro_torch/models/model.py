@@ -137,7 +137,7 @@ class Model:
         if self.cfg.family == "audio":
             return ctx.matmul(batch["frames"].to(dtype),
                               params["frame_proj"].to(dtype))
-        return embed(params["embed"], batch["tokens"], dtype)
+        return embed(params["embed"], batch["tokens"], dtype, ctx)
 
     def forward(self, params, batch, ctx: ShardCtx = NOSHARD,
                 opts: ModelOpts = ModelOpts()):
@@ -294,7 +294,7 @@ class Model:
             h, _ = self.forward(params, batch, ctx, opts)
             w = unembed_matrix(params["embed"], cfg, h.dtype)
             return ctx.matmul(h, w).float(), {}
-        h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype),
+        h = ctx.constrain(embed(params["embed"], batch["tokens"], dtype, ctx),
                           "batch", "seq", "act_embed")
         positions = torch.arange(h.shape[1], device=h.device)[None]
 
@@ -427,7 +427,7 @@ class Model:
             raise ValueError(f"{cfg.family} has no decode step")
         dtype = compute_dtype(cfg)
         params = _top_weights(precast(params, dtype), ctx)
-        h = ctx.constrain(embed(params["embed"], batch["token"], dtype),
+        h = ctx.constrain(embed(params["embed"], batch["token"], dtype, ctx),
                           "batch", "seq", "act_embed")      # (B,1,D)
 
         def mamba_layer(p_i, ssm, conv):

@@ -101,7 +101,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
     E, K = cfg.n_experts, cfg.top_k
     G, Tg, C = _groups(x, cfg)
     dt = x.dtype
-    xg = ctx.constrain(x.reshape(G, Tg, D), "batch", None, "act_embed")
+    xg = ctx.constrain(ctx.fold_groups(x, G), "batch", None, "act_embed")
     gate_w, gate_ids, order, inv_order, seg_start, seg_end = _route(
         p, xg, cfg)
 
@@ -136,7 +136,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
     y_slots = torch.where(valid[..., None], y_slots.reshape(G, Tg, K, D),
                           torch.zeros((), dtype=dt, device=x.device))
     y = torch.sum(y_slots.float() * gate_w[..., None], dim=2)  # (G, Tg, D)
-    return y.to(dt).reshape(B, S, D)
+    return ctx.unfold_groups(y.to(dt), B)
 
 
 def dropped_slots(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

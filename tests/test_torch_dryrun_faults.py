@@ -179,6 +179,37 @@ print(json.dumps(res))
 """
 
 
+#: production cells at full width with their depth cut, on the (16, 16)
+#: mesh, each with the folds its trace still records on 2.13: the MoE
+#: grouping of a sequence-split input, (B, S, D) -> (G, Tg, D), reaches a
+#: fold only there (a reduced cell's groups hold whole rows), and
+#: ``ShardCtx.fold_groups`` gathers the sequence first, as DTensor places
+#: the view.  What remains is the router product's backward, whose
+#: gradient 2.13 leaves split along the group's tokens (2.11 traces the
+#: cell: ROADMAP.md, Queue 3)
+DEPTH_CELLS = {("phi3.5-moe-42b-a6.6b", "train_4k", "fsdp_tp", 2): (
+    "aten.view.default (32, 32768, 16) -> (1048576, 16)",)}
+
+DEPTH_SCRIPT = SCRIPT.split("seq, batch = ")[0] + """
+from repro_torch.launch.mesh import make_production_mesh, mesh_chip_count
+mesh = make_production_mesh(multi_pod=False)
+res = {}
+for arch, shape_name, strategy, layers in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(REGISTRY[arch], n_layers=layers)
+    shape = get_shape(shape_name)
+    plan = build_plan(cfg, shape, mesh, strategy=strategy)
+    folds = Folds()
+    t0 = time.time()
+    with folds:
+        r = roofline_from_trace(plan, cfg=cfg, shape=shape, mesh_name="pod",
+                                chips=mesh_chip_count(mesh))
+    res[f"{arch}|{shape_name}|{strategy}|{layers}"] = {
+        "t_step": r.t_step, "flops": r.flops_per_chip,
+        "trace_s": time.time() - t0, "folds": sorted(folds.seen)}
+print(json.dumps(res))
+"""
+
+
 def trace_cells(processes: int = PROCESSES) -> dict:
     """Every cell of ``CELLS``, traced in ``processes`` subprocesses at
     once -> {"arch|shape|strategy": the roofline's numbers or the error}."""
@@ -231,6 +262,24 @@ def test_reduced_cell_traces_or_names_its_fault(traced, cell):
     else:
         assert "error" in r, f"{cell} traces: take it out of FAULTS"
         assert op in r["error"], r["error"]
+
+
+@pytest.mark.parametrize("cell", sorted(DEPTH_CELLS),
+                         ids=lambda c: "|".join(map(str, c)))
+def test_depth_cut_cell_folds_no_split_dim(cell):
+    """A production cell at full width and cut depth traces, finite, and
+    folds no split dim into the one before it but those listed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    proc = subprocess.run(
+        [sys.executable, "-c", DEPTH_SCRIPT, json.dumps([cell])],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    r = json.loads(proc.stdout.strip().splitlines()[-1])[
+        "|".join(map(str, cell))]
+    assert math.isfinite(r["t_step"]) and r["t_step"] > 0 and r["flops"] > 0
+    assert all(f.startswith(DEPTH_CELLS[cell]) for f in r["folds"]), \
+        r["folds"]
 
 
 @pytest.mark.parametrize("cell", CELLS, ids="|".join)

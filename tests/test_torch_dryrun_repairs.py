@@ -530,6 +530,77 @@ WORKER = textwrap.dedent("""
                            lambda x, w: x @ w, [xf, rnd(D, 6)],
                            [(S0, S1), wpl], False)
         res[f"matmul_{name}_placed"] = [repr(q) for q in out.placements]
+
+    # the embedding lookup on a vocab-split table (the FSDP-gathered
+    # table of fsdp_tp and fsdp_tp_nosp: vocab over "model"), tokens split
+    # over batch (nosp) or over batch and sequence (fsdp_tp)
+    table_full = torch.randn(32, 8, generator=g)
+    tok_full = torch.randint(0, 32, (8, 8), generator=g)
+    for name, tok_pl in (("nosp", (S0, R)), ("seq", (S0, S1))):
+        table = distribute_tensor(table_full, mesh, (R, S0))
+        table.requires_grad_(True)
+        tok = distribute_tensor(tok_full, mesh, tok_pl)
+        with implicit_replication():
+            out = ctx.embed(table, tok, torch.float32)
+            up = torch.randn(out.shape, generator=g)
+            (out * up).sum().backward()
+        plain = table_full.clone().requires_grad_(True)
+        ref = torch.nn.functional.embedding(tok_full, plain)
+        (ref * up).sum().backward()
+        res[f"embed_{name}"] = torch.equal(out.full_tensor(), ref)
+        res[f"embed_{name}_pending"] = (
+            tuple(out.placements) == (tok_pl[0], Partial()))
+        res[f"embed_{name}_grad"] = torch.allclose(
+            table.grad.full_tensor(), plain.grad, rtol=1e-6, atol=1e-6)
+        res[f"embed_{name}_grad_split"] = table.grad.placements[1] == S0
+
+    # the tied table (S1, R: FSDP over D, vocab whole, as mamba2-130m's
+    # at production width) read by the lookup through its FSDP gather and
+    # by the logits product through ShardCtx.transpose: both gradients
+    # meet in the table's own placement, where autograd sums them
+    tied_full = torch.randn(16, 8, generator=g)
+    h_full = torch.randn(8, 8, generator=g)
+    tok2_full = torch.randint(0, 16, (8, 4), generator=g)
+    tied = distribute_tensor(tied_full, mesh, (S1, R)).requires_grad_(True)
+    h = distribute_tensor(h_full, mesh, (S0, R))
+    tok2 = distribute_tensor(tok2_full, mesh, (S0, R))
+    with implicit_replication():
+        logits = h @ ctx.transpose(tied)
+        rows = ctx.embed(tied.redistribute(mesh, (R, R)), tok2,
+                         torch.float32)
+        up_l = torch.randn(logits.shape, generator=g)
+        up_r = torch.randn(rows.shape, generator=g)
+        ((logits * up_l).sum() + (rows * up_r).sum()).backward()
+    plain = tied_full.clone().requires_grad_(True)
+    ((h_full @ plain.T * up_l).sum() + (torch.nn.functional.embedding(
+        tok2_full, plain) * up_r).sum()).backward()
+    res["tied_forward"] = torch.allclose(logits.full_tensor(),
+                                         h_full @ tied_full.T, rtol=1e-6,
+                                         atol=1e-6)
+    res["tied_grad"] = torch.allclose(tied.grad.full_tensor(), plain.grad,
+                                      rtol=1e-5, atol=1e-5)
+    res["tied_grad_placed"] = tuple(tied.grad.placements) == (S1, R)
+
+    # the MoE grouping of a sequence-split input, and its unfold: the
+    # groups' view placed as DTensor places it (the sequence gathered),
+    # gradients back to each side's own placement
+    xm_full = torch.randn(8, 16, 4, generator=g)
+    xm = distribute_tensor(xm_full, mesh, (S0, S1)).requires_grad_(True)
+    resid = distribute_tensor(torch.randn(8, 16, 4, generator=g), mesh,
+                              (S0, S1))
+    with implicit_replication():
+        grouped = ctx.fold_groups(xm, 4)
+        res["fold"] = (torch.equal(grouped.full_tensor(),
+                                   xm_full.reshape(4, 32, 4))
+                       and tuple(grouped.placements) == (S0, R))
+        back = ctx.unfold_groups(grouped * 2.0, 8)
+        out = back + resid
+        up = torch.randn(out.shape, generator=g)
+        (out * up).sum().backward()
+    res["unfold"] = torch.equal(back.full_tensor(), xm_full * 2.0)
+    res["fold_grad"] = (torch.equal(xm.grad.full_tensor(), up * 2.0)
+                        and tuple(xm.grad.placements) == (S0, S1))
+
     if rank == 0:
         print(json.dumps(res))
     dist.destroy_process_group()
@@ -667,3 +738,66 @@ def test_vocab_sharded_train_trace_holds_no_replicated_logits():
     assert proc.returncode == 0, proc.stderr[-4000:]
     r = json.loads(proc.stdout.strip().splitlines()[-1])
     assert 0 < r["args"] < r["peak"] < r["replicated"]
+
+
+# ---------------------------------------------------------------------------
+# the embedding lookup, the tied table's transpose and the MoE grouping
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_noshard_embed_transpose_fold_are_the_plain_ops(dt):
+    """With no mesh ``ShardCtx.embed`` is ``F.embedding`` of the cast
+    table, ``ShardCtx.transpose`` is ``.T`` and ``fold_groups`` /
+    ``unfold_groups`` are the reshapes: the same bits, forward and
+    gradients."""
+    rng = np.random.default_rng(5)
+    table0 = torch.from_numpy(rng.standard_normal((32, 8))
+                              .astype(np.float32))
+    tok = torch.from_numpy(rng.integers(0, 32, (4, 6)))
+    x0 = torch.from_numpy(rng.standard_normal((8, 6, 8)).astype(np.float32))
+    dtype = getattr(torch, dt)
+    outs = []
+    for embed, transpose, fold, unfold in (
+            (NOSHARD.embed, NOSHARD.transpose, NOSHARD.fold_groups,
+             NOSHARD.unfold_groups),
+            (lambda t, i, d: torch.nn.functional.embedding(i, t.to(d)),
+             lambda w: w.T, lambda x, g: x.reshape(g, -1, x.shape[-1]),
+             lambda y, b: y.reshape(b, -1, y.shape[-1]))):
+        table = table0.clone().requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        rows = embed(table, tok, dtype)
+        logits = x.to(dtype) @ transpose(table.to(dtype))
+        grouped = fold(x, 4)
+        back = unfold(grouped * 3.0, 8)
+        (rows.float().sum() + logits.float().square().sum()
+         + back.square().sum()).backward()
+        outs.append((rows, logits, grouped, back, table.grad, x.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert outs[0][2].shape == (4, 12, 8)
+
+
+@pytest.mark.parametrize("layout", ["nosp", "seq"])
+def test_embed_reads_each_ranks_own_vocab(gloo, layout):
+    """``ShardCtx.embed`` on a vocab-split table: ``F.embedding``'s rows bit
+    for bit (each row the sum of its own and zeros), left a pending sum
+    over the vocab's axis; the gradient (the local scatter-add) within
+    1e-6 of ``F.embedding``'s and split as the table is."""
+    assert gloo[f"embed_{layout}"]
+    assert gloo[f"embed_{layout}_pending"]
+    assert gloo[f"embed_{layout}_grad"]
+    assert gloo[f"embed_{layout}_grad_split"]
+
+
+def test_tied_table_gradients_meet_in_its_placement(gloo):
+    """A tied table read by the lookup (through its gather) and by the
+    logits product (``ShardCtx.transpose``): the forward and the summed
+    gradient equal the plain ones, and the gradient lies as the table."""
+    assert gloo["tied_forward"] and gloo["tied_grad"]
+    assert gloo["tied_grad_placed"]
+
+
+def test_moe_fold_of_a_split_sequence(gloo):
+    """``ShardCtx.fold_groups`` of a sequence-split input: the plain
+    reshape's values, placed with the sequence gathered;
+    ``unfold_groups`` back and the gradient through both, bit for bit,
+    in the input's own placement."""
+    assert gloo["fold"] and gloo["unfold"] and gloo["fold_grad"]

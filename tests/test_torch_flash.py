@@ -497,8 +497,9 @@ def test_cpu_counts_plain_and_never_launches():
                                  "v stride", "out stride"])
 def test_wgmma_check_rejects_what_tma_does_not_take(bad):
     """The bfloat16 kernel takes 16-byte aligned base addresses and strides
-    (TMA); anything else raises before a launch, on any device, and
-    nothing falls back to the float32 kernel."""
+    (TMA); anything else raises before a launch of it, on any device, and
+    the wrapper stages that tensor instead (nothing falls back to the
+    float32 kernel)."""
     bf = torch.bfloat16
     q, k, v = (torch.zeros(1, 4, 64, 64, dtype=bf) for _ in range(3))
     out = torch.empty_like(q)
@@ -515,7 +516,9 @@ def test_wgmma_check_rejects_what_tma_does_not_take(bad):
     else:
         out = torch.zeros(1, 4, 64, 66, dtype=bf)[..., :64]
     with pytest.raises(ValueError):
-        fa._check_wgmma(q, k, v, out)
+        fa._check_tma(fa.WGMMA_KERNEL, q, k, v, out)
+    assert fa.kernel_for(q, k, v, out) == fa.WGMMA_KERNEL
+    assert fa.staged_for(q, k, v, out) == (bad.split()[0],)
 
 
 def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
@@ -523,10 +526,11 @@ def test_wgmma_check_takes_mha_views_and_ignores_size_one_strides():
     stride, and is handed to TMA with the tensor's largest extent."""
     bf = torch.bfloat16
     q = torch.zeros(2, 64, 4, 32, dtype=bf).transpose(1, 2)
-    fa._check_wgmma(q, q, q, q)
+    fa._check_tma(fa.WGMMA_KERNEL, q, q, q, q)
     odd = torch.zeros(4 * 64 * 64, dtype=bf).as_strided(
         (1, 4, 64, 64), (3, 64 * 64, 64, 1))
-    fa._check_wgmma(odd, odd, odd, odd)
+    fa._check_tma(fa.WGMMA_KERNEL, odd, odd, odd, odd)
+    assert fa.staged_for(odd, odd, odd, odd) == ()
     assert fa._strides(odd) == [4 * 64 * 64, 64 * 64, 64]
     assert fa._strides(q) == list(q.stride()[:3])
 

@@ -244,30 +244,29 @@ def _aligned(dt, D, device):
     (torch.float32, 128, "mha view", fa.TF32_KERNEL),
     (torch.float32, 80, "contiguous", fa.TF32_KERNEL),    # padded to 128
     (torch.float32, 80, "k rows 65 apart", fa.TF32_KERNEL),   # padded: new
-    (torch.float32, 64, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
-    (torch.float32, 64, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
+    (torch.float32, 64, "k rows 65 apart", fa.TF32_KERNEL),
+    (torch.float32, 64, "out rows 66 apart", fa.TF32_KERNEL),
     (torch.float32, 256, "contiguous", fa.TF32_KERNEL),
     (torch.float32, 200, "contiguous", fa.TF32_KERNEL),       # padded to 256
     (torch.float32, 256, "mha view", fa.TF32_KERNEL),
-    (torch.float32, 256, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
-    (torch.float32, 256, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
+    (torch.float32, 256, "k rows 65 apart", fa.TF32_KERNEL),
+    (torch.float32, 256, "out rows 66 apart", fa.TF32_KERNEL),
     (torch.float32, 200, "k rows 65 apart", fa.TF32_KERNEL),  # padded: new
     (torch.bfloat16, 64, "contiguous", fa.WGMMA_KERNEL),
-    (torch.bfloat16, 64, "k rows 65 apart", fa.WGMMA_KERNEL),  # raises later
+    (torch.bfloat16, 64, "k rows 65 apart", fa.WGMMA_KERNEL),
     (torch.bfloat16, 256, "contiguous", fa.WGMMA_KERNEL),
     (torch.bfloat16, 256, "mha view", fa.WGMMA_KERNEL),
-    (torch.bfloat16, 256, "k rows 65 apart", fa.CUDA_CORE_KERNEL),
-    (torch.bfloat16, 256, "out rows 66 apart", fa.CUDA_CORE_KERNEL),
+    (torch.bfloat16, 256, "k rows 65 apart", fa.WGMMA_KERNEL),
+    (torch.bfloat16, 256, "out rows 66 apart", fa.WGMMA_KERNEL),
     (torch.bfloat16, 200, "contiguous", fa.WGMMA_KERNEL),     # padded to 256
     (torch.bfloat16, 200, "k rows 65 apart", fa.WGMMA_KERNEL),  # padded: new
 ])
 def test_instance_rule(device, dt, D, layout, kernel):
     """dtype, head dim and alignment name the kernel, before any launch:
-    float32 at every head dim runs the tf32 kernel where TMA can read q,
-    k, v and out (or the head dim is padded into new tensors), else the
-    CUDA-core kernel, so no float32 call is refused; bfloat16 at D <= 128 runs wgmma;
-    bfloat16 at D = 256 runs wgmma where TMA can read (or D is padded),
-    else the CUDA-core kernel, so no bfloat16 call at D = 256 is refused.
+    at every head dim, the tf32 (float32) or wgmma (bfloat16) kernel,
+    on the tensors as they are where TMA can read q, k, v and out (or the
+    head dim is padded into new tensors), else on staged copies of what
+    it cannot read, so no call is refused and none runs on CUDA cores.
     (``k rows 65 apart`` is k with D + 1 elements a row.)"""
     q, k, v = _aligned(dt, D, device)
     out = None
@@ -281,16 +280,22 @@ def test_instance_rule(device, dt, D, layout, kernel):
     elif layout == "out rows 66 apart":
         out = torch.zeros(1, 4, 64, D + 2, dtype=dt, device=device)[..., :D]
     assert fa.kernel_for(q, k, v, out) == kernel
+    staged = () if fa.instance_dim(D) != D else {
+        "k rows 65 apart": ("k",), "out rows 66 apart": ("out",)}.get(
+            layout, ())
+    assert fa.staged_for(q, k, v, out) == staged
 
 
 def test_instance_rule_reads_base_addresses():
     """A float32 view that starts 4 bytes into its storage cannot be read
-    by TMA: the CUDA-core kernel runs it."""
+    by TMA: the tf32 kernel runs it on a staged copy."""
     q, k, v = _aligned(torch.float32, 64, "cpu")
     shifted = torch.zeros(4 * 64 * 64 + 1)[1:].view(1, 4, 64, 64)
     assert shifted.data_ptr() % 16
-    assert fa.kernel_for(shifted, k, v) == fa.CUDA_CORE_KERNEL
+    assert fa.kernel_for(shifted, k, v) == fa.TF32_KERNEL
+    assert fa.staged_for(shifted, k, v) == ("q",)
     assert fa.kernel_for(q, k, v) == fa.TF32_KERNEL
+    assert fa.staged_for(q, k, v) == ()
 
 
 def test_cpu_tensors_count_plain_only():
