@@ -34,7 +34,14 @@ really ran there:
   two gates at the main shape: the share of bf16 y that differs from
   ``ssd_ref`` and the final state's error, which controls keeping W and
   the carried state (launch 3) or x o w (launch 1) in bf16 alone fail;
-  and timed by launch beside each launch's bound;
+  and timed by launch beside each launch's bound.  Every float32 call (the
+  float32 config's forward and loss here, the hybrid's float32 check, the
+  kernel search) runs them as ``chunk_state_tf32_kernel`` and
+  ``chunk_scan_tf32_kernel`` (both SASS must hold tf32 ``HGMMA``; a
+  profiled float32 forward must show each once a layer), held to a 3xTF32
+  gate at the main shape, zamba2's and the small preset that one tf32
+  product and bf16 hi + lo fail, and timed by launch against the
+  CUDA-core pair in turns;
 * hybrid: ``Model.loss`` on ``zamba2-7b`` at full width and depth (81
   Mamba layers in 13 groups of 6 and 3 in ``rem``, one shared attention
   block; 6.75 B parameters, 13.5 GB in bf16) at 8 x 4096 tokens with the
@@ -89,8 +96,9 @@ really ran there:
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
   block size the domain offers (``flash_attention`` in float32, on its
-  tensor-core kernel ``flash_fwd_tf32_kernel``: every launch of the search
-  must be one of it).  That kernel's SASS must hold tf32 ``HGMMA``
+  tensor-core kernel ``flash_fwd_tf32_kernel``, and ``ssd_scan`` in
+  float32, on its tf32 pair: every launch of the search must be one of
+  them).  That kernel's SASS must hold tf32 ``HGMMA``
   instructions (two instances at D = 256, which ptxas must build without
   a spill), and its output must pass a 3xTF32 gate against ``mha_ref`` at
   every block of both presets and at the qwen1.5-4b and gemma-7b prefill
@@ -240,11 +248,17 @@ SSD_STATE_KERNEL = "chunk_state_wgmma_kernel"     # bf16 ssd_scan, launch 1
 SSD_WGMMA_KERNEL = "chunk_scan_wgmma_kernel"      # bf16 ssd_scan, launch 3
 SSD_LAUNCHES = (SSD_STATE_KERNEL, "state_pass_kernel",
                 SSD_WGMMA_KERNEL)                 # one ssd_scan call, bf16
+SSD_TF32_LAUNCHES = ("chunk_state_tf32_kernel", "state_pass_kernel",
+                     "chunk_scan_tf32_kernel")    # one call, float32
 SSD_CUDA_CORE = ("chunk_state_kernel", "chunk_scan_kernel")  # their siblings
+#: launches 1 and 3 of each instance that ``ssd_scan.instance_for`` names
+SSD_PAIRS = {"wgmma": SSD_LAUNCHES[::2], "tf32": SSD_TF32_LAUNCHES[::2],
+             "cuda_core": SSD_CUDA_CORE}
 KERNELS = ["decode_attention", "ssd_scan", "flash_attention"]
 DECODE_KERNEL = "decode_attention_kernel"        # one launch a call
 PORT_KERNEL_NAMES = (DECODE_KERNEL, "chunk_state_kernel", SSD_STATE_KERNEL,
                      "state_pass_kernel", "chunk_scan_kernel", SSD_WGMMA_KERNEL,
+                     *SSD_PAIRS["tf32"],
                      "flash_fwd_kernel", "flash_fwd_wgmma_kernel",
                      "flash_fwd_tf32_kernel")  # the __global__s of csrc/
 
@@ -364,6 +378,18 @@ SSD_SPLIT_SHARE = 0.01
 # share of y it moves stays under SSD_SPLIT_SHARE there; ssd_gate_phase
 # logs it.)
 SSD_STATE_REL = 5e-5
+# the 3xTF32 gate of float32 ssd_scan: y (the worst head) and the states
+# leaving each chunk (the worst chunk), relative in norm, against the exact
+# function (float64, no rounding) on the kernel's own decays (its cum): the
+# f32 rounding of cum, at -200 in a chunk of the model's steps, moves y as
+# much as bf16 hi + lo products would, in ssd_ref as in the kernel, so the
+# gate holds the products and sums.  Emulated (ssd_tf32x3_ref; this
+# script's log of the gate at SSD_MAIN, zamba2-7b's shape and the small
+# preset on an H100): 3xTF32 5.3e-8-2.3e-7 on y and 8.3e-8-1.2e-7 on the
+# states; bf16 hi + lo 2.0e-6 or more on y and 3.6e-6 on the states; one
+# tf32 product 1.1e-4 or more.  The kernel adds the tensor cores'
+# truncating sums (its readings: PERF.md §6).
+SSD_TF32_GATE = 8e-7
 DOMAIN_REPS = 5           # eval_kernel_time reps per candidate
 DOMAIN_TOL = {"flash_attention": TOL[torch.float32],     # f32 attention
               "decode_attention": TOL[torch.float32],
@@ -774,22 +800,24 @@ def ssd_main_inputs():
 
 def _ssd_compare(name, args, chunk):
     """One ``ssd_scan`` call against ``ssd_ref``; the counts are set to 0
-    just before and read just after, so each case says which instance of
-    the third launch it ran."""
+    just before and read just after, and must show one launch of the
+    instances ``ssd.instance_for`` names (returned, and logged by name)."""
     ssd.COUNT.reset()
     y, st = ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    if (ssd.COUNT.launches, ssd.COUNT.plain) != (1, 0):
-        raise AssertionError(f"ssd_scan at {name} did not launch the kernel")
-    tc = ssd.COUNT.wgmma == 1
+    x, _, _, Bm, Cm, D = args
+    inst = ssd.instance_for(x, Bm, Cm, chunk)
+    if (ssd.COUNT.launches, ssd.COUNT.wgmma, ssd.COUNT.tf32,
+            ssd.COUNT.plain) != (1, inst == "wgmma", inst == "tf32", 0):
+        raise AssertionError(f"ssd_scan at {name}: {ssd.COUNT}, not one "
+                             f"launch of the {inst} instances")
     yp, sp = ssd_ref(*args, chunk)
     dt = args[0].dtype
     err = (y.float() - yp.float()).abs().max().item()
     serr = (st - sp).abs().max().item()
-    x, _, _, Bm, _, D = args
     log(f"ssd_scan {name}: x {tuple(x.shape)} {str(dt)[6:]} N={Bm.shape[-1]} "
         f"chunk={chunk} D {str(D.dtype)[6:]} strides {x.stride()} "
-        f"[{', '.join(SSD_LAUNCHES[::2] if tc else SSD_CUDA_CORE)}]: "
+        f"[{', '.join(SSD_PAIRS[inst])}]: "
         f"y max_abs_err={err:.3e} (tol {5 * TOL[dt]:g} abs+rel), state "
         f"max_abs_err={serr:.3e} (tol 1e-4 abs+rel)")
     if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
@@ -799,15 +827,19 @@ def _ssd_compare(name, args, chunk):
         raise AssertionError(f"ssd_scan y disagrees at {name}")
     if not torch.allclose(st, sp, atol=1e-4, rtol=1e-4):
         raise AssertionError(f"ssd_scan state disagrees at {name}")
-    return err, y, st, tc
+    return err, y, st, inst
 
 
 def check_ssd_scan():
     """The sweep of tests/test_kernels.py:39-43, bf16 D, the model's
     strided layout, chunk invariance, bf16 shapes on the tensor-core
     instances (zamba2's widths; chunks of 128; chunks of 1024, whose Bm
-    rows launch 1 takes in two column slices), and the main path's shape,
-    each held at today's tolerances."""
+    rows launch 1 takes in two column slices), float32 shapes on the tf32
+    instances (chunks of 1024 in eight column slices; P = 16 with N = 128;
+    groups of three heads, one of them with rings that wrap), and the main
+    path's shape, each held at today's tolerances on the instances the rule
+    names (float32 on its tensor-core instances but at N = 8 and Q =
+    100)."""
     cases = [   # name, B, L, H, P, N, chunk, dtype, d_dtype, strided
         ("test_kernels 1", 2, 256, 3, 64, 32, 64, torch.float32,
          torch.float32, False),
@@ -831,6 +863,14 @@ def check_ssd_scan():
          False),
         ("Q=1024 N=128: launch 1 in two column slices, 6 heads", 1, 2048, 6,
          64, 128, 1024, torch.bfloat16, torch.bfloat16, True),
+        ("f32 Q=1024 N=128: launch 1 in eight column slices, 6 heads", 1,
+         2048, 6, 64, 128, 1024, torch.float32, torch.float32, True),
+        ("f32 P=16 N=128", 1, 512, 2, 16, 128, 128, torch.float32,
+         torch.float32, True),
+        ("f32 H=3 Q=256: a group of three heads", 2, 1024, 3, 64, 64, 256,
+         torch.float32, torch.float32, True),
+        ("f32 H=3 P=32 N=32 Q=256: rings of three slots, wrapping", 1, 1024,
+         3, 32, 32, 256, torch.float32, torch.float32, False),
     ]
     for i, (name, B, L, H, P, N, chunk, dt, ddt, strided) in enumerate(cases):
         args = ssd_inputs(B, L, H, P, N, dt, seed=10 + i, d_dtype=ddt,
@@ -844,8 +884,9 @@ def check_ssd_scan():
         raise AssertionError("ssd_scan depends on the chunk size")
     log(f"ssd_scan chunk invariance: y 64 vs 256 max diff "
         f"{(y64 - y256).abs().max().item():.3e} (tol 1e-4 abs+rel)")
-    err, _, _, tc = _ssd_compare("main path", ssd_main_inputs(), SSD_MAIN[-1])
-    if not tc:
+    err, _, _, inst = _ssd_compare("main path", ssd_main_inputs(),
+                                   SSD_MAIN[-1])
+    if inst != "wgmma":
         raise AssertionError("the main path's shape did not run "
                              f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
     return err
@@ -899,6 +940,190 @@ def ssd_split_ref(x, dt, A, Bm, Cm, D, chunk, *, split=True, state_split=True,
     y = torch.stack(ys, dim=1).reshape(B_, L, H, P)
     return ((y + x.to(dtype) * D.to(dtype)[None, None, :, None]).to(x.dtype),
             torch.stack(states, dim=2))
+
+
+def _ssd_product(a, b, split, dtype):
+    """a @ b of float32 operands as the float32 tensor-core instances form
+    it (``flash_attention._product``'s roundings: ``tf32x3`` big.big +
+    big.small + small.big, ``tf32`` big.big alone, ``bf16x3`` bf16 hi + lo
+    in place of tf32), or exact where ``split`` is None; sums in
+    ``dtype``."""
+    a, b = a.float(), b.float()
+    if split is None:
+        return a.to(dtype) @ b.to(dtype)
+    rnd = fa._tf32 if split != "bf16x3" else (lambda t: t.bfloat16().float())
+    a_big, b_big = rnd(a), rnd(b)
+    if split == "tf32":
+        return a_big.to(dtype) @ b_big.to(dtype)
+    a_small, b_small = rnd(a - a_big), rnd(b - b_big)
+    return (a_big.to(dtype) @ b_big.to(dtype) + a_big.to(dtype)
+            @ b_small.to(dtype) + a_small.to(dtype) @ b_big.to(dtype))
+
+
+def ssd_tf32x3_ref(x, dt, A, Bm, Cm, D, chunk, *, split="tf32x3",
+                   dtype=torch.float32, cum=None):
+    """``ssd_ref``'s function with the float32 tensor-core instances'
+    roundings (``chunk_state_tf32_kernel``, ``chunk_scan_tf32_kernel``);
+    returns (y in x's dtype, the state leaving each chunk (B, H, L/Q, P, N)
+    in ``dtype``, the final state last).  Each of the four products,
+    C.B^T, W.x with W = (C.B^T) o L o dt, C.S^T of the state S entering
+    the chunk, and each chunk's own state (x o w)^T.Bm with w = dt
+    exp(cum[Q-1] - cum), takes its float32 operands as :func:`_ssd_product`
+    of ``split``: ``tf32x3`` the kernels'; ``tf32`` (one product) and
+    ``bf16x3`` (W, x o w and every other operand as bf16 hi + lo) the two
+    controls the 3xTF32 gate must fail; None exact.  Every sum in
+    ``dtype`` (float32 as the kernels sum; float64 with ``split=None`` is
+    the exact function the gate's limit is set against)."""
+    B_, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    n = L // Q
+    a = (dt.float() * A.float()[None, None, :]).to(dtype)
+    a = a.reshape(B_, n, Q, H).transpose(2, 3)                # (B, n, H, Q)
+    dt_c = dt.to(dtype).reshape(B_, n, Q, H).transpose(2, 3)
+    x_c = x.float().reshape(B_, n, Q, H, P).permute(0, 1, 3, 2, 4)
+    B_c = Bm.float().reshape(B_, n, Q, N)
+    C_c = Cm.float().reshape(B_, n, Q, N)
+    keep = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(B_, H, P, N, dtype=dtype, device=x.device)
+    ys, states = [], []
+    cums = a.cumsum(-1) if cum is None else cum.to(dtype).transpose(1, 2)
+    for c in range(n):
+        cum = cums[:, c]                                         # (B, H, Q)
+        seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~keep, 0)
+        G = _ssd_product(C_c[:, c], B_c[:, c].transpose(1, 2), split, dtype)
+        W = torch.where(keep, G[:, None] * torch.exp(seg)
+                        * dt_c[:, c][:, :, None, :], 0.0)
+        y = _ssd_product(W.float(), x_c[:, c], split, dtype)    # (B,H,Q,P)
+        y = y + _ssd_product(C_c[:, c][:, None], state.float().transpose(
+            2, 3), split, dtype) * torch.exp(cum)[..., None]
+        ys.append(y)
+        w = dt_c[:, c] * torch.exp(cum[..., -1:] - cum)         # (B, H, Q)
+        xw = (x_c[:, c].to(dtype) * w[..., None]).float()
+        state = state * torch.exp(cum[..., -1])[..., None, None] + \
+            _ssd_product(xw.transpose(2, 3), B_c[:, c][:, None], split,
+                         dtype)
+        states.append(state)
+    y = torch.stack(ys, dim=1).permute(0, 1, 3, 2, 4).reshape(B_, L, H, P)
+    return ((y + x.to(dtype) * D.to(dtype)[None, None, :, None]).to(x.dtype),
+            torch.stack(states, dim=2))
+
+
+def ssd_tf32_errors(y, ref):
+    """Each head's error of y (B, L, H, P) against ``ref``'s, relative in
+    norm over the other axes: (H,) float64."""
+    d = (y.double() - ref.double()).movedim(2, 0).flatten(1)
+    return d.norm(dim=1) / ref.double().movedim(2, 0).flatten(1).norm(dim=1)
+
+
+def ssd_tf32_gate(name, args, chunk):
+    """The 3xTF32 gate at one float32 input: ``ssd_scan`` must run the
+    float32 tensor-core instances (one counted call); its y at the worst
+    head and its states leaving each chunk at the worst chunk within
+    SSD_TF32_GATE of the exact function on the kernel's own cum (from
+    ``ssd._ssd_scan_instance``), while each control of ``ssd_tf32x3_ref``
+    (one tf32 product; bf16 hi + lo) misses it at every head and every
+    chunk; the states within SSD_STATE_REL of ``ssd_ref_states``.  Returns
+    (y's error, the states' error)."""
+    ssd.COUNT.reset()
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if (ssd.COUNT.launches, ssd.COUNT.tf32) != (1, 1):
+        raise AssertionError(f"float32 ssd_scan at {name} did not run "
+                             f"{' and '.join(SSD_PAIRS['tf32'])}")
+    y2, st2, entering, cum = ssd._ssd_scan_instance(*args, chunk=chunk,
+                                                    instance="tf32")
+    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+        raise AssertionError("ssd_scan and its tf32 instance differ")
+    states = torch.cat([entering[:, :, 1:], st[:, :, None]], dim=2)
+    del y2, st2, entering
+    ex_y, ex_st = ssd_tf32x3_ref(*args, chunk, split=None,
+                                 dtype=torch.float64, cum=cum)
+    y_err = ssd_tf32_errors(y, ex_y).max().item()
+    s_err = ssd_state_errors(states, ex_st).max().item()
+    line = [f"kernel y {y_err:.3e}, states {s_err:.3e}"]
+    for split in fa.SPLITS:
+        ey, es = ssd_tf32x3_ref(*args, chunk, split=split, cum=cum)
+        e_y, e_s = ssd_tf32_errors(ey, ex_y), ssd_state_errors(es, ex_st)
+        del ey, es
+        line.append(f"emulated {split} y {e_y.min().item():.3e}-"
+                    f"{e_y.max().item():.3e}, states {e_s.min().item():.3e}"
+                    f"-{e_s.max().item():.3e}")
+        if split != "tf32x3" and (e_y.min() <= SSD_TF32_GATE
+                                  or e_s.min() <= SSD_TF32_GATE):
+            raise AssertionError(f"the 3xTF32 ssd gate passes the {split} "
+                                 f"control at a head or chunk of {name}")
+    del ex_y, ex_st
+    rel, rel_ok = ssd_state_gate(states, ssd_ref_states(*args, chunk))
+    log(f"ssd_scan {name}: 3xTF32 gate (vs the exact function on the "
+        f"kernel's cum, relative in norm, worst head / chunk <= "
+        f"{SSD_TF32_GATE:g}): {'; '.join(line)}; the states vs "
+        f"ssd_ref_states {rel:.3e} (<= {SSD_STATE_REL:g})")
+    if y_err > SSD_TF32_GATE or s_err > SSD_TF32_GATE:
+        raise AssertionError(f"float32 ssd_scan fails the 3xTF32 gate at "
+                             f"{name}")
+    if not rel_ok:
+        raise AssertionError(f"float32 ssd_scan fails the state gate at "
+                             f"{name}")
+    return y_err, s_err
+
+
+def ssd_f32_inputs(shape, seed):
+    """float32 inputs at ``shape`` (B, L, H, P, N, chunk) as the model
+    passes them: strided views of one conv output, the model's steps."""
+    B, L, H, P, N, _ = shape
+    return ssd_inputs(B, L, H, P, N, torch.float32, seed=seed, strided=True,
+                      dt_scale=1.0)
+
+
+SSD_TF32_REPEATS = 20   # calls that must give the first call's bits
+
+
+def check_ssd_tf32_repeats():
+    """The tf32 pair called ``SSD_TF32_REPEATS`` times on the same inputs
+    at SSD_MAIN, at a chunk of 1024 and with groups of three heads (one
+    with launch 1's rings wrapping): every call must give the first call's
+    bits.  A ring slot read before its tile has landed, or refilled before
+    every reader is done with it, shows as a call that differs; none
+    differing shows such a fault did not fire here, not that it cannot."""
+    t0 = time.time()
+    cases = (("SSD_MAIN", SSD_MAIN, True), ("Q=1024", (1, 2048, 6, 64, 128,
+                                                       1024), True),
+             ("H=3 P=64 N=64", (2, 1024, 3, 64, 64, 256), True),
+             ("H=3 P=32 N=32", (1, 1024, 3, 32, 32, 256), False))
+    for name, (B, L, H, P, N, chunk), strided in cases:
+        args = ssd_inputs(B, L, H, P, N, torch.float32, seed=7,
+                          strided=strided)
+        if ssd.instance_for(args[0], args[3], args[4], chunk) != "tf32":
+            raise AssertionError(f"the rule does not send {name} to the "
+                                 "tf32 instances")
+        y0, s0 = ssd.ssd_scan(*args, chunk=chunk)
+        differ = 0
+        for _ in range(SSD_TF32_REPEATS):
+            y, st = ssd.ssd_scan(*args, chunk=chunk)
+            differ += not (torch.equal(y, y0) and torch.equal(st, s0))
+        log(f"ssd_scan tf32 repeats at {name}: {differ} of "
+            f"{SSD_TF32_REPEATS} calls differ from the first")
+        if differ:
+            raise AssertionError(f"the tf32 instances are not repeatable at "
+                                 f"{name}")
+        del args, y0, s0, y, st
+    torch.cuda.empty_cache()
+    log(f"ssd_scan tf32 repeats: {time.time() - t0:.1f} s")
+
+
+def ssd_tf32_gate_phase():
+    """The 3xTF32 gate at SSD_MAIN and zamba2-7b's shape in float32, and at
+    the small preset at each of its chunks on the search's inputs."""
+    t0 = time.time()
+    for name, shape, seed in (("SSD_MAIN float32", SSD_MAIN, 53),
+                              ("zamba2-7b float32", SSD_HYBRID, 54)):
+        ssd_tf32_gate(name, ssd_f32_inputs(shape, seed), shape[-1])
+        torch.cuda.empty_cache()
+    args = bench._inputs("ssd_scan", "small", "cuda")
+    for chunk in bench._BLOCKS["small"]["ssd"]:
+        ssd_tf32_gate(f"small preset chunk {chunk}", args, chunk)
+    log(f"ssd_scan 3xTF32 gate phase: {time.time() - t0:.1f} s")
 
 
 def ssd_split_gate(y, ref):
@@ -967,8 +1192,8 @@ def ssd_gate_phase():
         if (ssd.COUNT.wgmma, ssd.COUNT.launches) != (1, 1):
             raise AssertionError("the gate's input did not run "
                                  f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
-        y2, st2, entering = ssd._ssd_scan_instance(*args, chunk=chunk,
-                                                   tensor_core=True)
+        y2, st2, entering, _ = ssd._ssd_scan_instance(*args, chunk=chunk,
+                                                      instance="wgmma")
         if not (torch.equal(y, y2) and torch.equal(st, st2)):
             raise AssertionError("ssd_scan and its tensor-core instance differ")
         states = torch.cat([entering[:, :, 1:], st[:, :, None]], dim=2)
@@ -1025,20 +1250,24 @@ def ssd_gate_phase():
 def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
                      reps=50):
     """Times at ``shape`` (the main path's unless given, with ``args`` its
-    inputs): the kernel (launches 1 and 3 on the tensor cores) and the
-    same call with both on CUDA cores, in turns in this call, and the
-    plain version; each launch's device time in profiler windows of both
-    calls, in turns, beside each launch's own bound.  No single PyTorch
-    call computes the SSD scan, so there is no library time."""
+    inputs): the kernel (launches 1 and 3 on the tensor-core instances the
+    rule names: bf16 wgmma, or 3xTF32 wgmma for float32) and the same call
+    with both on CUDA cores, in turns in this call, and the plain version;
+    each launch's device time in profiler windows of both calls, in turns,
+    beside each launch's own bound.  No single PyTorch call computes the
+    SSD scan, so there is no library time."""
+    t0 = time.time()
     B, L, H, P, N, chunk = shape
     args = ssd_main_inputs() if args is None else args
+    x, dt, A, Bm, Cm, D = args
+    inst = ssd.instance_for(x, Bm, Cm, chunk)
+    launches = (SSD_PAIRS[inst][0], "state_pass_kernel", SSD_PAIRS[inst][1])
 
-    def instance(tc):
-        return lambda: ssd._ssd_scan_instance(*args, chunk=chunk,
-                                              tensor_core=tc)
+    def instance(i):
+        return lambda: ssd._ssd_scan_instance(*args, chunk=chunk, instance=i)
     tc_ms, cc_ms = [], []
-    for tc in (True, False, False, True):
-        (tc_ms if tc else cc_ms).append(time_ms(instance(tc), reps))
+    for i in (inst, "cuda_core", "cuda_core", inst):
+        (tc_ms if i == inst else cc_ms).append(time_ms(instance(i), reps))
     ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), reps)
     plain_ms = time_ms(lambda: ssd_ref(*args, chunk), reps=10)
 
@@ -1047,14 +1276,13 @@ def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
         window now and then drops some events)."""
         hits = [r for r in rows if name in r[1]]
         return sum(r[0] for r in hits) / max(sum(r[2] for r in hits), 1)
-    per = {k: [] for k in SSD_LAUNCHES + SSD_CUDA_CORE}
-    for tc in (True, False, False, True):
-        rows = profile_window(instance(tc), 5, "call")
-        for k in (SSD_LAUNCHES if tc else SSD_CUDA_CORE + SSD_LAUNCHES[1:2]):
+    per = {k: [] for k in launches + SSD_CUDA_CORE}
+    for i in (inst, "cuda_core", "cuda_core", inst):
+        rows = profile_window(instance(i), 5, "call")
+        for k in (launches if i == inst else SSD_CUDA_CORE + launches[1:2]):
             per[k].append(launch_ms(rows, k))
 
     Q, n = chunk, L // chunk
-    x, dt, A, Bm, Cm, D = args
     el = x.element_size()
     xb, nb = B * L * H * P * el, B * L * N * el       # x (or y); Bm (or Cm)
     dtb, cumb = dt.numel() * 4, B * H * n * Q * 4
@@ -1062,37 +1290,49 @@ def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
     small = A.numel() * 4 + D.numel() * D.element_size()
     nbytes = 2 * xb + dtb + 2 * nb + B * H * P * N * 4 + small
     tri = Q * (Q + 1) // 2
-    # C.B^T multiplies two bf16 operands with f32 sums.  The other three
-    # products take an f32 operand (dt x and the decays in W, the state,
-    # x o w), each as two bf16 products (hi + lo, held by the split and
-    # state gates): all at the bf16 rate.
     ops_cb = B * n * tri * N * 2                  # causal, once per (b, c)
     ops_w = B * H * n * tri * P * 2               # (C.B^T o L o dt) . x
     ops_c = B * H * (n - 1) * Q * P * N * 2       # C . state; zero in chunk 0
     ops_s = B * H * n * Q * P * N * 2             # each chunk's new state
     ops_f32 = ops_w + ops_c + ops_s
-    rate = PEAK_OPS[torch.bfloat16]
+    if inst == "tf32":
+        # every operand is float32: each product as three tf32 products
+        rate, k_cb, k_f32 = TF32_OPS, 3, 3
+        count = (f"3 x {ops_cb + ops_f32} flops of tf32 products at 495 "
+                 f"TFLOP/s")
+    else:
+        # C.B^T multiplies two bf16 operands with f32 sums.  The other
+        # three products take an f32 operand (dt x and the decays in W, the
+        # state, x o w), each as two bf16 products (hi + lo, held by the
+        # split and state gates): all at the bf16 rate.
+        rate, k_cb, k_f32 = PEAK_OPS[torch.bfloat16], 1, 2
+        count = (f"{ops_cb} flops of C.B^T and 2 x {ops_f32} of hi + lo "
+                 f"products at 989 TFLOP/s")
 
     def bound(nbytes, ops, rate=rate):
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
         return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
-    bound_ms, bound_by = bound(nbytes, ops_cb + 2 * ops_f32)
-    old_ms = (ops_cb / rate + ops_f32 / PEAK_OPS[torch.float32]) * 1e3
+    ops = k_cb * ops_cb + k_f32 * ops_f32
+    bound_ms, bound_by = bound(nbytes, ops)
+    # the count before the tensor-core instances: the products with an f32
+    # operand (float32: every product) at the f32 rate of 67 TFLOP/s
+    old_ms = (ops_f32 / PEAK_OPS[torch.float32] + ops_cb / (
+        PEAK_OPS[torch.float32] if inst == "tf32" else rate)) * 1e3
     # each launch's own: what it reads and writes once, its products
-    own = {SSD_STATE_KERNEL: bound(xb + dtb + nb + small + cumb + stb,
-                                   2 * ops_s),
+    own = {launches[0]: bound(xb + dtb + nb + small + cumb + stb,
+                              k_f32 * ops_s),
            "state_pass_kernel": bound(2 * stb + B * H * P * N * 4
                                       + B * H * n * 4, 2 * B * H * n * P * N,
                                       PEAK_OPS[torch.float32]),
-           SSD_WGMMA_KERNEL: bound(2 * xb + dtb + 2 * nb + small + cumb + stb,
-                                   ops_cb + 2 * (ops_w + ops_c))}
+           launches[2]: bound(2 * xb + dtb + 2 * nb + small + cumb + stb,
+                              k_cb * ops_cb + k_f32 * (ops_w + ops_c))}
     per_launch = []
-    for k in SSD_LAUNCHES:
+    for k in launches:
         t = per[k]
         row = dict(name=k, ms=float(np.mean(t)), turns=t, bound_ms=own[k][0],
                    bound_by=own[k][1])
         if k != "state_pass_kernel":
-            sib = SSD_CUDA_CORE[k == SSD_WGMMA_KERNEL]
+            sib = SSD_CUDA_CORE[k == launches[2]]
             row.update(cuda_core=sib, cuda_core_ms=float(np.mean(per[sib])),
                        cuda_core_turns=per[sib])
         per_launch.append(row)
@@ -1103,52 +1343,64 @@ def measure_ssd_scan(shape=SSD_MAIN, args=None, name="main path",
             + (f"; {row['cuda_core']} on the same inputs "
                f"{' / '.join(f'{v:.4f}' for v in row['cuda_core_turns'])} ms"
                if "cuda_core" in row else ""))
-    log(f"ssd_scan {name}: kernel {ms:.4f} ms (launches 1 and 3 on the "
-        f"tensor cores; in turns {' / '.join(f'{t:.4f}' for t in tc_ms)}), "
-        f"both on CUDA cores {' / '.join(f'{t:.4f}' for t in cc_ms)} ms; "
-        f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.5f} ms "
+    log(f"ssd_scan {name}: kernel {ms:.4f} ms (launches 1 and 3 on "
+        f"{' and '.join(SSD_PAIRS[inst])}; in turns "
+        f"{' / '.join(f'{t:.4f}' for t in tc_ms)}), both on CUDA cores "
+        f"{' / '.join(f'{t:.4f}' for t in cc_ms)} ms; plain "
+        f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.5f} ms "
         f"({nbytes} bytes at 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.5f}"
-        f" ms; {ops_cb} flops of C.B^T and 2 x {ops_f32} of hi + lo products "
-        f"at 989 TFLOP/s = {(ops_cb + 2 * ops_f32) / rate * 1e3:.5f} ms); the "
-        f"old count, the f32-operand products at the f32 rate of 67 TFLOP/s: "
-        f"{old_ms:.5f} ms")
+        f" ms; {count} = {ops / rate * 1e3:.5f} ms); the old count, the "
+        f"f32-operand products at the f32 rate of 67 TFLOP/s: {old_ms:.5f} "
+        f"ms; {time.time() - t0:.1f} s")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, cuda_core_ms=float(np.mean(cc_ms)),
-                per_launch=per_launch)
+                bound_by=bound_by, instance=inst,
+                cuda_core_ms=float(np.mean(cc_ms)), per_launch=per_launch)
 
 
-def measure_ssd_f32_small():
-    """``ssd_scan`` in float32 at the small preset's shape and incumbent
-    chunk, as the kernel search runs it most (every call of the search is
-    float32, so launches 1 and 3 run their CUDA-core instances
-    ``chunk_state_kernel`` and ``chunk_scan_kernel``): the call, and each
-    launch's device time in profiler windows of 5 calls (two, in turns)
-    beside its own bound, its products as f32 FMAs at 67 TFLOP/s or its
-    bytes, whichever is longer."""
-    B, L, H, P, N = bench.PRESETS["small"]["ssd_scan"]
-    chunk = bench._BLOCKS["small"]["ssd"][0]
-    args = ssd_inputs(B, L, H, P, N, torch.float32, seed=121)
+def _ssd_f32_preset(preset, chunk):
+    """``ssd_scan`` in float32 at one preset's shape and chunk on the
+    search's inputs: the call, and each launch's device time in profiler
+    windows of 5 calls, in turns with the CUDA-core siblings on the same
+    inputs (tf32, CUDA cores, CUDA cores, tf32), beside its own bound:
+    three tf32 products at 495 TFLOP/s or its bytes, whichever is longer.
+    Each window also holds an empty kernel (``torch.cuda._sleep(0)``) after
+    each call: the floor that a launch bound by its latency can
+    approach."""
+    B, L, H, P, N = bench.PRESETS[preset]["ssd_scan"]
+    args = bench._inputs("ssd_scan", preset, "cuda")
     call = lambda: ssd.ssd_scan(*args, chunk=chunk)  # noqa: E731
     ssd.COUNT.reset()
     call()
     torch.cuda.synchronize()
-    if (ssd.COUNT.launches, ssd.COUNT.wgmma) != (1, 0):
-        raise AssertionError("float32 ssd_scan at the small preset: "
-                             f"{ssd.COUNT}, not one CUDA-core call")
+    if (ssd.COUNT.launches, ssd.COUNT.tf32) != (1, 1):
+        raise AssertionError(f"float32 ssd_scan at the {preset} preset, "
+                             f"chunk {chunk}: {ssd.COUNT}, not one tf32 "
+                             "call")
     ms = time_ms(call)
-    per = {k: [] for k in SSD_CUDA_CORE + SSD_LAUNCHES[1:2]}
-    for _ in range(2):
+    calls = {i: (lambda i=i: ssd._ssd_scan_instance(*args, chunk=chunk,
+                                                    instance=i))
+             for i in ("tf32", "cuda_core")}
+    turns = ("tf32", "cuda_core", "cuda_core", "tf32")
+    call_ms = {i: [] for i in calls}
+    for i in turns:
+        call_ms[i].append(time_ms(calls[i]))
+    names = {i: SSD_PAIRS[i] + ("state_pass_kernel", "spin_kernel")
+             for i in calls}
+    per = {(i, k): [] for i in calls for k in names[i]}
+    for i in turns:
         rows = []
         for _ in range(2):    # a window CUPTI left empty is taken again
-            rows = rows or profile_window(call, 5, "call")
+            rows = rows or profile_window(
+                lambda: (calls[i](), torch.cuda._sleep(0)), 5, "call")
         if not rows:
             raise AssertionError("no profiler window of float32 ssd_scan "
                                  "showed device time")
-        for k in per:
+        for k in names[i]:
             hits = [r for r in rows if k in r[1]]
-            per[k].append(sum(r[0] for r in hits)
-                          / max(sum(r[2] for r in hits), 1))
-    Q, n = chunk, L // chunk
+            per[i, k].append(sum(r[0] for r in hits)
+                             / max(sum(r[2] for r in hits), 1))
+    Q = min(chunk, L)
+    n = L // Q
     xb, nb = B * L * H * P * 4, B * L * N * 4
     dtb, cumb, stb = B * L * H * 4, B * H * n * Q * 4, B * H * n * P * N * 4
     small = 2 * H * 4
@@ -1156,27 +1408,62 @@ def measure_ssd_f32_small():
     ops_cb, ops_w = B * n * tri * N * 2, B * H * n * tri * P * 2
     ops_c = B * H * (n - 1) * Q * P * N * 2
     ops_s = B * H * n * Q * P * N * 2
-    own = {"chunk_state_kernel": (xb + dtb + nb + small + cumb + stb, ops_s),
+    own = {"chunk_state_tf32_kernel": (xb + dtb + nb + small + cumb + stb,
+                                       3 * ops_s, TF32_OPS),
            "state_pass_kernel": (2 * stb + B * H * P * N * 4 + B * H * n * 4,
-                                 2 * B * H * n * P * N),
-           "chunk_scan_kernel": (2 * xb + dtb + 2 * nb + small + cumb + stb,
-                                 ops_cb + ops_w + ops_c)}
+                                 2 * B * H * n * P * N,
+                                 PEAK_OPS[torch.float32]),
+           "chunk_scan_tf32_kernel": (2 * xb + dtb + 2 * nb + small + cumb
+                                      + stb, 3 * (ops_cb + ops_w + ops_c),
+                                      TF32_OPS)}
+    empty = per["tf32", "spin_kernel"] + per["cuda_core", "spin_kernel"]
+    shape = f"{preset} preset float32, chunk {chunk}"
     readings = []
-    for k, (nbytes, ops) in own.items():
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = ops / PEAK_OPS[torch.float32] * 1e3
-        t = float(np.mean(per[k]))
-        readings.append(dict(shape="small preset float32", name=k, ms=t,
-                             turns=per[k], bound_ms=max(b_ms, o_ms),
-                             bound_by="bytes" if b_ms >= o_ms
-                             else "operations"))
-        log(f"ssd_scan small preset float32 (B={B} L={L} H={H} P={P} N={N} "
-            f"chunk={chunk}), launch {k}: "
-            f"{' / '.join(f'{v:.4f}' for v in per[k])} ms (profiler, 5 calls"
-            f" each), bound {max(b_ms, o_ms):.6f} ms ({nbytes} bytes at 3.35 "
-            f"TB/s, {ops} flops at 67 TFLOP/s), {t / max(b_ms, o_ms):.2f}x")
-    log(f"ssd_scan small preset float32: the call {ms:.4f} ms")
-    return dict(ms=ms, readings=readings)
+    for k, (nbytes, ops, rate) in own.items():
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        t = per["tf32", k]
+        row = dict(shape=shape, name=k, ms=float(np.mean(t)), turns=t,
+                   bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations",
+                   empty_kernel_ms=float(np.mean(empty)))
+        if k != "state_pass_kernel":
+            sib = SSD_CUDA_CORE[k == SSD_PAIRS["tf32"][1]]
+            row.update(cuda_core=sib, cuda_core_turns=per["cuda_core", sib],
+                       cuda_core_ms=float(np.mean(per["cuda_core", sib])))
+        readings.append(row)
+        log(f"ssd_scan {shape} (B={B} L={L} H={H} P={P} N={N}), launch {k}: "
+            f"{' / '.join(f'{v:.5f}' for v in t)} ms (profiler, 5 calls "
+            f"each), bound {max(b_ms, o_ms):.6f} ms ({nbytes} bytes at 3.35 "
+            f"TB/s, {ops} flops at {rate / 1e12:.0f} TFLOP/s), "
+            f"{row['ms'] / max(b_ms, o_ms):.2f}x"
+            + (f"; {row['cuda_core']} in turns "
+               f"{' / '.join(f'{v:.5f}' for v in row['cuda_core_turns'])} ms"
+               if "cuda_core" in row else ""))
+    log(f"ssd_scan {shape}: the call {ms:.4f} ms; tf32 instances "
+        f"{' / '.join(f'{v:.4f}' for v in call_ms['tf32'])} ms, CUDA-core "
+        f"{' / '.join(f'{v:.4f}' for v in call_ms['cuda_core'])} ms in "
+        f"turns; an empty kernel in the same windows "
+        f"{' / '.join(f'{v:.5f}' for v in empty)} ms")
+    return dict(shape=shape, ms=ms, call_turns=call_ms["tf32"],
+                cuda_core_turns=call_ms["cuda_core"],
+                cuda_core_ms=float(np.mean(call_ms["cuda_core"])),
+                empty_kernel_ms=float(np.mean(empty)), readings=readings)
+
+
+def measure_ssd_f32_small():
+    """:func:`_ssd_f32_preset` at the kernel search's presets, ``tiny`` and
+    ``small``, at each of their chunks (128, 64 and 32), every one on
+    ``chunk_state_tf32_kernel`` and ``chunk_scan_tf32_kernel`` by the rule.
+    Returns the small preset's incumbent chunk, as the search runs it
+    most, with every shape's reading under ``presets``."""
+    t0 = time.time()
+    out = [_ssd_f32_preset(p, c) for p in ("tiny", "small")
+           for c in bench._BLOCKS[p]["ssd"]]
+    first = out[[r["shape"] for r in out].index(
+        f"small preset float32, chunk {bench._BLOCKS['small']['ssd'][0]}")]
+    log(f"ssd_scan float32 presets: {len(out)} shapes in "
+        f"{time.time() - t0:.1f} s")
+    return dict(first, presets=out)
 
 
 SSD_F32_SMALL = "--ssd-f32-small"   # the argument of the process below
@@ -1217,12 +1504,12 @@ def check_ssd_hybrid_shape():
     and the inputs."""
     chunk = SSD_HYBRID[-1]
     args = ssd_hybrid_inputs()
-    err, y, st, tc = _ssd_compare("zamba2-7b shape", args, chunk)
-    if not tc:
+    err, y, st, inst = _ssd_compare("zamba2-7b shape", args, chunk)
+    if inst != "wgmma":
         raise AssertionError("zamba2-7b's shape did not run "
                              f"{SSD_STATE_KERNEL} and {SSD_WGMMA_KERNEL}")
     entering = ssd._ssd_scan_instance(*args, chunk=chunk,
-                                      tensor_core=True)[2]
+                                      instance="wgmma")[2]
     states = torch.cat([entering[:, :, 1:], st[:, :, None]], dim=2)
     del entering
     share, ok = ssd_split_gate(y, ssd_ref(*args, chunk)[0])
@@ -2371,6 +2658,25 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def tf32_forward_window(forward, n_layers):
+    """One float32 forward in a profiler window (taken a second time where
+    CUPTI left it empty; an empty window fails): each launch of
+    ``SSD_TF32_LAUNCHES`` must show once a layer and the CUDA-core launches
+    not at all."""
+    rows = []
+    for _ in range(2):
+        rows = rows or profile_window(forward, 1, "forward")
+    if not rows:
+        raise AssertionError("no profiler window of the float32 forward "
+                             "showed device time")
+    shown = {k: sum(r[2] for r in rows if k in r[1])
+             for k in SSD_TF32_LAUNCHES + SSD_CUDA_CORE}
+    if any(shown[k] != n_layers for k in SSD_TF32_LAUNCHES) or any(
+            shown[k] for k in SSD_CUDA_CORE):
+        raise AssertionError(f"the profiled float32 forward shows {shown}, "
+                             f"not each of {SSD_TF32_LAUNCHES} once a layer")
+
+
 def ssm_forward_full_width():
     """``Model.loss`` on mamba2-130m at B=8 x L=4096, kernel path timed and
     counted, then held against the plain path.  In a float32 config, the
@@ -2438,18 +2744,32 @@ def ssm_forward_full_width():
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32 = build_model(cfg32)
         params32 = model32.init(torch.Generator("cuda").manual_seed(0))
+        ssd.COUNT.reset()
         h_k, _ = model32.forward(params32, batch, opts=kopts)
-        h_p, _ = model32.forward(params32, batch, opts=popts)
         l_k = model32.loss(params32, batch, opts=kopts).item()
+        f32 = (ssd.COUNT.launches, ssd.COUNT.tf32, ssd.COUNT.wgmma,
+               ssd.COUNT.plain)
+        h_p, _ = model32.forward(params32, batch, opts=popts)
         l_p = model32.loss(params32, batch, opts=popts).item()
         herr = (h_k - h_p).abs().max().item()
         log(f"float32 kernel vs plain: hidden states max diff {herr:.3e}, "
-            f"loss {l_k:.6f} vs {l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel)")
+            f"loss {l_k:.6f} vs {l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel); "
+            f"ssd_scan launches {f32[0]} = {cfg.n_layers} x 2 calls, "
+            f"{f32[1]} of them with {' and '.join(SSD_PAIRS['tf32'])}, "
+            f"{f32[2]} bf16, plain-version calls {f32[3]}")
         if not torch.allclose(h_k, h_p, atol=SSM_F32_TOL, rtol=SSM_F32_TOL) \
                 or abs(l_k - l_p) > SSM_F32_TOL * (1 + abs(l_p)):
             raise AssertionError("float32 kernel and plain ssm forwards "
                                  "differ")
-        del h_k, h_p, params32
+        if f32 != (2 * cfg.n_layers, 2 * cfg.n_layers, 0, 0):
+            raise AssertionError("the float32 ssm forward did not run the "
+                                 "tf32 instances on every layer")
+        del h_k, h_p
+        tf32_forward_window(
+            lambda: model32.forward(params32, batch, opts=kopts),
+            cfg.n_layers)
+        f32_launches = ssd.COUNT.tf32
+        del params32
 
         lk, lp = loss_k.item(), loss_p.item()
         h_k = model.forward(params, batch, opts=kopts)[0]
@@ -2476,7 +2796,7 @@ def ssm_forward_full_width():
                 or rel_mixer > SSM_BF16_MIXER_REL:
             raise AssertionError("bf16 kernel and plain ssm forwards differ")
         del y_k, y_p, u
-    return model, params, launches
+    return model, params, launches, f32_launches
 
 
 def ssm_serve_full_width(model, params):
@@ -2597,7 +2917,9 @@ def hybrid_f32_check(cfg, batch, kopts, ce):
     at HYBRID_F32_HIDDEN_REL in norm, the loss at SSM_F32_TOL.  (Held in
     norm: one layer's kernel vs plain difference, ~7e-6 in norm, grows
     through the random layers, to ~1e-4 after two groups, and its
-    largest elements sit in the tails.)  -> (the model, its parameters)."""
+    largest elements sit in the tails.)  Every kernel call runs the float32
+    tensor-core instances, counted, and a profiled forward shows each once
+    a layer.  -> (the model, its parameters, the tf32 launches)."""
     cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=(
         HYBRID_F32_GROUPS * cfg.shared_attn_every))
     g, k, _ = _groups(cfg32)
@@ -2607,6 +2929,7 @@ def hybrid_f32_check(cfg, batch, kopts, ce):
     positions = torch.arange(SSM_LEN, device="cuda")[None]
     h = embed(params32["embed"], batch["tokens"], torch.float32)
     errs = []
+    ssd.COUNT.reset()
     for p_g in unstack_groups(params32["groups"], g, k):
         for p in p_g:
             u = rmsnorm(p["ln"], h)
@@ -2620,6 +2943,8 @@ def hybrid_f32_check(cfg, batch, kopts, ce):
     h_p = rmsnorm(params32["ln_f"], h)
     del h
     h_k = model32.forward(params32, batch, opts=kopts)[0]
+    counts = (ssd.COUNT.launches, ssd.COUNT.tf32, ssd.COUNT.wgmma,
+              ssd.COUNT.plain)
     rel_h = _rel(h_k, h_p)
     l_k, l_p = ce(h_k, params32, cfg32), ce(h_p, params32, cfg32)
     log(f"float32 kernel vs plain ({cfg32.n_layers} layers, "
@@ -2628,12 +2953,22 @@ def hybrid_f32_check(cfg, batch, kopts, ce):
         f"{HYBRID_F32_MIXER_REL:g}); the forward's hidden states "
         f"{rel_h:.3e} in norm (tol {HYBRID_F32_HIDDEN_REL:g}), max diff "
         f"{(h_k - h_p).abs().max().item():.3e}; loss {l_k:.6f} vs "
-        f"{l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel)")
+        f"{l_p:.6f} (tol {SSM_F32_TOL:g} abs+rel); ssd_scan launches "
+        f"{counts[0]} = {cfg32.n_layers} x 2, {counts[1]} of them with "
+        f"{' and '.join(SSD_PAIRS['tf32'])}, {counts[2]} bf16, plain-version "
+        f"calls {counts[3]}")
     if max(errs) > HYBRID_F32_MIXER_REL or rel_h > HYBRID_F32_HIDDEN_REL \
             or abs(l_k - l_p) > SSM_F32_TOL * (1 + abs(l_p)):
         raise AssertionError("float32 kernel and plain hybrid forwards "
                              "differ")
-    return model32, params32
+    n = cfg32.n_layers
+    if counts != (2 * n, 2 * n, 0, 0):
+        raise AssertionError("the float32 hybrid path did not run the tf32 "
+                             "instances on every Mamba layer")
+    del h_k, h_p
+    tf32_forward_window(lambda: model32.forward(params32, batch,
+                                                opts=kopts), n)
+    return model32, params32, ssd.COUNT.tf32
 
 
 def hybrid_forward_full_width():
@@ -2733,7 +3068,8 @@ def hybrid_forward_full_width():
             raise AssertionError("bf16 kernel and plain hybrid forwards "
                                  "differ")
 
-        model32, params32 = hybrid_f32_check(cfg, batch, kopts, ce)
+        model32, params32, f32_launches = hybrid_f32_check(cfg, batch, kopts,
+                                                           ce)
 
     toks = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab, (BATCH, TEACHER_LEN)), device="cuda")
@@ -2758,7 +3094,8 @@ def hybrid_forward_full_width():
     torch.cuda.empty_cache()
     log(f"hybrid phase: {time.time() - t_phase:.1f} s")
     return dict(ms_per_forward=wall * 1e3, plain_ms=plain_wall * 1e3,
-                launches=launches, parts=parts, serve=run)
+                launches=launches, f32_launches=f32_launches, parts=parts,
+                serve=run)
 
 
 # ---------------------------------------------------------------------------
@@ -4114,8 +4451,9 @@ def check_build(logs):
             if "Performance Loss" in line or "setmaxnreg" in line:
                 log(f"    {line.strip()[:160]}")
         if name == "ssd_scan":
-            for kname, regs, spill in ptxas_entries(text, SSD_STATE_KERNEL):
-                log(f"    {kname}: {regs} registers, {spill}")
+            for kernel in (SSD_STATE_KERNEL, *SSD_PAIRS["tf32"]):
+                for kname, regs, spill in ptxas_entries(text, kernel):
+                    log(f"    {kernel}{kname}: {regs} registers, {spill}")
         if name == "flash_attention":
             # no wgmma instance and no D = 256 tf32 instance may spill;
             # the tf32 instances below 256 are logged (PERF.md names
@@ -4175,13 +4513,20 @@ def main() -> None:
     timing = {key: readings[0][key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")}
 
-    check_wgmma_sass("ssd_scan", SSD_STATE_KERNEL, "chunk_state_kernel",
-                     "BF16")
-    check_wgmma_sass("ssd_scan", SSD_WGMMA_KERNEL, "chunk_scan_kernel",
-                     "BF16")
+    for pair, operand in (("wgmma", "BF16"), ("tf32", "TF32")):
+        for kernel, sibling in zip(SSD_PAIRS[pair], SSD_CUDA_CORE):
+            check_wgmma_sass("ssd_scan", kernel, sibling, operand)
     ssd_err = check_ssd_scan()
+    check_ssd_tf32_repeats()
     ssd_gate_phase()
     ssd_timing = measure_ssd_scan()
+    ssd_tf32_gate_phase()
+    ssd_f32_main = measure_ssd_scan(SSD_MAIN, ssd_f32_inputs(SSD_MAIN, 53),
+                                    "SSD_MAIN float32", reps=20)
+    ssd_f32_hybrid = measure_ssd_scan(
+        SSD_HYBRID, ssd_f32_inputs(SSD_HYBRID, 54), "zamba2-7b float32",
+        reps=10)
+    torch.cuda.empty_cache()
     ssd_hybrid_err, args = check_ssd_hybrid_shape()
     ssd_hybrid = measure_ssd_scan(SSD_HYBRID, args, "zamba2-7b shape",
                                   reps=20)
@@ -4223,7 +4568,8 @@ def main() -> None:
         f"({run['steps']} steps), {MOE_ARCH} {moe_launches} "
         f"({moe_run['steps']} steps); {launches + moe_launches} in all")
 
-    ssm_model, ssm_params, ssd_launches = ssm_forward_full_width()
+    ssm_model, ssm_params, ssd_launches, ssm_f32_launches = \
+        ssm_forward_full_width()
     ssm_serve_full_width(ssm_model, ssm_params)
     del ssm_model, ssm_params
     torch.cuda.empty_cache()
@@ -4237,9 +4583,11 @@ def main() -> None:
 
     domain_launches = kernel_domain_phase()
     search_launches = search_phase()
-    if ssd.COUNT.wgmma:
-        raise AssertionError(f"the float32 kernel search made {ssd.COUNT.wgmma}"
-                             " ssd_scan launches on the tensor cores")
+    if ssd.COUNT.wgmma or ssd.COUNT.tf32 != ssd.COUNT.launches:
+        raise AssertionError(f"the float32 kernel search made {ssd.COUNT.tf32}"
+                             f" ssd_scan launches of {ssd.COUNT.launches} on "
+                             f"{' and '.join(SSD_PAIRS['tf32'])}, "
+                             f"{ssd.COUNT.wgmma} bf16")
     if fa.COUNT.wgmma or fa.COUNT.tf32 != fa.COUNT.launches:
         raise AssertionError(f"the float32 kernel search made {fa.COUNT.tf32}"
                              f" {TF32_KERNEL} launches of {fa.COUNT.launches}"
@@ -4263,12 +4611,23 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:68",
         launches=ssd_launches + hybrid["launches"], max_abs_err=ssd_err,
-        **ssd_timing, search_launches=search_launches["ssd_scan"], readings=[dict(
+        **ssd_timing, search_launches=search_launches["ssd_scan"],
+        tf32_launches=ssm_f32_launches + hybrid["f32_launches"]
+        + domain_launches["ssd_scan"], readings=[dict(
             shape="zamba2-7b", launches=hybrid["launches"],
             max_abs_err=ssd_hybrid_err, **ssd_hybrid), dict(
-            shape="small preset float32, CUDA-core instances",
+            shape="mamba2-130m float32", launches=ssm_f32_launches,
+            **ssd_f32_main), dict(
+            shape="zamba2-7b float32", launches=hybrid["f32_launches"],
+            **ssd_f32_hybrid), dict(
+            shape="small preset float32", instance="tf32",
             launches=domain_launches["ssd_scan"], ms=ssd_small["ms"],
-            per_launch=ssd_small["readings"])]), dict(
+            cuda_core_ms=ssd_small["cuda_core_ms"],
+            empty_kernel_ms=ssd_small["empty_kernel_ms"],
+            per_launch=ssd_small["readings"], presets=[
+                dict(shape=r["shape"], ms=r["ms"],
+                     cuda_core_ms=r["cuda_core_ms"])
+                for r in ssd_small["presets"]])]), dict(
         name="flash_attention_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",

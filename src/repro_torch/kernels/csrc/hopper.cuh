@@ -423,6 +423,25 @@ template <int N>
 struct WgmmaTf32;
 
 template <>
+struct WgmmaTf32<16> {
+  // d (+)= A . B, A in registers (a0..a3), B K-major in shared memory;
+  // scale_d = 0 overwrites d
+  static __device__ __forceinline__ void rs(float (&d)[8], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaTf32<32> {
   // d (+)= A . B, A and B K-major in shared memory (descriptors a, b);
   // scale_d = 0 overwrites d

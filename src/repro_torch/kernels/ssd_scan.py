@@ -17,28 +17,25 @@ Where the Pallas kernel walks the chunks of one (b, h) in order, the CUDA
 kernel takes the chunked decomposition of the Mamba2 paper (arXiv
 2405.21060) in three launches: each chunk's cumulative decay and its own
 state contribution; the state passed from chunk to chunk; each chunk's
-output.  The first and third launches have two instances each.  For
-bfloat16 x, Bm and Cm at the shapes :func:`uses_tensor_cores` names (the
-model's among them) both run on the tensor cores, every product with an
-f32 operand as two bf16 products, ``bf16(v)`` and ``bf16(v - bf16(v))``,
-into f32 sums: ``chunk_state_wgmma_kernel`` computes each chunk's state
-contribution as (x o w)^T . Bm, w the decay-weighted dt, splitting x o w
-and reading the chunk's Bm once for a group of heads;
-``chunk_scan_wgmma_kernel`` computes C.B^T of exact bf16 values and splits
-W = (C.B^T) o L o dt and the carried state.  Every other shape, and
-float32, runs ``chunk_state_kernel`` and ``chunk_scan_kernel`` on CUDA
-cores.  One rule picks both launches (:func:`uses_tensor_cores`), from
-shape and alignment before the launch; a failed launch raises and never
-falls back.  Its plain version is ``kernels.ref.ssd_ref``, the model layer's
-chunked reference (``models.ssm.ssd_reference``).
+output.  The first and third launches have three instances each, picked
+together before the launch by one rule, :func:`instance_for`: on the
+tensor cores ``chunk_state_wgmma_kernel`` and ``chunk_scan_wgmma_kernel``
+for bfloat16 (every product with an f32 operand as two bf16 products,
+``bf16(v)`` and ``bf16(v - bf16(v))``) and ``chunk_state_tf32_kernel`` and
+``chunk_scan_tf32_kernel`` for float32 (every product as three tf32
+products, big.big + big.small + small.big), and ``chunk_state_kernel`` and
+``chunk_scan_kernel`` on CUDA cores for the shapes neither takes.
+``csrc/ssd_scan.cu``'s header describes each.  A failed launch raises and
+never falls back.  Its plain version is ``kernels.ref.ssd_ref``, the model
+layer's chunked reference (``models.ssm.ssd_reference``).
 
 On CPU tensors the wrapper runs the plain version at any P, N and chunk,
 and counts that in ``COUNT.plain``; on CUDA tensors it launches the kernel
-(``COUNT.launches``; ``COUNT.wgmma`` counts those whose first and third
-launches ran on the tensor cores) or
-raises.  It raises when autograd would need its gradient: the reference
-cannot differentiate its kernel either, and the kernel has no backward
-yet.
+(``COUNT.launches``; ``COUNT.wgmma`` and ``COUNT.tf32`` count those whose
+first and third launches ran on the bf16 and the tf32 tensor-core
+instances) or raises.  It raises when autograd would need its gradient:
+the reference cannot differentiate its kernel either, and the kernel has
+no backward yet.
 """
 from __future__ import annotations
 
@@ -54,23 +51,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64        # P: one block's output tile is (64 rows, P)
 MAX_STATE = 128          # N: one (64, N) tile of C and of B in shared memory
 MAX_CHUNK = 1024         # Q: the chunk's cumulative decay in shared memory
-# the tensor-core instance: P and N whose bf16 rows are a TMA swizzle width
-# (32, 64 or 128 bytes; N = 128 as two 128-byte column blocks), whole
-# 64-row tiles, and TMA's 16-byte alignment
+# the tensor-core instances: P and N whose rows are a TMA swizzle width (32,
+# 64 or 128 bytes; wider rows as 128-byte column blocks), whole 64-row tiles
+# (float32 also a chunk of 32, half a tile), and TMA's 16-byte alignment
 WGMMA_HEAD_DIMS = (16, 32, 64)
 WGMMA_STATES = (16, 32, 64, 128)
 _TMA_ALIGN = 16
+#: the instances of launches 1 and 3, named as ``ssd_scan_launch`` numbers
+#: them: CUDA cores, bf16 wgmma, float32 as 3xTF32 wgmma
+INSTANCES = {"cuda_core": 0, "wgmma": 1, "tf32": 2}
 
 
 @dataclasses.dataclass
 class LaunchCount:
     launches: int = 0        # kernel launches, on CUDA tensors
-    wgmma: int = 0           # of them, launches 1 and 3 on the tensor cores
+    wgmma: int = 0           # of them, launches 1 and 3 as bf16 wgmma
+    tf32: int = 0            # of them, launches 1 and 3 as 3xTF32 wgmma
     plain: int = 0           # plain-version calls, on CPU tensors
 
     def reset(self) -> None:
         self.launches = 0
         self.wgmma = 0
+        self.tf32 = 0
         self.plain = 0
 
 
@@ -145,21 +147,26 @@ def _strides(t):
                                                   t.shape[:-1])]
 
 
-def uses_tensor_cores(x, Bm, Cm, chunk: int) -> bool:
-    """Whether the first and third launches run on the tensor cores for
-    these inputs (``chunk_state_wgmma_kernel`` and
-    ``chunk_scan_wgmma_kernel``; both or neither):
-    bfloat16, P in ``WGMMA_HEAD_DIMS``, N in ``WGMMA_STATES``, the chunk
-    ``Q = min(chunk, L)`` a multiple of 64, and the base addresses and the
-    strides of x, Bm and Cm multiples of 16 bytes (TMA reads them).  Decided
-    from shape and alignment alone, before any launch."""
+def instance_for(x, Bm, Cm, chunk: int) -> str:
+    """The instance of launches 1 and 3 for these inputs, both together,
+    decided from dtype, shape and alignment alone, before any launch:
+    ``"wgmma"`` (``chunk_state_wgmma_kernel``, ``chunk_scan_wgmma_kernel``)
+    for bfloat16 and ``"tf32"`` (``chunk_state_tf32_kernel``,
+    ``chunk_scan_tf32_kernel``) for float32, where P is in
+    ``WGMMA_HEAD_DIMS``, N in ``WGMMA_STATES``, the chunk ``Q = min(chunk,
+    L)`` a multiple of 64 (float32: or 32) and the base addresses and the
+    strides of x, Bm and Cm multiples of 16 bytes (TMA reads them); else
+    ``"cuda_core"`` (``chunk_state_kernel``, ``chunk_scan_kernel``)."""
     Q = min(chunk, x.shape[1])
-    return (x.dtype == torch.bfloat16 and x.shape[3] in WGMMA_HEAD_DIMS
-            and Bm.shape[-1] in WGMMA_STATES and Q % 64 == 0
-            and all(t.data_ptr() % _TMA_ALIGN == 0
-                    and all(st * t.element_size() % _TMA_ALIGN == 0
-                            for st in _strides(t))
-                    for t in (x, Bm, Cm)))
+    tiles = Q % 64 == 0 or (Q == 32 and x.dtype == torch.float32)
+    if (x.shape[3] in WGMMA_HEAD_DIMS and Bm.shape[-1] in WGMMA_STATES
+            and tiles and all(
+                t.data_ptr() % _TMA_ALIGN == 0
+                and all(st * t.element_size() % _TMA_ALIGN == 0
+                        for st in _strides(t))
+                for t in (x, Bm, Cm))):
+        return {torch.bfloat16: "wgmma", torch.float32: "tf32"}[x.dtype]
+    return "cuda_core"
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
@@ -170,24 +177,28 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
         COUNT.plain += 1
         return ssd_ref(x, dt, A, Bm, Cm, D, chunk)
     return _launch(x, dt, A, Bm, Cm, D, Q,
-                   uses_tensor_cores(x, Bm, Cm, chunk))[:2]
+                   instance_for(x, Bm, Cm, chunk))[:2]
 
 
-def _ssd_scan_instance(x, dt, A, Bm, Cm, D, *, chunk: int, tensor_core: bool):
+def _ssd_scan_instance(x, dt, A, Bm, Cm, D, *, chunk: int, instance: str):
     """:func:`ssd_scan` on the card with its first and third launches on
-    the named instances (a bfloat16 shape on CUDA cores, to time the two
-    side by side); raises where the tensor cores do not take the shape.
-    Returns y, the final state and the states entering each chunk
-    (B, H, L/Q, P, N) f32, which hold every chunk's own state from the
-    first launch."""
+    the named instance (``INSTANCES``; a shape on CUDA cores that the rule
+    sends to the tensor cores, to time the two side by side); raises where
+    the named tensor-core instance does not take the inputs.  Returns y,
+    the final state, the states entering each chunk (B, H, L/Q, P, N) f32,
+    which hold every chunk's own state from the first launch, and the
+    cumulative decay of each chunk (B, H, L/Q, Q) f32."""
     Q = _check(x, dt, A, Bm, Cm, D, chunk)
-    if tensor_core and not uses_tensor_cores(x, Bm, Cm, chunk):
-        raise ValueError("the tensor-core instance does not take these "
+    if instance not in INSTANCES:
+        raise ValueError(f"instance must be one of {sorted(INSTANCES)}; got "
+                         f"{instance!r}")
+    if instance != "cuda_core" and instance_for(x, Bm, Cm, chunk) != instance:
+        raise ValueError(f"the {instance} instance does not take these "
                          "inputs")
-    return _launch(x, dt, A, Bm, Cm, D, Q, tensor_core)
+    return _launch(x, dt, A, Bm, Cm, D, Q, instance)
 
 
-def _launch(x, dt, A, Bm, Cm, D, Q: int, tensor_core: bool):
+def _launch(x, dt, A, Bm, Cm, D, Q: int, instance: str):
     B_, L, H, Pd = x.shape
     N = Bm.shape[-1]
     if Pd > MAX_HEAD_DIM or N > MAX_STATE or Q > MAX_CHUNK:
@@ -212,11 +223,12 @@ def _launch(x, dt, A, Bm, Cm, D, Q: int, tensor_core: bool):
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
             cum.data_ptr(), chunk_states.data_ptr(),
             B_, L, H, Pd, N, Q, *_strides(x), *dt.stride(),
-            *_strides(Bm), *_strides(Cm), int(tensor_core), stream)
+            *_strides(Bm), *_strides(Cm), INSTANCES[instance], stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc} "
                            f"(10000 + n: TMA tensor map encoding failed with "
                            f"CUresult n)")
     COUNT.launches += 1
-    COUNT.wgmma += bool(tensor_core)
-    return y, state, chunk_states
+    COUNT.wgmma += instance == "wgmma"
+    COUNT.tf32 += instance == "tf32"
+    return y, state, chunk_states, cum

@@ -493,8 +493,9 @@ def test_ssd_kernel_matches_plain_on_card(B, L, H, P, N, chunk, dt):
     y, s = ops.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_mod.COUNT.launches == 1 and ssd_mod.COUNT.plain == 0
-    assert ssd_mod.COUNT.wgmma == ssd_mod.uses_tensor_cores(
-        args[0], args[3], args[4], chunk)
+    inst = ssd_mod.instance_for(args[0], args[3], args[4], chunk)
+    assert (ssd_mod.COUNT.wgmma, ssd_mod.COUNT.tf32) == (inst == "wgmma",
+                                                         inst == "tf32")
     yp, sp = ssd_ref(*args, chunk=chunk)
     torch.testing.assert_close(y.float(), yp.float(), atol=5 * TOL[dt],
                                rtol=5 * TOL[dt])

@@ -15,7 +15,8 @@ relative in norm at the worst chunk (``ssd_state_gate``, against
 fail at every chunk.  Here the emulation is held against ``ssd_ref`` and the Pallas
 kernel in interpret mode, and the gates are shown to tell each pair
 apart, on the same numpy inputs at a CPU size.  The rule that picks the
-instances is held at the shapes it must send each way.
+instances (``ssd_scan.instance_for``) is held at the shapes it must send
+each way.
 """
 import importlib.util
 import re
@@ -206,13 +207,14 @@ def test_instance_rule(name, shape, chunk, want):
     the tensor cores; shapes the instance has no tile for go to CUDA
     cores."""
     x, Bm, Cm = _views(*shape)
-    assert ssd_mod.uses_tensor_cores(x, Bm, Cm, chunk) is want
+    assert ssd_mod.instance_for(x, Bm, Cm, chunk) == (
+        "wgmma" if want else "cuda_core")
 
 
 @pytest.mark.parametrize("bad", ["float32", "x address", "row stride"])
 def test_instance_rule_needs_bf16_and_tma_alignment(bad):
     x, Bm, Cm = _views(2, 512, 4, 64, 128)
-    assert ssd_mod.uses_tensor_cores(x, Bm, Cm, 256)
+    assert ssd_mod.instance_for(x, Bm, Cm, 256) == "wgmma"
     if bad == "float32":
         x, Bm, Cm = _views(2, 512, 4, 64, 128, torch.float32)
     elif bad == "x address":        # one element in: 2 bytes off 16
@@ -222,19 +224,23 @@ def test_instance_rule_needs_bf16_and_tma_alignment(bad):
         conv = torch.zeros(2, 512, 4 * 64 + 2 * 128 + 4,
                            dtype=torch.bfloat16)
         Bm = conv[..., 256:384]
-    assert not ssd_mod.uses_tensor_cores(x, Bm, Cm, 256)
+    assert ssd_mod.instance_for(x, Bm, Cm, 256) != "wgmma"
 
 
 @pytest.mark.parametrize("name,shape,chunk,want", RULE_CASES)
 def test_instance_rule_on_meta_tensors(name, shape, chunk, want):
     """The rule needs no data: on ``meta`` tensors it sends each shape as
-    on the CPU, float32 never to the tensor cores.  The one answer picks
-    launches 1 and 3 together (the C side's one ``tensor_core`` flag,
-    held by ``test_state_wgmma_source_splits_x_o_w``)."""
+    on the CPU, float32 never to the bf16 instances (to the float32
+    tensor-core ones where they take the shape; tests/test_torch_ssd_tf32.py
+    holds those).  The one answer picks launches 1 and 3 together (the C
+    side's one ``instance`` switch, held by
+    ``test_state_wgmma_source_splits_x_o_w``)."""
     x, Bm, Cm = _views(*shape, device="meta")
-    assert ssd_mod.uses_tensor_cores(x, Bm, Cm, chunk) is want
+    assert ssd_mod.instance_for(x, Bm, Cm, chunk) == (
+        "wgmma" if want else "cuda_core")
     f32 = _views(*shape, dtype=torch.float32, device="meta")
-    assert ssd_mod.uses_tensor_cores(*f32, chunk) is False
+    assert ssd_mod.instance_for(*f32, chunk) == ("tf32" if want
+                                                  else "cuda_core")
 
 
 @pytest.mark.parametrize("name,shape,chunk,want",
@@ -249,7 +255,7 @@ def test_tensor_core_instance_refuses_what_the_rule_does(name, shape, chunk,
     A, D = torch.zeros(H, device="meta"), torch.zeros(H, device="meta")
     with pytest.raises(ValueError, match="does not take these inputs"):
         ssd_mod._ssd_scan_instance(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                   tensor_core=True)
+                                   instance="wgmma")
 
 
 def test_state_wgmma_source_splits_x_o_w():
@@ -271,7 +277,7 @@ def test_state_wgmma_source_splits_x_o_w():
     body = src[src.index("int launch(const void* x"):]
     assert body.index("wg::chunk_state(") < body.index("state_pass_kernel<<<") \
         < body.index("wg::chunk_scan(")
-    assert body.count("if (tensor_core)") == 2
+    assert body.count("instance == kWgmma") == 2
 
 
 def test_wgmma_source_splits_w_and_the_state():
