@@ -7,7 +7,14 @@ port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all
 started together) and holds each kernel against its plain PyTorch version
 on the card.  Then it drives these paths at full width, with random weights
 from a seeded ``torch.Generator``, and checks that each path's kernel
-really ran there:
+really ran there.  Every server's decode step runs as one CUDA graph
+(``repro_torch.runtime.graph.StepGraph``), captured at its first step and
+replayed at every step: each serving phase checks one capture a server and
+one replay a step, its tokens digest against the eager step's
+(``DIGESTS``), and replayed against eager steps on teacher-forced tokens,
+logits and cache bit for bit; it reports the graph beside the eager step
+(ms/step, tokens/s, idle share, the replay's launch, its memory;
+``graph_readings``).
 
 * dense serving: ``BatchedServer(use_kernel=True)`` on ``qwen1.5-4b``
   (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel,
@@ -2337,6 +2344,166 @@ def measure_flash_f32():
 # ---------------------------------------------------------------------------
 # phase 3: the dense serving path at full width
 # ---------------------------------------------------------------------------
+# Each serving phase's tokens digest, as its eager decode step served the
+# dense request mix: the step's graph must serve the same bits.
+DIGESTS = {ARCH: "4c54950e2291b582", MOE_ARCH: "210abb0b143dbadd",
+           SSM_ARCH: "98d9f5f983d8b27e", HYBRID_ARCH: "1b6a8dab431e60b0",
+           VLM_ARCH: "63638ab9bd3e3c93", GEMMA_ARCH: "3e18f2fb721d28a6"}
+GRAPH_STEPS = 20        # steps a timed turn: eager, graph, graph, eager
+GRAPH_READINGS = []     # each serving phase's graph_readings, in order
+
+
+def check_served(name, server, results, steps):
+    """A served run's tokens digest, which must be ``DIGESTS[name]``, and
+    its step graph: one capture, one replay a step."""
+    digest = tokens_digest(results)
+    graph = server.step_graph
+    log(f"  {name}: tokens digest {digest}; step graph {graph.captures} "
+        f"capture ({graph.capture_s:.3f} s with its warm-up step), "
+        f"{graph.replays} replays for {steps} steps")
+    if digest != DIGESTS[name]:
+        raise AssertionError(f"{name}: tokens digest {digest}, not the eager "
+                             f"step's {DIGESTS[name]}")
+    if graph.captures != 1 or graph.replays != steps:
+        raise AssertionError(f"{name}: the server did not replay one graph "
+                             "a step")
+    return digest
+
+
+def graph_readings(model, server, run):
+    """The server's step graph beside the eager step, after its served
+    ``run`` (steps, wall_s, generated), on its batch and cache at position
+    100 in every slot:
+
+    * ``profile_steps``' window of eager steps (its split by part goes in
+      the reading as ``split``);
+
+    * ms/step and tokens/s of ``StepGraph.step`` (copy in, replay, read
+      back) and of the eager step (``Model.decode_step``, its argmax read
+      back), GRAPH_STEPS steps a turn, in turns;
+    * the host µs of one replay's launch (the median of 20);
+    * a profiled window of replays: its idle share beside the eager
+      window's; on the kernel paths exactly one decode kernel a layer a
+      replay.  A window with no device events fails;
+    * the graph's pool beside the eager step's peak beyond its inputs;
+    * TEACHER_STEPS teacher-forced steps replayed on the cache and run
+      eagerly on its copy: logits and the final cache bit for bit."""
+    eager_window = {}
+    split = profile_steps(model, server, stats=eager_window)
+    graph, cfg, B = server.step_graph, model.cfg, server.B
+    name = cfg.name
+    per_slot = server.continuous
+    rng = np.random.default_rng(9)
+    tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+    pos = np.full(B, 100, np.int32) if per_slot else 100
+
+    def inputs(tk, ps):
+        return {"token": torch.as_tensor(tk, device="cuda"),
+                "pos": torch.as_tensor(ps, dtype=torch.int32, device="cuda")}
+
+    fixed = inputs(tok, pos)
+
+    def eager():
+        return model.decode_step(graph.params, fixed, graph.cache,
+                                 opts=graph.opts)[0].argmax(-1).cpu()
+
+    def replay():
+        return graph.step(tok, pos)
+
+    eager()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    turns = {"eager": [], "graph": []}
+    for which in ("eager", "graph", "graph", "eager"):
+        fn = eager if which == "eager" else replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_STEPS):
+            fn()
+        turns[which].append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+    launch_us = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        launch_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    served_ms = run["wall_s"] / run["steps"] * 1e3
+    log(f"{name} step graph vs eager (batch {B}, position 100, "
+        f"{GRAPH_STEPS} steps a turn, in turns): graph "
+        f"{turns['graph'][0]:.3f} / {turns['graph'][1]:.3f} ms/step "
+        f"({B / ms['graph'] * 1e3:.2f} tokens/s), eager "
+        f"{turns['eager'][0]:.3f} / {turns['eager'][1]:.3f} ms/step "
+        f"({B / ms['eager'] * 1e3:.2f} tokens/s): "
+        f"{ms['eager'] / ms['graph']:.2f}x; served through the graph "
+        f"{served_ms:.3f} ms/step, {run['generated'] / run['wall_s']:.2f} "
+        f"tokens/s; one replay's launch {np.median(launch_us):.1f} µs of "
+        f"host (median of 20)")
+
+    stats, before = {}, graph.replays
+    rows = profile_window(replay, 3, "replay", stats=stats)
+    if not rows:
+        raise AssertionError(f"{name}: the profiled replay window shows no "
+                             "device events")
+    if graph.replays - before != 4:
+        raise AssertionError(f"{name}: {graph.replays - before} replays in "
+                             "the window, not 4")
+    decode = sum(c for _, key, c in rows if DECODE_KERNEL in key) / 3
+    log(f"  {DECODE_KERNEL} a replay: {decode:g} ({cfg.n_layers} layers); "
+        f"idle share: graph {stats['idle']:.1%}, eager "
+        f"{eager_window.get('idle', float('nan')):.1%}")
+    if decode != (cfg.n_layers if server.use_kernel else 0):
+        raise AssertionError(f"{name}: {decode:g} decode kernels a replay")
+
+    log(f"  graph pool {graph.pool_bytes / 2**20:.1f} MiB; the eager "
+        f"step's peak beyond its inputs {eager_peak / 2**20:.1f} MiB; the "
+        f"graph beyond it {(graph.pool_bytes - eager_peak) / 2**20:.1f} MiB")
+
+    snap = {k: v.clone() for k, v in graph.cache.items()}
+    rng = np.random.default_rng(10)
+    forced = [(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+               rng.integers(1, 200, B).astype(np.int32) + t if per_slot
+               else 200 + t) for t in range(TEACHER_STEPS)]
+    replayed = []
+    for tk, ps in forced:
+        graph.step(tk, ps)
+        replayed.append(graph.logits.clone())
+    worst, same = 0.0, True
+    for (tk, ps), lg in zip(forced, replayed):
+        ref = model.decode_step(graph.params, inputs(tk, ps), snap,
+                                opts=graph.opts)[0]
+        worst = max(worst, (lg - ref).abs().max().item())
+        same = same and torch.equal(lg, ref)
+    cache_worst = max((graph.cache[k].float() - snap[k].float()).abs().max()
+                      .item() for k in snap)
+    same = same and all(torch.equal(graph.cache[k], snap[k]) for k in snap)
+    del snap, replayed
+    log(f"  teacher-forced, {TEACHER_STEPS} steps: replay vs eager logits "
+        f"max |d| {worst:g}, final cache max |d| {cache_worst:g}")
+    if not same:
+        raise AssertionError(f"{name}: the replayed step is not the eager "
+                             "step bit for bit")
+    reading = dict(name=name, served_ms=served_ms,
+                   served_tokens_s=run["generated"] / run["wall_s"],
+                   graph_ms=turns["graph"], eager_ms=turns["eager"],
+                   graph_tokens_s=B / ms["graph"] * 1e3,
+                   eager_tokens_s=B / ms["eager"] * 1e3,
+                   replay_launch_us=float(np.median(launch_us)),
+                   capture_s=graph.capture_s,
+                   graph_idle=stats["idle"], graph_busy_ms=stats["busy_ms"],
+                   eager_idle=eager_window.get("idle", float("nan")),
+                   pool_mib=graph.pool_bytes / 2**20,
+                   eager_peak_mib=eager_peak / 2**20, decode_a_replay=decode,
+                   split=split)
+    GRAPH_READINGS.append(reading)
+    return reading
+
+
 def request_mix(vocab):
     """The dense request mix: N_REQUESTS prompts of PROMPT_LEN tokens from
     seed 0, NEW_TOKENS each."""
@@ -2349,8 +2516,10 @@ def request_mix(vocab):
 def serve_full_width(cfg, init_dtype=torch.float32):
     """``N_REQUESTS`` requests through ``BatchedServer(use_kernel=True)``
     (batch 8, f32 KV cache of 512) with weights drawn in ``init_dtype``
-    from seed 0: every request must finish with ``NEW_TOKENS`` tokens, and
-    every layer of every step must launch the flash-decode kernel once."""
+    from seed 0: every request must finish with ``NEW_TOKENS`` tokens, its
+    tokens digest must be its ``DIGESTS`` entry, every step must be a replay of the
+    server's one graph, and every layer of every replay (and of the
+    capture's warm-up step) must launch the flash-decode kernel once."""
     model = build_model(cfg)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
@@ -2385,13 +2554,15 @@ def serve_full_width(cfg, init_dtype=torch.float32):
         f"{generated / wall:.2f} tokens/s, "
         f"{(generated + sum(len(r.prompt) - 1 for r in reqs)) / wall:.2f} "
         f"tokens/s incl. prompt feeding")
+    warm = cfg.n_layers * server.step_graph.captures
     log(f"decode_attention launches: {launches} = {cfg.n_layers} x {steps} "
-        f"steps; plain-version calls: {plain}; tokens digest "
-        f"{tokens_digest(results)}")
+        f"replays + {warm} in the capture's warm-up step; plain-version "
+        f"calls: {plain}")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
-    if launches != cfg.n_layers * steps or plain != 0:
+    check_served(cfg.name, server, results, steps)
+    if launches - warm != cfg.n_layers * steps or plain != 0:
         raise AssertionError("the main path did not go through the kernel")
     return model, server, launches, dict(steps=steps, wall_s=wall,
                                          generated=generated)
@@ -2463,12 +2634,13 @@ def teacher_forced_check(model, server, f32_layers=None):
     del params32
 
 
-def profile_steps(model, server, n=3):
-    """Device time by kernel over a few decode steps of the server's
+def profile_steps(model, server, n=3, stats=None):
+    """Device time by kernel over a few eager decode steps of the server's
     path (with the kernel where the server uses it); on the kernel path
     exactly one decode kernel per layer a step.  Returns the device ms a
     step of the decode kernel, the products (the operators ``EXPERT_OPS``
-    and ``GEMM_OPS``, their kernels' device time) and the rest."""
+    and ``GEMM_OPS``, their kernels' device time) and the rest; ``stats``
+    as ``profile_window``'s."""
     tok = torch.zeros((server.B, 1), dtype=torch.long, device="cuda")
     pos = torch.full((server.B,), 100, dtype=torch.int32, device="cuda")
     use_kernel = server.use_kernel
@@ -2478,7 +2650,7 @@ def profile_steps(model, server, n=3):
     ops_ms = {}
     rows = profile_window(lambda: model.decode_step(
         server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
-        n, "step", ops_ms)
+        n, "step", ops_ms, stats)
     if not (use_kernel and rows):
         return {}
     decode = [(ms, count) for ms, key, count in rows if DECODE_KERNEL in key]
@@ -2500,12 +2672,13 @@ def profile_steps(model, server, n=3):
     return split
 
 
-def profile_window(fn, n, unit, ops_ms=None):
+def profile_window(fn, n, unit, ops_ms=None, stats=None):
     """Device time by kernel over ``n`` calls of ``fn`` after one warm-up
     call: device busy and idle share of the window's wall time.  Returns
     the rows (ms, kernel name, count), longest first; none where the trace
     has no device time.  ``ops_ms``, where given, is filled with each
-    operator's device ms over the window (the kernels it launched)."""
+    operator's device ms over the window (the kernels it launched);
+    ``stats`` with the window's wall and busy ms a call and idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2530,6 +2703,9 @@ def profile_window(fn, n, unit, ops_ms=None):
         log("profile: no device time in the trace (not measured)")
         return rows
     busy = sum(r[0] for r in rows)
+    if stats is not None:
+        stats.update(wall_ms=wall_ms / n, busy_ms=busy / n,
+                     idle=1 - busy / wall_ms)
     log(f"profile over {n} {unit}s (profiler on): wall {wall_ms / n:.3f} "
         f"ms/{unit}, {sum(r[2] for r in rows) // n} kernels/{unit}, device "
         f"busy {busy / n:.3f} ms/{unit}, idle share "
@@ -2628,7 +2804,7 @@ def moe_serve_full_width():
         f"layer 0's experts at a decode-shaped input")
     if dropped:
         raise AssertionError("the decode step dropped routing slots")
-    split = profile_steps(model, server)
+    split = graph_readings(model, server, run)["split"]
     floor = cfg.n_layers * expert_bytes(cfg) / HBM_BYTES_PER_S * 1e3
     log(f"  expert products {split.get('expert products', float('nan')):.3f}"
         f" ms/step beside their bytes floor of {floor:.3f} ms "
@@ -2817,12 +2993,13 @@ def ssm_serve_full_width(model, params):
     generated = sum(len(v) for v in results.values())
     log(f"{SSM_ARCH} served {len(results)} requests: {steps} decode steps, "
         f"{generated} tokens generated, {wall:.3f} s, "
-        f"{wall / steps * 1e3:.3f} ms/step, {generated / wall:.2f} tokens/s, "
-        f"tokens digest {tokens_digest(results)}")
+        f"{wall / steps * 1e3:.3f} ms/step, {generated / wall:.2f} tokens/s")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every ssm request finished")
-    profile_steps(model, server)
+    check_served(SSM_ARCH, server, results, steps)
+    graph_readings(model, server, dict(steps=steps, wall_s=wall,
+                                       generated=generated))
 
     mk = lambda: Request(rid=7, prompt=reqs[-1].prompt, max_new_tokens=8)
     alone = BatchedServer(model, params, batch_size=1,
@@ -2898,14 +3075,15 @@ def serve_lockstep(model, params):
     log(f"{model.cfg.name} served {len(results)} requests (lockstep "
         f"fallback): {steps} decode steps, {generated} tokens generated, "
         f"{wall:.3f} s, {wall / steps * 1e3:.3f} ms/step, "
-        f"{generated / wall:.2f} tokens/s, tokens digest "
-        f"{tokens_digest(results)}")
+        f"{generated / wall:.2f} tokens/s")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
-    no_port_launches("the profiled steps",
-                     lambda: profile_steps(model, server))
-    return dict(steps=steps, wall_s=wall, generated=generated)
+    check_served(model.cfg.name, server, results, steps)
+    served = dict(steps=steps, wall_s=wall, generated=generated)
+    no_port_launches("the profiled steps and the step graph's readings",
+                     lambda: graph_readings(model, server, served))
+    return served
 
 
 def hybrid_f32_check(cfg, batch, kopts, ce):
@@ -3510,12 +3688,13 @@ def gemma3_full_width():
     log(f"{GEMMA_ARCH} served {len(results)} requests per slot: "
         f"{server.steps} decode steps, {generated} tokens generated, "
         f"{wall:.3f} s, {wall / server.steps * 1e3:.3f} ms/step, "
-        f"{generated / wall:.2f} tokens/s, tokens digest "
-        f"{tokens_digest(results)}")
+        f"{generated / wall:.2f} tokens/s")
     if sorted(results) != list(range(N_REQUESTS)) or any(
             len(v) != NEW_TOKENS for v in results.values()):
         raise AssertionError("not every request finished")
-    profile_steps(model, server)
+    check_served(GEMMA_ARCH, server, results, server.steps)
+    graph_readings(model, server, dict(steps=server.steps, wall_s=wall,
+                                       generated=generated))
     serve = dict(steps=server.steps, ms_per_step=wall / server.steps * 1e3)
     del server, params
     torch.cuda.empty_cache()
@@ -4558,7 +4737,7 @@ def main() -> None:
     flash_f32_timing["readings"].append(flash_readings_unaligned[0])
 
     model, server, launches, run = serve_full_width(get_config(ARCH))
-    profile_steps(model, server)
+    dense_graph = graph_readings(model, server, run)
     teacher_forced_check(model, server)
     del model, server
     torch.cuda.empty_cache()
@@ -4605,6 +4784,7 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
         launches=launches + moe_launches, max_abs_err=err, **timing,
+        replay_launch_us=dense_graph["replay_launch_us"],
         search_launches=search_launches["decode_attention"],
         readings=readings[1:]), dict(
         name="ssd_scan", route="cuda",
@@ -4638,6 +4818,17 @@ def main() -> None:
         replaces="src/repro/kernels/flash_attention.py:75",
         launches=domain_launches["flash_attention"], **flash_f32_timing,
         search_launches=search_launches["flash_attention"])]
+    log("serving, step graph vs eager (ms/step in turns; idle share of "
+        "the profiled window; one replay's launch on the host):")
+    for r in GRAPH_READINGS:
+        log(f"  {r['name']}: served {r['served_ms']:.3f} ms/step "
+            f"({r['served_tokens_s']:.2f} tokens/s); graph "
+            f"{np.mean(r['graph_ms']):.3f}, eager {np.mean(r['eager_ms']):.3f}"
+            f" ms/step ({np.mean(r['eager_ms']) / np.mean(r['graph_ms']):.2f}"
+            f"x); idle {r['graph_idle']:.1%} vs {r['eager_idle']:.1%}; "
+            f"launch {r['replay_launch_us']:.1f} µs; capture "
+            f"{r['capture_s']:.3f} s; pool "
+            f"{r['pool_mib']:.1f} MiB vs eager peak {r['eager_peak_mib']:.1f}")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

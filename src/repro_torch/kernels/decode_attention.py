@@ -25,6 +25,12 @@ The kernel has instances for the head dims in ``HEAD_DIMS``; on the card
 any other D raises.  On CPU tensors it runs :func:`decode_attention_plain`
 at any D and counts that in ``COUNT.plain``; on CUDA tensors it launches
 the kernel (``COUNT.launches``) or raises.
+
+The wrapper may run under a CUDA graph's capture (the servers' decode
+step, ``runtime/graph.py``): its launch goes on the capture stream, its
+length must be a device tensor, and its scratch must exist on that
+stream before the capture.  A captured launch counts once, at capture;
+``StepGraph`` moves that count onto each replay.
 """
 from __future__ import annotations
 
@@ -59,6 +65,11 @@ COUNT = LaunchCount()
 
 
 def _lengths(length, B: int, device: torch.device) -> torch.Tensor:
+    if device.type == "cuda" and not isinstance(length, torch.Tensor) \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode_attention: a host length would be baked "
+                           "into the CUDA graph being captured; pass it as "
+                           "a device tensor")
     ln = torch.as_tensor(length, device=device).to(torch.int32)
     return ln.reshape(-1).expand(B).contiguous()
 
@@ -182,12 +193,19 @@ def _library() -> ctypes.CDLL:
 class _Device:
     """What one card's launches reuse: its SM count, each instance's
     round keys and resident blocks, and per stream the partials' scratch
-    and the counters (zero between launches)."""
+    and the counters (zero between launches).
+
+    Under a CUDA graph's capture the stream's scratch must exist already
+    (a call on that stream before the capture makes it), and the graph
+    keeps its address: scratch that a capture used is never freed, only
+    set aside when its stream needs more."""
 
     def __init__(self, device: torch.device):
         self.sms = torch.cuda.get_device_properties(device).multi_processor_count
         self.instances: Dict[tuple, Tuple[int, int]] = {}
         self.scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.captured: set = set()      # streams whose scratch a graph holds
+        self.held: list = []            # scratch set aside for those graphs
 
     def plan(self, code, B, Hkv, G, S, D, bk) -> Plan:
         heads = _heads(G)
@@ -204,13 +222,26 @@ class _Device:
                     round_keys=inst[0], resident=inst[1])
 
     def buffers(self, stream: int, pl: Plan, device) -> Tuple[int, int]:
-        part, counter = self.scratch.get(stream, (None, None))
-        if part is None or part.numel() < pl.part_floats:
+        old = self.scratch.get(stream)
+        part, counter = old or (None, None)
+        grow_part = part is None or part.numel() < pl.part_floats
+        grow_counter = counter is None or counter.numel() < pl.counters
+        capturing = torch.cuda.is_current_stream_capturing()
+        if (grow_part or grow_counter) and capturing:
+            raise RuntimeError(
+                "decode_attention: no scratch of this size on the capture "
+                "stream; make the same call on that stream before capturing")
+        if grow_part:
             part = torch.empty(max(pl.part_floats, 1), dtype=torch.float32,
                                device=device)
-        if counter is None or counter.numel() < pl.counters:
+        if grow_counter:
             counter = torch.zeros(pl.counters, dtype=torch.int32,
                                   device=device)
+        if (grow_part or grow_counter) and stream in self.captured:
+            self.held.append(old)
+            self.captured.discard(stream)
+        if capturing:
+            self.captured.add(stream)
         self.scratch[stream] = (part, counter)
         return part.data_ptr(), counter.data_ptr()
 

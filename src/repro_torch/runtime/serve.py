@@ -5,7 +5,10 @@ and the bit-identity contract are the reference's.  The servers run on
 ``cuda`` unless given ``device="cpu"``.  They cast the parameters to the
 compute dtype once at load (``models.model.precast``) and keep an f32
 cache (KV, recurrent state, the vlm's image K/V) that each step updates
-in place.
+in place.  Each step is ``Model.decode_step`` plus its argmax through the
+server's :class:`~repro_torch.runtime.graph.StepGraph`: on the card one
+CUDA graph a server, captured at the first step and replayed at every
+step, as the reference wraps the step in ``jax.jit``; on the CPU eagerly.
 
 ``BatchedServer`` is a continuous-batching greedy server: every slot
 carries its own position and KV-cache occupancy, requests are admitted
@@ -29,10 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.distrib.logical import NOSHARD
 from repro_torch.models.blocks import ModelOpts
 from repro_torch.models.model import (
     ATTENTION_FAMILIES, Model, compute_dtype, precast)
+from repro_torch.runtime.graph import StepGraph
 
 
 @dataclasses.dataclass
@@ -56,7 +59,9 @@ class LockstepServer:
     truncates when it reaches ``S-1``.  Late-admitted requests inherit the
     current shared position, so only batches without slot reuse are served
     at correct positions — exactly the regime the continuous server's
-    ``run()`` is pinned bit-identical against.
+    ``run()`` is pinned bit-identical against.  The step takes ``pos`` as
+    a 0-d int32 tensor, as the reference's ``jnp.asarray(pos, jnp.int32)``;
+    ``self.pos`` stays the host int callers read.
     """
 
     def __init__(self, model: Model, params, *, batch_size: int = 4,
@@ -72,13 +77,18 @@ class LockstepServer:
         self.cache = model.init_cache(batch_size, max_seq, torch.float32,
                                       self.device)
         self.pos = 0                       # shared position (lockstep batch)
+        self.step_graph = StepGraph(model, self.params, self.cache, opts,
+                                    batch=batch_size, per_slot=False,
+                                    device=self.device)
 
-    def _decode(self, token: np.ndarray, pos) -> np.ndarray:
-        logits, self.cache = self.model.decode_step(
-            self.params,
-            {"token": torch.from_numpy(token).to(self.device), "pos": pos},
-            self.cache, NOSHARD, self.opts)
-        return logits.argmax(dim=-1).cpu().numpy()
+    def reset(self) -> None:
+        """Rewind for a fresh closed batch (epoch serving,
+        ``serve.py:68``): position 0 and every cache entry zeroed in
+        place, the values of a fresh ``init_cache`` at the addresses the
+        step's graph holds."""
+        self.pos = 0
+        for v in self.cache.values():
+            v.zero_()
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Serve a closed batch of requests to completion (greedy)."""
@@ -98,7 +108,7 @@ class LockstepServer:
 
         admit()
         while any(a is not None for a in active) or queue:
-            nxt = self._decode(token, self.pos)
+            nxt = self.step_graph.step(token, self.pos)
             self.pos += 1
             for i in range(self.B):
                 r = active[i]
@@ -157,7 +167,9 @@ class BatchedServer:
     and ``submit``/``step``/``drain`` raise RuntimeError
     (``serve.py:160-168``): hybrid and vlm, whose decode step takes one
     shared position; audio, an encoder, fails there as in the reference,
-    in ``Model.init_cache``.
+    in ``Model.init_cache``.  ``step_graph`` is the server's decode step
+    (the lockstep server's behind the fallback).  ``_reset_slot`` zeroes
+    a slot on the step's stream, so it lands before the next replay.
     """
 
     SLOT_FAMILIES = ("dense", "moe", "ssm")
@@ -183,6 +195,7 @@ class BatchedServer:
             self._lockstep = LockstepServer(
                 model, params, batch_size=batch_size, max_seq=max_seq,
                 opts=opts, eos_id=eos_id, device=self.device)
+            self.step_graph = self._lockstep.step_graph
             return
         self.params = _load(model, params, self.device)
         self.cache = model.init_cache(batch_size, max_seq, torch.float32,
@@ -195,6 +208,9 @@ class BatchedServer:
         self._token = np.zeros((self.B, 1), np.int32)
         self._pos = np.zeros(self.B, np.int32)      # per-slot position
         self._dopts = dataclasses.replace(opts, use_kernel=self.use_kernel)
+        self.step_graph = StepGraph(model, self.params, self.cache,
+                                    self._dopts, batch=batch_size,
+                                    per_slot=True, device=self.device)
 
     # ------------------------------------------------------------------
     # Streaming API
@@ -216,12 +232,7 @@ class BatchedServer:
         self._admit()
         if not any(a is not None for a in self.active):
             return []
-        logits, self.cache = self.model.decode_step(
-            self.params,
-            {"token": torch.from_numpy(self._token).to(self.device),
-             "pos": torch.from_numpy(self._pos).to(self.device)},
-            self.cache, NOSHARD, self._dopts)
-        nxt = logits.argmax(dim=-1).cpu().numpy()
+        nxt = self.step_graph.step(self._token, self._pos)
         self.steps += 1
         finished: List[Request] = []
         for i in range(self.B):
