@@ -19,9 +19,10 @@ logits and cache bit for bit; it reports the graph beside the eager step
 * dense serving: ``BatchedServer(use_kernel=True)`` on ``qwen1.5-4b``
   (40 layers, d_model 2560, vocab 151936) with the flash-decode kernel,
   one launch a call: a profiled step must hold one per layer.  Before it
-  the kernel is timed at four readings (the main path's shape, the MoE
+  the kernel is timed at six readings (the main path's shape, the MoE
   path's, ``long_500k`` at zamba2-7b's widths, GQA ``decode_32k`` at
-  minitron-8b's) beside its bytes bound, SDPA and the plain version;
+  minitron-8b's, gemma-7b's and llama4-scout's serving shapes) beside its
+  bytes bound, SDPA and the plain version;
 * MoE serving: the same server and request mix on
   ``phi3.5-moe-42b-a6.6b`` at full width (d_model 4096, 32 heads, GQA kv
   8, 16 experts of d_ff 6400, top-2, vocab 32064), its depth cut to 16
@@ -31,6 +32,19 @@ logits and cache bit for bit; it reports the graph beside the eager step
   the kernel, the expert products, other GEMMs and other kernels, and
   kernel vs plain decode steps are held as for dense, in float32 at 4
   layers;
+* the configurations no earlier phase serves, on the same server and
+  mix: ``gemma-7b`` (28 layers, MHA of 16 heads at head dim 256, a q width
+  of 4096 against d_model 3072, GeGLU, the head tied to the 256,000-token
+  embedding) and ``minitron-8b`` (32 layers, GQA 32/8 over 256,000 tokens)
+  at full width and depth, and ``llama4-scout-17b-a16e`` (GQA 40/8, top-1
+  of 16 experts of d_ff 8192, vocab 202048) at full width with its depth
+  cut to 10 of 48 layers (45.7 GB of bf16 weights; all 48 need 203.5 GB),
+  each held as the dense and MoE paths are (scout also for dropped routing
+  slots and its expert products), then ``python -m
+  repro_torch.launch.serve --arch gemma-7b`` once, every request
+  answered.  The decode kernel is timed at gemma-7b's and scout's shapes
+  beside the other readings.  The phase holds itself to
+  ``UNRUN_BUDGET_S``;
 * ssm: ``Model.loss`` on ``mamba2-130m`` (24 layers, d_model 768, vocab
   50280) at 8 x 4096 tokens with the ``ssd_scan`` kernel, held against the
   plain path, then ``BatchedServer`` serving requests on the same model.
@@ -274,11 +288,29 @@ BATCH, MAX_SEQ = 8, 512
 N_REQUESTS, NEW_TOKENS, PROMPT_LEN = 16, 32, (8, 64)
 TEACHER_STEPS = 4
 BF16_MARGIN = 0.5     # bf16: greedy tokens must agree above this margin
+# bf16, top-1 MoE: the kernel and plain paths may route a slot to two
+# experts only at a near-tie, both paths' top-1 minus top-2 router
+# probability under ROUTE_TIE.  Their router inputs part by bf16 rounding,
+# as the dense path's hidden states do, by up to a few per cent in norm
+# over 10 layers (each parting logs its own): at 1.5 % of |x| = sqrt(5120)
+# and router weights of std 0.02, two experts' logits move apart by ~0.03
+# and their probability gap by ~0.01 (p ~ 0.3); ROUTE_TIE is five times it
+ROUTE_TIE = 5e-2
 F32_LOGIT_TOL = 1e-3  # f32: 40 layers summed in another order, abs and rel
 
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 16       # of 32: 42.1 GB of bf16 weights; all 32 need 83.7 GB
 MOE_F32_LAYERS = 4    # the float32 teacher-forced check: 21.9 GB of weights
+# the configurations no earlier phase serves: the dense mix at full width
+GEMMA7_ARCH = "gemma-7b"           # MHA at D = 256, tied head, GeGLU
+MINITRON_ARCH = "minitron-8b"      # GQA 32/8 over 256,000 tokens
+SCOUT_ARCH = "llama4-scout-17b-a16e"   # GQA 40/8 (G = 5), top-1 of 16
+SCOUT_LAYERS = 10     # of 48: 45.7 GB of bf16 weights; all 48 need 203.5 GB
+SCOUT_F32_LAYERS = 1  # the float32 check: 16.6 GB, half of it the f32
+#                       embedding and head, beside the 45.7 GB served
+UNRUN_BUDGET_S = 120.0
+LAUNCHER_ARCH = GEMMA7_ARCH        # python -m repro_torch.launch.serve
+LAUNCHER_ANSWERS = (8, 16)         # its default requests and new tokens
 EXPERT_OPS = ("aten::bmm",)           # the expert products, batched by expert
 GEMM_OPS = ("aten::mm", "aten::addmm")  # every other product of a step
 
@@ -694,6 +726,12 @@ def decode_readings(main_lengths):
         # 32 so the plain check fits beside the 4.3 GB cache
         ("decode_32k GQA", 32, 32, 8, s32k, 128, torch.bfloat16,
          np.random.default_rng(5).integers(1, s32k + 1, 32), 10),
+        # gemma-7b serving: MHA at D = 256, the server's f32 cache
+        ("gemma-7b path", BATCH, 16, 16, MAX_SEQ, 256, torch.float32,
+         np.asarray(main_lengths), 50),
+        # llama4-scout serving: GQA 40/8 (G = 5)
+        ("llama4-scout path", BATCH, 40, 8, MAX_SEQ, 128, torch.float32,
+         np.asarray(main_lengths), 50),
     ]
 
 
@@ -2348,7 +2386,9 @@ def measure_flash_f32():
 # dense request mix: the step's graph must serve the same bits.
 DIGESTS = {ARCH: "4c54950e2291b582", MOE_ARCH: "210abb0b143dbadd",
            SSM_ARCH: "98d9f5f983d8b27e", HYBRID_ARCH: "1b6a8dab431e60b0",
-           VLM_ARCH: "63638ab9bd3e3c93", GEMMA_ARCH: "3e18f2fb721d28a6"}
+           VLM_ARCH: "63638ab9bd3e3c93", GEMMA_ARCH: "3e18f2fb721d28a6",
+           GEMMA7_ARCH: "9cdc1efacfaf3a5b", MINITRON_ARCH: "976906a25077e5aa",
+           SCOUT_ARCH: "239b586fba372bba"}
 GRAPH_STEPS = 20        # steps a timed turn: eager, graph, graph, eager
 GRAPH_READINGS = []     # each serving phase's graph_readings, in order
 
@@ -2568,6 +2608,29 @@ def serve_full_width(cfg, init_dtype=torch.float32):
                                          generated=generated)
 
 
+def dense_serve_full_width(arch, init_dtype=torch.bfloat16):
+    """``arch`` at full width and depth on the dense mix:
+    ``serve_full_width`` (weights drawn in ``init_dtype`` from seed 0),
+    ``graph_readings`` and ``teacher_forced_check``, whose float32 check
+    keeps every layer (for gemma-7b and minitron-8b the f32 weights, 34.2
+    and 39.5 GB, beside the served bf16 ones, the cache and the check's
+    two copies of it take under 63 GB of the card's 80).  -> (decode
+    launches, the served run, the graph reading)."""
+    cfg = get_config(arch)
+    log(f"{arch} at full width and depth: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads "
+        f"of {cfg.head_dim} (q width {cfg.q_dim}), d_ff {cfg.d_ff} "
+        f"{cfg.activation}, vocab {cfg.vocab}"
+        f"{', the head tied to the embedding' if cfg.tie_embeddings else ''}"
+        f": {cfg.n_params() * 2 / 1e9:.1f} GB of bf16 weights")
+    model, server, launches, run = serve_full_width(cfg, init_dtype)
+    reading = graph_readings(model, server, run)
+    teacher_forced_check(model, server)
+    del model, server
+    torch.cuda.empty_cache()
+    return launches, run, reading
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2604,18 +2667,37 @@ def teacher_forced_check(model, server, f32_layers=None):
     can flip a bf16 rounding, and many layers of random weights amplify
     it (in an MoE layer it can also swap a token's experts), so there only
     decisive greedy tokens must agree: the kernel's argmax equals the
-    plain path's wherever the plain top-2 margin exceeds BF16_MARGIN.  The
-    same check in float32 compute dtype (f32 weights from the same seed,
-    the first ``f32_layers`` layers where given) holds the logits at
-    F32_LOGIT_TOL.
+    plain path's wherever the plain top-2 margin exceeds BF16_MARGIN.  A
+    top-1 MoE (llama4-scout) sends a token's whole FFN to the other
+    expert when its routing flips, so there the two paths' routing is
+    traced (``top1_decisive_tokens``): a slot whose paths part must part
+    at a near-tie, and the slots that have not parted are held as above.
+    The same check in float32 compute dtype (f32 weights from the same
+    seed, the first ``f32_layers`` layers where given) holds the logits
+    at F32_LOGIT_TOL.
     """
-    worst, decisive = 0.0, 0
-    for a, b in teacher_forced(model, server.params, server.cache):
+    worst, decisive, parted = 0.0, 0, ""
+    if model.cfg.n_experts and model.cfg.top_k == 1:
+        pairs, calls = routing_trace(
+            lambda: teacher_forced(model, server.params, server.cache))
+        decisive, gone = top1_decisive_tokens(
+            pairs, step_routes(calls, model.cfg.n_layers), "the kernel path")
+        parted = (f"; {len(gone)} of {BATCH} slots routed apart at a "
+                  f"near-tie (" + ", ".join(
+                      f"slot {b} step {t} layer {li}: gaps {gk:.2e} / "
+                      f"{gp:.2e}, router inputs {dx:.2e} apart"
+                      for b, (t, li, gk, gp, dx) in gone.items())
+                  + "), held before it")
+    else:
+        pairs = teacher_forced(model, server.params, server.cache)
+        for a, b in pairs:
+            decisive += decisive_tokens(a, b, "the kernel path")[0]
+    for a, b in pairs:
         worst = max(worst, (a - b).abs().max().item())
-        decisive += decisive_tokens(a, b, "the kernel path")[0]
     log(f"teacher-forced bf16: {TEACHER_STEPS} steps, kernel vs plain "
         f"logits max diff {worst:.3e}; {decisive}/{TEACHER_STEPS * BATCH} "
-        f"tokens with top-2 margin > {BF16_MARGIN:g}, all equal")
+        f"tokens with top-2 margin > {BF16_MARGIN:g}, all equal{parted}")
+    del pairs
 
     cfg32 = dataclasses.replace(model.cfg, dtype="float32",
                                 n_layers=f32_layers or model.cfg.n_layers)
@@ -2632,6 +2714,77 @@ def teacher_forced_check(model, server, f32_layers=None):
         f"steps, kernel vs plain logits max diff {worst:.3e} (tol "
         f"{F32_LOGIT_TOL:g} abs+rel)")
     del params32
+
+
+def routing_trace(fn):
+    """``fn()`` with every ``moe.moe_ffn`` call traced -> (its result,
+    [(top-1 expert (T,), top-1 minus top-2 router probability (T,), the
+    router's input (T, D) f32)] in call order, T the call's tokens),
+    ranked as ``moe._route`` ranks."""
+    calls, ffn = [], moe.moe_ffn
+
+    def traced(p, x, cfg, ctx):
+        xf = x.float().reshape(-1, x.shape[-1])
+        probs = torch.softmax(xf @ p["router"].float(), dim=-1)
+        top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+        calls.append((ids[:, 0], top[:, 0] - top[:, 1], xf.clone()))
+        return ffn(p, x, cfg, ctx)
+
+    moe.moe_ffn = traced
+    try:
+        return fn(), calls
+    finally:
+        moe.moe_ffn = ffn
+
+
+def step_routes(calls, n_layers):
+    """``routing_trace``'s calls over ``teacher_forced``'s steps (each
+    step the kernel path's layers, then the plain path's) -> per step a
+    pair (kernel path, plain path) of (experts (L, B), gaps (L, B),
+    router inputs (L, B, D)), L = ``n_layers``."""
+    per_step = 2 * n_layers
+    out = []
+    for s in range(0, len(calls), per_step):
+        paths = [calls[s + i * n_layers:s + (i + 1) * n_layers]
+                 for i in range(2)]
+        out.append(tuple(tuple(torch.stack(list(part)) for part in
+                               zip(*path)) for path in paths))
+    return out
+
+
+def top1_decisive_tokens(pairs, routes, what):
+    """bf16 kernel vs plain steps of a top-1 MoE: ``pairs`` [(kernel
+    logits, plain logits)] (B, V) and ``routes`` (``step_routes``) a step.
+
+    Where one layer routes a slot to another expert on the two paths,
+    the slot's hidden state and, from there on, its cache differ for
+    good: the slot parts there, and its two paths must both have been
+    near a tie, gaps under ROUTE_TIE, or the routing disagrees.  The
+    slots not yet parted are held as ``decisive_tokens`` holds a step; at
+    least one decisive token must be held.  -> (decisive tokens held,
+    {slot: (step, layer, kernel gap, plain gap, the router inputs'
+    difference relative in norm)} where each parted)."""
+    parted, decisive = {}, 0
+    for t, ((a, b), ((k_ids, k_gap, k_x), (p_ids, p_gap, p_x))) in \
+            enumerate(zip(pairs, routes)):
+        for slot in (k_ids != p_ids).any(0).nonzero().flatten().tolist():
+            if slot in parted:
+                continue
+            li = int((k_ids[:, slot] != p_ids[:, slot]).nonzero()[0])
+            gk, gp = float(k_gap[li, slot]), float(p_gap[li, slot])
+            if max(gk, gp) >= ROUTE_TIE:
+                raise AssertionError(
+                    f"{what}: slot {slot} routed to expert "
+                    f"{int(k_ids[li, slot])} against the plain path's "
+                    f"{int(p_ids[li, slot])} at step {t} layer {li}, router "
+                    f"gaps {gk:.3e} / {gp:.3e}: no near-tie (< {ROUTE_TIE:g})")
+            parted[slot] = (t, li, gk, gp, _rel(k_x[li, slot], p_x[li, slot]))
+        keep = [i for i in range(a.shape[0]) if i not in parted]
+        decisive += decisive_tokens(a[keep], b[keep], what)[0]
+    if not decisive:
+        raise AssertionError(f"{what}: no decisive token on a slot whose "
+                             "routing both paths agree on")
+    return decisive, parted
 
 
 def profile_steps(model, server, n=3, stats=None):
@@ -2728,9 +2881,10 @@ def profile_window(fn, n, unit, ops_ms=None, stats=None):
 # ---------------------------------------------------------------------------
 # phase 3b: the MoE family at full width
 # ---------------------------------------------------------------------------
-def moe_config():
-    """phi3.5-moe-42b-a6.6b at full width, its depth cut to MOE_LAYERS."""
-    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+def moe_config(arch=MOE_ARCH, n_layers=MOE_LAYERS):
+    """``arch`` (phi3.5-moe-42b-a6.6b) at full width, its depth cut to
+    ``n_layers`` (MOE_LAYERS)."""
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
 
 
 def expert_bytes(cfg):
@@ -2782,17 +2936,19 @@ def time_expert_products(server, cfg):
     return dict(ms=ms, moe_ffn_ms=ffn_ms, bound_ms=floor)
 
 
-def moe_serve_full_width():
-    """phi3.5-moe at full width on the dense phase's request mix: every
-    request finishes, every layer of every step runs the flash-decode
-    kernel, no routing slot is dropped at decode (C = 8 >= Tg * K = 2),
-    and kernel vs plain decode steps agree (float32 at MOE_F32_LAYERS)."""
+def moe_serve_full_width(arch=MOE_ARCH, n_layers=MOE_LAYERS,
+                         f32_layers=MOE_F32_LAYERS):
+    """``arch`` (phi3.5-moe) at full width, ``n_layers`` deep, on the dense
+    phase's request mix: every request finishes, every layer of every step
+    runs the flash-decode kernel, no routing slot is dropped at decode
+    (C = 8 >= Tg * K: 2 for phi3.5-moe, 1 for llama4-scout's top-1), and
+    kernel vs plain decode steps agree (float32 at ``f32_layers``)."""
     t0 = time.time()
-    cfg, full = moe_config(), get_config(MOE_ARCH)
+    cfg, full = moe_config(arch, n_layers), get_config(arch)
     layer_bytes = 2 * (expert_bytes(cfg) // 2 + cfg.d_model * cfg.n_experts
                        + cfg.d_model * cfg.head_dim
                        * (2 * cfg.n_heads + 2 * cfg.n_kv_heads))
-    log(f"MoE: {MOE_ARCH} at full width, depth cut to {cfg.n_layers} of "
+    log(f"MoE: {arch} at full width, depth cut to {cfg.n_layers} of "
         f"{full.n_layers} layers: {cfg.n_params() * 2 / 1e9:.1f} GB of bf16 "
         f"weights (all {full.n_layers}: {full.n_params() * 2 / 1e9:.1f} GB, "
         f"beyond the card), {layer_bytes / 1e9:.2f} GB a layer")
@@ -2812,11 +2968,62 @@ def moe_serve_full_width():
         f" a step at 3.35 TB/s); all layer weights once a step "
         f"{cfg.n_layers * layer_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     run.update(split=split, experts=time_expert_products(server, cfg))
-    teacher_forced_check(model, server, f32_layers=MOE_F32_LAYERS)
+    teacher_forced_check(model, server, f32_layers=f32_layers)
     del model, server
     torch.cuda.empty_cache()
-    log(f"MoE phase: {time.time() - t0:.1f} s, initialisation included")
+    log(f"MoE phase ({arch}): {time.time() - t0:.1f} s, initialisation "
+        f"included")
     return launches, run
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the configurations no earlier phase serves
+# ---------------------------------------------------------------------------
+def serve_launcher(arch):
+    """``python -m repro_torch.launch.serve --arch arch`` in a process of
+    its own (its float32 draw, then the server's bf16 copy), as a user
+    runs it: it must exit 0 and its JSON must answer every request with
+    every token (``LAUNCHER_ANSWERS``, the launcher's defaults)."""
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"the serving launcher at {arch}: exit "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    n, new = LAUNCHER_ANSWERS
+    log(f"python -m repro_torch.launch.serve --arch {arch}: {out['requests']}"
+        f" requests, {out['generated_tokens']} tokens, "
+        f"{out['tokens_per_s']} tokens/s as it reports them; "
+        f"{time.time() - t0:.1f} s for the process")
+    if out["arch"] != arch or out["requests"] != n or \
+            out["generated_tokens"] != n * new:
+        raise AssertionError(f"the serving launcher at {arch} did not "
+                             f"answer every request: {out}")
+
+
+def unrun_configs_phase():
+    """gemma-7b and minitron-8b at full width and depth
+    (``dense_serve_full_width``), llama4-scout at full width with its
+    depth cut to SCOUT_LAYERS (``moe_serve_full_width``, float32 at
+    SCOUT_F32_LAYERS), then the serving launcher at LAUNCHER_ARCH; within
+    UNRUN_BUDGET_S.  Returns each path's decode launches and run."""
+    t0 = time.time()
+    runs = {arch: dense_serve_full_width(arch)[:2]
+            for arch in (GEMMA7_ARCH, MINITRON_ARCH)}
+    runs[SCOUT_ARCH] = moe_serve_full_width(SCOUT_ARCH, SCOUT_LAYERS,
+                                            SCOUT_F32_LAYERS)
+    serve_launcher(LAUNCHER_ARCH)
+    elapsed = time.time() - t0
+    log(f"unrun configurations phase: {elapsed:.1f} s of its "
+        f"{UNRUN_BUDGET_S:.0f} s budget")
+    if elapsed > UNRUN_BUDGET_S:
+        raise AssertionError(f"the unrun configurations phase took "
+                             f"{elapsed:.1f} s, past its "
+                             f"{UNRUN_BUDGET_S:.0f} s budget")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -4736,16 +4943,15 @@ def main() -> None:
     flash_readings_unaligned = measure_flash_unaligned()    # f32, bf16, bf16
     flash_f32_timing["readings"].append(flash_readings_unaligned[0])
 
-    model, server, launches, run = serve_full_width(get_config(ARCH))
-    dense_graph = graph_readings(model, server, run)
-    teacher_forced_check(model, server)
-    del model, server
-    torch.cuda.empty_cache()
-
+    launches, run, dense_graph = dense_serve_full_width(ARCH, torch.float32)
     moe_launches, moe_run = moe_serve_full_width()
-    log(f"decode_attention launches on the serving paths: {ARCH} {launches} "
-        f"({run['steps']} steps), {MOE_ARCH} {moe_launches} "
-        f"({moe_run['steps']} steps); {launches + moe_launches} in all")
+    unrun = unrun_configs_phase()
+    serving = {ARCH: (launches, run), MOE_ARCH: (moe_launches, moe_run),
+               **unrun}
+    decode_launches = sum(n for n, _ in serving.values())
+    log("decode_attention launches on the serving paths: " + ", ".join(
+        f"{arch} {n} ({r['steps']} steps)" for arch, (n, r) in
+        serving.items()) + f"; {decode_launches} in all")
 
     ssm_model, ssm_params, ssd_launches, ssm_f32_launches = \
         ssm_forward_full_width()
@@ -4783,7 +4989,7 @@ def main() -> None:
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:59",
-        launches=launches + moe_launches, max_abs_err=err, **timing,
+        launches=decode_launches, max_abs_err=err, **timing,
         replay_launch_us=dense_graph["replay_launch_us"],
         search_launches=search_launches["decode_attention"],
         readings=readings[1:]), dict(
