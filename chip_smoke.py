@@ -113,6 +113,17 @@ logits and cache bit for bit; it reports the graph beside the eager step
   full width and 4 layers; ``TrainLoop.run`` crashed at step 6 and
   resumed against an uninterrupted run.  The path is the reference's,
   which differentiates no kernel: no port kernel may launch in the phase;
+* elastic restart (``elastic_phase``, run first, right after the
+  builds, in a process of its own with a one-rank NCCL group, within
+  ``ELASTIC_BUDGET_S``): ``qwen1.5-4b`` at
+  full width, its depth cut to 4 of 40 layers (a 17.5 GB state), B = 2 x
+  S = 1024 in bf16 on f32 masters, 4 plain steps with a checkpoint at step
+  2, then ``TrainLoop.run(shardings=ShardCtx(make_mesh(1, 1), ...))``
+  resumes it with the state, batches and step as DTensors on the card to
+  step 4; its losses and final state are held to the plain run's at
+  ``ELASTIC_REL`` (the largest difference printed, and whether the two are
+  bit-equal), then plain and sharded steps are timed in turns beside each
+  one's peak memory.  No port kernel may launch in the phase;
 * kernel search: both rungs of the ``kernel`` fidelity ladder
   (``kernels/bench.py``) on every candidate of ``kernel_domain("tiny")``
   and ``kernel_domain("small")``, which runs all three kernels at every
@@ -207,6 +218,7 @@ import math
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -385,6 +397,21 @@ TRAIN_REMAT_GRAD_REL = 1e-3   # the grads, whole tree, relative in norm
 TRAIN_RESUME_REL = 1e-3       # resumed vs uninterrupted losses, bf16
 TRAIN_LOOP_STEPS, TRAIN_CRASH_AT = 8, 6
 PEAK_BF16 = PEAK_OPS[torch.bfloat16]
+# the elastic restart (``elastic_phase``, a process of its own holding a
+# one-rank NCCL group): qwen1.5-4b at full width, its depth cut to 4 of 40
+# layers (1.09 B parameters; the state, f32 params, m, v and error
+# feedback, 17.5 GB, and so each checkpoint), B = 2 x S = 1024 in bf16 on
+# f32 masters; 4 plain steps checkpointed at step 2, then step 2 resumed
+# on a (1, 1) mesh with the state as DTensors to step 4.  Writing the
+# checkpoints takes most of the phase (PERF.md §5): it writes two, the
+# plain run's at step 2 and the resumed run's last
+ELASTIC_LAYERS = 4
+ELASTIC_BATCH, ELASTIC_SEQ = 2, 1024
+ELASTIC_STEPS, ELASTIC_CKPT = 4, 2
+ELASTIC_OPTS = ModelOpts(attn_chunk=512, ce_chunk=1024, remat="full")
+ELASTIC_REL = 1e-5     # tests/test_torch_elastic.py's RTOL: losses, state
+ELASTIC_TURNS = 3      # plain and sharded steps timed in turns
+ELASTIC_BUDGET_S = 90.0
 
 # full-width prefill shapes for flash_attention through ops.mha, bf16:
 # name, B, S (the train_4k length), Hq, Hkv, D, window
@@ -2390,6 +2417,7 @@ DIGESTS = {ARCH: "4c54950e2291b582", MOE_ARCH: "210abb0b143dbadd",
            GEMMA7_ARCH: "9cdc1efacfaf3a5b", MINITRON_ARCH: "976906a25077e5aa",
            SCOUT_ARCH: "239b586fba372bba"}
 GRAPH_STEPS = 20        # steps a timed turn: eager, graph, graph, eager
+COUNTED_WINDOWS = 3     # profiler windows a launch count may take
 GRAPH_READINGS = []     # each serving phase's graph_readings, in order
 
 
@@ -2486,18 +2514,21 @@ def graph_readings(model, server, run):
         f"host (median of 20)")
 
     stats, before = {}, graph.replays
-    rows = profile_window(replay, 3, "replay", stats=stats)
+    want = cfg.n_layers if server.use_kernel else 0
+    rows, shown, windows = counted_window(replay, 3, "replay",
+                                          {DECODE_KERNEL: 3 * want},
+                                          stats=stats)
     if not rows:
         raise AssertionError(f"{name}: the profiled replay window shows no "
                              "device events")
-    if graph.replays - before != 4:
+    if graph.replays - before != 4 * windows:
         raise AssertionError(f"{name}: {graph.replays - before} replays in "
-                             "the window, not 4")
-    decode = sum(c for _, key, c in rows if DECODE_KERNEL in key) / 3
+                             f"{windows} windows, not {4 * windows}")
+    decode = shown[DECODE_KERNEL] / 3
     log(f"  {DECODE_KERNEL} a replay: {decode:g} ({cfg.n_layers} layers); "
         f"idle share: graph {stats['idle']:.1%}, eager "
         f"{eager_window.get('idle', float('nan')):.1%}")
-    if decode != (cfg.n_layers if server.use_kernel else 0):
+    if decode != want:
         raise AssertionError(f"{name}: {decode:g} decode kernels a replay")
 
     log(f"  graph pool {graph.pool_bytes / 2**20:.1f} MiB; the eager "
@@ -2801,9 +2832,10 @@ def profile_steps(model, server, n=3, stats=None):
         server, pos = server._lockstep, 100
     opts = ModelOpts(use_kernel=use_kernel)
     ops_ms = {}
-    rows = profile_window(lambda: model.decode_step(
+    rows = counted_window(lambda: model.decode_step(
         server.params, {"token": tok, "pos": pos}, server.cache, opts=opts),
-        n, "step", ops_ms, stats)
+        n, "step", {DECODE_KERNEL: n * model.cfg.n_layers * use_kernel},
+        ops_ms, stats)[0]
     if not (use_kernel and rows):
         return {}
     decode = [(ms, count) for ms, key, count in rows if DECODE_KERNEL in key]
@@ -2876,6 +2908,29 @@ def profile_window(fn, n, unit, ops_ms=None, stats=None):
     for ms, key, count in rows[:10]:
         log(f"  {ms / n:9.4f} ms/{unit}  x{count // n:<5d} {key[:90]}")
     return rows
+
+
+def counted_window(fn, n, unit, want, ops_ms=None, stats=None):
+    """``profile_window`` of ``fn`` whose launches of each kernel in
+    ``want`` ({name: launches the window must show}) are counted.  ``fn``
+    runs the same kernels every call, but the trace now and then loses a
+    few of a window's records (a replay's kernel count differs by one to
+    ten between runs of one graph, and a window may come back empty): a
+    window that shows fewer of some kernel and more of none is taken again,
+    up to COUNTED_WINDOWS windows in all.  Returns the last window's rows,
+    its counts and the number of windows taken; the caller holds the counts
+    to ``want``."""
+    for taken in range(1, COUNTED_WINDOWS + 1):
+        if ops_ms is not None:
+            ops_ms.clear()
+        rows = profile_window(fn, n, unit, ops_ms, stats)
+        shown = {k: sum(r[2] for r in rows if k in r[1]) for k in want}
+        if rows and all(shown[k] >= want[k] for k in want) or any(
+                shown[k] > want[k] for k in want):
+            break
+        log(f"  window {taken} of {COUNTED_WINDOWS} shows {shown}, short of "
+            f"{want}: the trace lost records")
+    return rows, shown, taken
 
 
 # ---------------------------------------------------------------------------
@@ -3042,18 +3097,16 @@ def _rel(a, b):
 
 
 def tf32_forward_window(forward, n_layers):
-    """One float32 forward in a profiler window (taken a second time where
-    CUPTI left it empty; an empty window fails): each launch of
-    ``SSD_TF32_LAUNCHES`` must show once a layer and the CUDA-core launches
-    not at all."""
-    rows = []
-    for _ in range(2):
-        rows = rows or profile_window(forward, 1, "forward")
+    """One float32 forward in a profiler window (``counted_window``: taken
+    again where the trace lost records; an empty window fails): each launch
+    of ``SSD_TF32_LAUNCHES`` must show once a layer and the CUDA-core
+    launches not at all."""
+    want = dict.fromkeys(SSD_TF32_LAUNCHES, n_layers)
+    want.update(dict.fromkeys(SSD_CUDA_CORE, 0))
+    rows, shown, _ = counted_window(forward, 1, "forward", want)
     if not rows:
         raise AssertionError("no profiler window of the float32 forward "
                              "showed device time")
-    shown = {k: sum(r[2] for r in rows if k in r[1])
-             for k in SSD_TF32_LAUNCHES + SSD_CUDA_CORE}
     if any(shown[k] != n_layers for k in SSD_TF32_LAUNCHES) or any(
             shown[k] for k in SSD_CUDA_CORE):
         raise AssertionError(f"the profiled float32 forward shows {shown}, "
@@ -3110,15 +3163,16 @@ def ssm_forward_full_width():
         plain_wall = time.perf_counter() - t0
         log(f"Model.loss on the plain path: {plain_wall * 1e3:.3f} "
             f"ms/forward, {tokens / plain_wall:.0f} tokens/s")
-        rows = profile_window(lambda: model.loss(params, batch, opts=kopts),
-                              1, "forward")
+        want = dict.fromkeys(SSD_LAUNCHES, cfg.n_layers)
+        want.update(dict.fromkeys(SSD_CUDA_CORE, 0))
+        rows, shown, _ = counted_window(
+            lambda: model.loss(params, batch, opts=kopts), 1, "forward",
+            want)
         busy = sum(r[0] for r in rows) or float("nan")
         log("  ssd_scan's launches in the forward: " + ", ".join(
             f"{k} {sum(r[0] for r in rows if k in r[1]):.3f} ms "
             f"({sum(r[0] for r in rows if k in r[1]) / busy:.1%} of device "
             f"busy)" for k in SSD_LAUNCHES))
-        shown = {k: sum(r[2] for r in rows if k in r[1])
-                 for k in SSD_LAUNCHES + SSD_CUDA_CORE}
         if any(shown[k] != cfg.n_layers for k in SSD_LAUNCHES) or any(
                 shown[k] for k in SSD_CUDA_CORE):
             raise AssertionError(f"the profiled forward shows {shown}, not "
@@ -4080,6 +4134,209 @@ def train_loop_check():
                              "uninterrupted one")
 
 
+ELASTIC = "--elastic"   # the argument of the process below
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _whole(x):
+    """A state leaf as a plain tensor (a DTensor gathered)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _remove_tree(path):
+    """``shutil.rmtree(path)``, its files unlinked by 8 threads: one by
+    one, a checkpoint's files took seconds on the card's host."""
+    files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(os.remove, files))
+    shutil.rmtree(path)
+
+
+def elastic_phase():
+    """The elastic restart on the card, in a process of its own with a
+    one-rank NCCL group: ELASTIC_STEPS plain steps (``TrainLoop.run`` to
+    ELASTIC_CKPT, whose last step writes the checkpoint, then its
+    ``train_step``), then the step-ELASTIC_CKPT checkpoint resumed by
+    ``run(shardings=ShardCtx(make_mesh(1, 1), fsdp_tp_rules))`` (state,
+    batches and step as DTensors on ``cuda``) to ELASTIC_STEPS;
+    its losses and final state held to the plain run's at ELASTIC_REL.
+    Then plain and sharded steps in turns, each timed and its peak memory
+    read.  -> the readings; the port's kernel counts must not move."""
+    import torch.distributed as dist
+    from repro_torch.distrib.logical import ShardCtx, fsdp_tp_rules
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.time()
+    before = port_launches()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    t_setup = time.time() - t_phase
+    try:
+        cfg, full = train_config(ELASTIC_LAYERS), get_config(ARCH)
+        data = SyntheticLMData(vocab=cfg.vocab, seq_len=ELASTIC_SEQ,
+                               global_batch=ELASTIC_BATCH, seed=0)
+
+        def loop(out, steps):
+            return TrainLoop(build_model(cfg), data, TrainLoopConfig(
+                steps=steps, ckpt_every=ELASTIC_CKPT, log_every=1,
+                out_dir=out), opts=ELASTIC_OPTS, device="cuda")
+
+        tmp = tempfile.mkdtemp()
+        try:
+            # the plain run: TrainLoop.run to ELASTIC_CKPT, whose last
+            # step writes the checkpoint, then its train_step to
+            # ELASTIC_STEPS (a checkpoint fewer keeps the phase in its
+            # budget)
+            t0 = time.time()
+            plain_loop = loop(os.path.join(tmp, "plain"), ELASTIC_CKPT)
+            plain = plain_loop.run()
+            t_plain = time.time() - t0
+            t0 = time.time()
+            for step in range(ELASTIC_CKPT, ELASTIC_STEPS):
+                plain["losses"].append(float(plain_loop.train_step(
+                    plain["state"], plain_loop.batch(step))["loss"]))
+            t_steps = time.time() - t0
+            n_params = sum(p.numel() for p in leaves(plain["state"]["params"]))
+            ckpt = os.path.join(tmp, "mesh", "ckpt")
+            os.makedirs(os.path.dirname(ckpt))
+            os.rename(os.path.join(tmp, "plain", "ckpt"), ckpt)
+            if latest_step(ckpt) != ELASTIC_CKPT:
+                raise AssertionError(f"no checkpoint at step {ELASTIC_CKPT}"
+                                     f" to resume from")
+            t0 = time.time()
+            ctx = ShardCtx(make_mesh(1, 1), fsdp_tp_rules(False))
+            mesh_loop = loop(os.path.join(tmp, "mesh"), ELASTIC_STEPS)
+            sharded = mesh_loop.run(shardings=ctx)
+            t_sharded = time.time() - t0
+            placed = all(hasattr(x, "placements") and x.device_mesh is
+                         ctx.mesh for x in leaves(sharded["state"]))
+        finally:
+            t0 = time.time()
+            _remove_tree(tmp)                  # the two checkpoints, 35 GB
+            t_clean = time.time() - t0
+        t_check = time.time()
+
+        want = plain["losses"][ELASTIC_CKPT:]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(sharded["losses"], want))
+        # leaf by leaf: a gathered copy of the whole state would not fit
+        # beside the two states
+        sums, max_abs, bits = {}, 0.0, True
+        for k in ("params", "opt", "err"):
+            diff = norm = 0.0
+            for a, b in zip(leaves(sharded["state"][k]),
+                            leaves(plain["state"][k])):
+                a = _whole(a).detach()
+                d = a.double() - b.detach().double()
+                diff += float(d.square().sum())
+                norm += float(b.detach().double().square().sum())
+                max_abs = max(max_abs, float(d.abs().max()))
+                bits = bits and torch.equal(a, b.detach())
+                del a, d
+            sums[k] = (diff, norm)
+        rel = {k: math.sqrt(d / n) for k, (d, n) in sums.items() if n}
+        log(f"elastic restart: {ARCH} at full width, depth cut to "
+            f"{cfg.n_layers} of {full.n_layers} layers ({n_params} "
+            f"parameters, a {16 * n_params / 1e9:.1f} GB state and "
+            f"checkpoint), {ELASTIC_BATCH} x {ELASTIC_SEQ} tokens in "
+            f"{cfg.dtype} on f32 masters, {ELASTIC_OPTS}: plain "
+            f"TrainLoop.run to step {ELASTIC_CKPT} and its checkpoint in "
+            f"{t_plain:.1f} s, steps {ELASTIC_CKPT}-{ELASTIC_STEPS - 1} "
+            f"in {t_steps:.1f} s; step {ELASTIC_CKPT} resumed on a "
+            f"(1, 1) NCCL mesh to step {ELASTIC_STEPS} and its checkpoint "
+            f"in {t_sharded:.1f} s, every state leaf a DTensor on the "
+            f"mesh: "
+            f"{placed} [{smi}]")
+        log(f"  losses {', '.join(f'{x:.7f}' for x in sharded['losses'])} "
+            f"vs plain {', '.join(f'{x:.7f}' for x in want)}: "
+            f"{loss_rel:.3e} relative; params {rel['params']:.3e}, AdamW "
+            f"state {rel['opt']:.3e} relative in norm, error feedback "
+            f"{'zero' if 'err' not in rel else rel['err']} (tol "
+            f"{ELASTIC_REL:g}); largest difference in any state leaf "
+            f"{max_abs:.3e}; bit-equal: {bits}")
+        if not placed or len(sharded["losses"]) != len(want) or \
+                loss_rel > ELASTIC_REL or max(rel.values()) > ELASTIC_REL:
+            raise AssertionError("the sharded resume does not match the "
+                                 "plain run")
+        t_check = time.time() - t_check
+
+        ms = {"plain": [], "sharded": []}
+        peak = {"plain": [], "sharded": []}
+        runs = {"plain": (plain_loop, plain["state"]),
+                "sharded": (mesh_loop, sharded["state"])}
+        for turn in range(ELASTIC_TURNS):
+            for kind, (lp, state) in runs.items():
+                batch = lp.batch(ELASTIC_STEPS + turn)
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                m = lp.train_step(state, batch)
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+                peak[kind].append(torch.cuda.max_memory_allocated()
+                                  - resident)
+                del m, batch
+        log(f"  steps in turns (host clock, synchronised), ms: plain "
+            f"{', '.join(f'{x:.1f}' for x in ms['plain'])}; sharded "
+            f"{', '.join(f'{x:.1f}' for x in ms['sharded'])}; peak above "
+            f"the resident states: plain "
+            f"{max(peak['plain']) / 2**30:.2f} GiB, sharded "
+            f"{max(peak['sharded']) / 2**30:.2f} GiB [{smi}]")
+        log(f"  phase: set up {t_setup:.1f} s (the group and the card), "
+            f"the checkpoints removed in {t_clean:.1f} s, the state compared "
+            f"in {t_check:.1f} s; {time.time() - t_phase:.1f} s in all")
+    finally:
+        dist.destroy_process_group()
+    after = port_launches()
+    if after != before:
+        raise AssertionError(f"the elastic phase launched a port kernel: "
+                             f"{before} before, {after} after")
+    return dict(loss_rel=loss_rel, rel=rel, max_abs=max_abs, bit_equal=bits,
+                ms=ms, peak_bytes=peak, launches=after,
+                seconds=time.time() - t_phase)
+
+
+def elastic_apart():
+    """:func:`elastic_phase` in a process of its own (this script with
+    ELASTIC): this process holds no process group.  Its log is echoed;
+    the phase holds itself to ELASTIC_BUDGET_S, the process's start
+    included.  Returns its result."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) for line in f
+                     if line.startswith("MemAvailable:"))
+    log(f"elastic phase: host memory available {avail / 2**20:.1f} GiB")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           ELASTIC], cwd=ROOT, capture_output=True,
+                          text=True, timeout=4 * ELASTIC_BUDGET_S)
+    elapsed = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [elastic] {line}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the elastic phase exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    log(f"elastic phase: {elapsed:.1f} s of its {ELASTIC_BUDGET_S:.0f} s "
+        f"budget ({elapsed - out['seconds']:.1f} s of them the process's "
+        f"start and exit)")
+    if elapsed > ELASTIC_BUDGET_S:
+        raise AssertionError(f"the elastic phase took {elapsed:.1f} s, past "
+                             f"its {ELASTIC_BUDGET_S:.0f} s budget")
+    return out
+
+
 def is_gemm(kernel_name):
     return "nvjet" in kernel_name or "gemm" in kernel_name.lower()
 
@@ -4877,6 +5134,9 @@ def main() -> None:
     if sys.argv[1:] == [SSD_F32_SMALL]:
         print(json.dumps(measure_ssd_f32_small()), flush=True)
         return
+    if sys.argv[1:] == [ELASTIC]:
+        print(json.dumps(elastic_phase()), flush=True)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4890,6 +5150,9 @@ def main() -> None:
     logs = build.build_all(KERNELS)
     log(f"built {KERNELS} in {time.time() - t0:.1f} s")
     check_build(logs)
+    # first, while the host's memory is free: its two 17.5 GB checkpoints
+    # go through the page cache
+    no_port_launches("the elastic phase", elastic_apart)
 
     # lengths of the served run: prompt 8-64 plus up to 32 new tokens
     main_lengths = np.random.default_rng(3).integers(

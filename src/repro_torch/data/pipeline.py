@@ -5,15 +5,18 @@
 batches are bit-equal to the reference's: an order-2 integer recurrence
 with seeded noise, a pure function of (seed, step), which makes
 checkpoint/restart exact with no iterator state to persist.
-``make_batch_iterator`` moves each batch to a device.
+``make_batch_iterator`` moves each batch to a device, or places each field
+under its DTensor placements on a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distrib.logical import place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,12 +80,27 @@ def to_device(batch: Dict[str, np.ndarray], device: Any
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def place_batch(batch: Dict[str, np.ndarray], device: Any,
+                shardings: Optional[dict] = None, mesh: Any = None
+                ) -> Dict[str, Any]:
+    """``to_device``, then each field ``k`` placed on ``mesh`` under
+    ``shardings.get(k)``'s placements (a field with none stays a plain
+    tensor), as ``pipeline.py:77`` puts each under its sharding.  Every
+    rank holds the whole batch and keeps its own shard: no collective."""
+    out = to_device(batch, device)
+    if shardings is None:
+        return out
+    if mesh is None:
+        raise ValueError("placements need the mesh they lie on")
+    return {k: place(v, shardings.get(k), mesh) for k, v in out.items()}
+
+
 def make_batch_iterator(data: SyntheticLMData, start_step: int = 0,
-                        device: Any = "cpu"
-                        ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Batches from ``start_step`` on, each moved to ``device``
-    (``pipeline.py:72``, whose ``device_put`` places them)."""
+                        device: Any = "cpu", shardings: Optional[dict] = None,
+                        mesh: Any = None) -> Iterator[Dict[str, Any]]:
+    """Batches from ``start_step`` on, each moved to ``device`` and, with
+    ``shardings``, placed on ``mesh`` (``pipeline.py:72``)."""
     step = start_step
     while True:
-        yield to_device(data.batch_at(step), device)
+        yield place_batch(data.batch_at(step), device, shardings, mesh)
         step += 1

@@ -566,7 +566,12 @@ def _local_plan(eq: str, operands, mesh):
       is a pending sum of each rank's part;
     * one operand is a pending sum and the others are whole: the result
       is a pending sum, that operand's gradient whole and the others'
-      pending sums.
+      pending sums;
+    * the axis has one rank, which holds every operand whole whatever its
+      placement: the result is whole, each gradient placed as its
+      operand (whole for a pending sum).  On a (1, 1) mesh torch 2.11's
+      DTensor leaves attention's probabilities whole beside a value split
+      over batch and heads, and its own einsum folds them.
     Each letter must split evenly over the axes that split it, as
     ``local_map`` infers the result's shape from the local one."""
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -584,6 +589,11 @@ def _local_plan(eq: str, operands, mesh):
     out_pl, grads = [], [[] for _ in operands]
     for axis in range(mesh.ndim):
         pls = [p[axis] for p in placed]
+        if mesh.size(axis) == 1:
+            out_pl.append(Replicate())
+            for g, p in zip(grads, pls):
+                g.append(Replicate() if isinstance(p, Partial) else p)
+            continue
         if all(isinstance(p, Replicate) for p in pls):
             out_pl.append(Replicate())
             for g in grads:
@@ -734,6 +744,16 @@ def abstract_params(spec, dtype: torch.dtype = torch.float32):
 def param_shardings(spec, ctx: ShardCtx):
     """``logical.py:215``: placements aligned with the param tree."""
     return spec_map(lambda p: ctx.sharding_for(p.axes, p.shape), spec)
+
+
+def place(x: torch.Tensor, placements, mesh):
+    """``x`` as a DTensor under ``placements`` on ``mesh`` (``x`` itself
+    for ``None``).  Every rank passes the same whole ``x`` and keeps its
+    own shard: no collective (``jax.device_put`` of a host array)."""
+    if placements is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
 
 def count_params(spec) -> int:

@@ -12,8 +12,15 @@ exactly the local operations and collectives one chip would.
 
 The group is made on the first mesh request, once per process; importing
 this module never makes it.  A process that has initialised CUDA never
-makes a mesh, and ``repro_torch.device.resolve_device`` refuses CUDA in a
-process that has one: the dry-run and the card do not share a process.
+makes a fake mesh, and ``repro_torch.device.resolve_device`` refuses CUDA
+in a process that has one: the dry-run and the card do not share a
+process.
+
+``make_mesh`` also lays a mesh over a real process group, where one of
+gloo (a CPU mesh) or NCCL (a CUDA mesh) is initialised with exactly the
+mesh's ranks: the sharded training path (``TrainLoop.run(shardings=...)``)
+runs on it, as the reference's ``make_mesh`` lays out whatever devices
+the process has.
 """
 from __future__ import annotations
 
@@ -63,11 +70,41 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh((16, 16), ("data", "model"))
 
 
+#: the device type of a mesh over each real backend
+REAL_BACKENDS = {"gloo": "cpu", "nccl": "cuda"}
+
+
+def _real_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A mesh over the initialised gloo or NCCL group, which must hold
+    exactly the mesh's ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = dist.get_backend()
+    if backend not in REAL_BACKENDS:
+        raise RuntimeError(f"a {backend!r} process group exists; a mesh "
+                           f"over real ranks needs one of "
+                           f"{sorted(REAL_BACKENDS)}")
+    n, world = math.prod(shape), dist.get_world_size()
+    if n != world:
+        raise ValueError(f"mesh {shape} needs {n} ranks; the {backend} "
+                         f"process group has {world}")
+    return init_device_mesh(REAL_BACKENDS[backend], shape,
+                            mesh_dim_names=names)
+
+
 def make_mesh(data: int, model: int, pod: int = 1):
-    """Elastic mesh constructor for tests, small runs and scale-down."""
+    """Elastic mesh constructor for tests, small runs and scale-down: over
+    the initialised gloo or NCCL group where there is one (of exactly
+    ``pod * data * model`` ranks), else over the fake world."""
+    import torch.distributed as dist
     if pod > 1:
-        return _mesh((pod, data, model), ("pod", "data", "model"))
-    return _mesh((data, model), ("data", "model"))
+        shape, names = (pod, data, model), ("pod", "data", "model")
+    else:
+        shape, names = (data, model), ("data", "model")
+    if dist.is_available() and dist.is_initialized() and \
+            not fake_group_active():
+        return _real_mesh(shape, names)
+    return _mesh(shape, names)
 
 
 def mesh_chip_count(mesh) -> int:

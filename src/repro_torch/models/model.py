@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distrib.logical import (
-    NOSHARD, P, ShardCtx, init_params, spec_map)
+    NOSHARD, P, ShardCtx, abstract_params, init_params, spec_map)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
@@ -125,6 +125,11 @@ class Model:
              dtype: torch.dtype = torch.float32) -> dict:
         """Seeded parameters on ``generator.device``."""
         return init_params(generator, self.param_spec(), dtype)
+
+    def abstract_params(self, dtype: torch.dtype = torch.float32) -> dict:
+        """``model.py:92``: ``meta`` tensors of every leaf, nothing
+        drawn."""
+        return abstract_params(self.param_spec(), dtype)
 
     def global_flags(self) -> np.ndarray:
         return np.array([g for _, g in self.cfg.layer_pattern()], bool)

@@ -5,14 +5,22 @@
   checkpoints and the other way round),
 * periodic checkpointing and pruning,
 * optional int8 gradient compression with error feedback,
-* straggler detection and simulated failure injection.
+* straggler detection and simulated failure injection,
+* elastic restart: ``run()`` may be re-entered on another mesh
+  (``run(shardings=ShardCtx(mesh, rules))``, a mesh of any shape over the
+  gloo or NCCL group of the moment); the checkpoint re-places its leaves
+  under the new placements.
 
 A step is ``torch.autograd.grad`` of ``Model.loss`` with respect to the
 f32 masters, then the cosine schedule and AdamW, which update the state
-IN PLACE where the reference donates its buffers to a jitted step.
+IN PLACE where the reference donates its buffers to a jitted step.  On a
+mesh the state and each batch are DTensors, each gradient is
+redistributed to its master's placements (FSDP's reduce-scatter), and
+rank 0 alone writes the metrics and the checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -24,9 +32,12 @@ import torch
 
 from repro_torch.checkpoint import (
     latest_step, prune_checkpoints, restore_checkpoint, save_checkpoint)
-from repro_torch.data.pipeline import SyntheticLMData, to_device
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.data.pipeline import SyntheticLMData, place_batch
 from repro_torch.device import resolve_device
-from repro_torch.distrib.logical import NOSHARD, spec_map
+from repro_torch.distrib.logical import (
+    NOSHARD, ShardCtx, param_shardings, place)
+from repro_torch.launch.steps import batch_shardings, input_specs
 from repro_torch.models.blocks import ModelOpts
 from repro_torch.models.model import Model
 from repro_torch.optim import (
@@ -34,7 +45,14 @@ from repro_torch.optim import (
 from repro_torch.optim.compress import compress_grads, init_error_feedback
 from repro_torch.runtime.fault import (
     FailureInjector, SimulatedCrash, StragglerDetector)
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+def _host(x) -> float:
+    """A metric's value on the host; a DTensor's through ``full_tensor``,
+    which every rank enters."""
+    from torch.distributed.tensor import DTensor
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
 @dataclasses.dataclass
@@ -67,7 +85,7 @@ class TrainLoop:
         self.cfg = cfg
         self.opts = opts
         self.ocfg = ocfg
-        self.ctx = ctx or NOSHARD
+        self.ctx = self._ctx = ctx or NOSHARD
         self.failure = failure
         self.device = resolve_device(device)
         self.detector = StragglerDetector(n_hosts)
@@ -80,24 +98,40 @@ class TrainLoop:
         step's ``count`` and AdamW.  ``state["err"]`` is read only with
         ``compress_grads``.  Returns {"loss", "grad_norm", "lr"}, f32
         device tensors: nothing here waits on the device."""
+        mesh = self.ctx.mesh
         params = state["params"]
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
-        with torch.enable_grad():
-            loss = self.model.loss(params, batch, self.ctx, self.opts)
-            # a leaf the loss never reads (audio's token embedding) gets a
-            # zero gradient, as jax.grad gives it
-            grads = unflatten(params, torch.autograd.grad(
-                loss, flat, materialize_grads=True))
-        if self.cfg.compress_grads:
-            grads, state["err"] = compress_grads(grads, state["err"])
-        lr_scale = cosine_schedule(state["opt"]["count"],
-                                   warmup=self.cfg.warmup,
-                                   total=self.cfg.schedule_total)
-        m = adamw_update(grads, state["opt"], params, self.ocfg, lr_scale)
+        with self._replicated():
+            with torch.enable_grad():
+                loss = self.model.loss(params, batch, self.ctx, self.opts)
+                # a leaf the loss never reads (audio's token embedding)
+                # gets a zero gradient, as jax.grad gives it
+                grads = torch.autograd.grad(loss, flat,
+                                            materialize_grads=True)
+            if mesh is not None:
+                grads = [g.redistribute(mesh, p.placements)
+                         for g, p in zip(grads, flat)]
+            grads = unflatten(params, grads)
+            if self.cfg.compress_grads:
+                grads, state["err"] = compress_grads(grads, state["err"])
+            lr_scale = cosine_schedule(state["opt"]["count"],
+                                       warmup=self.cfg.warmup,
+                                       total=self.cfg.schedule_total)
+            m = adamw_update(grads, state["opt"], params, self.ocfg,
+                             lr_scale)
         m["loss"] = loss.detach()
         return m
+
+    def _replicated(self):
+        """On a mesh, the step's plain tensors (0-d scalars, masks) read
+        as replicated DTensors, as in the dry-run's trace."""
+        if self.ctx.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        return implicit_replication()
 
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -111,55 +145,93 @@ class TrainLoop:
         """The state's structure, shapes and names as ``meta`` tensors: what
         a restore reads into, with nothing drawn (``jax.eval_shape`` in the
         reference)."""
-        def like():
-            return spec_map(lambda s: torch.empty(s.shape, device="meta"),
-                            self.model.param_spec())
+        like = self.model.abstract_params
         return {"params": like(),
                 "opt": {"m": like(), "v": like(),
                         "count": torch.empty((), dtype=torch.int32,
                                              device="meta")},
                 "err": like()}
 
-    def run(self, generator: Optional[torch.Generator] = None
-            ) -> Dict[str, Any]:
+    def state_shardings(self, ctx: ShardCtx) -> Dict[str, Any]:
+        """The state's placements on ``ctx.mesh``: the params' for
+        ``params``, ``opt.m``, ``opt.v`` and ``err``; ``count``
+        replicated."""
+        p = param_shardings(self.model.param_spec(), ctx)
+        return {"params": p, "opt": {"m": p, "v": p,
+                                     "count": ctx.sharding_for((), ())},
+                "err": p}
+
+    def batch(self, step: int) -> Dict[str, Any]:
+        """The batch of ``step`` on the loop's device, placed on the mesh
+        of ``self.ctx`` as ``launch.steps.batch_shardings`` says."""
+        if self.ctx.mesh is None:
+            return place_batch(self.data.batch_at(step), self.device)
+        d = self.data
+        shape = ShapeSpec("train", "train", d.seq_len, d.global_batch)
+        sh = batch_shardings(self.model.cfg, shape,
+                             input_specs(self.model.cfg, shape), self.ctx)
+        return place_batch(d.batch_at(step), self.device, sh, self.ctx.mesh)
+
+    def run(self, generator: Optional[torch.Generator] = None,
+            shardings: Optional[ShardCtx] = None) -> Dict[str, Any]:
         """Train to ``cfg.steps``, resuming from the newest checkpoint in
         ``<out_dir>/ckpt`` where there is one.  -> {"state", "losses",
-        "final_step"}."""
+        "final_step"}.
+
+        ``shardings``, a ``ShardCtx`` with a mesh and its rules, runs the
+        loop on that mesh (``train_loop.py:93``, whose tree of
+        ``NamedSharding``s the rules give here): the state restored or
+        drawn under ``state_shardings``, each batch placed, the step on
+        DTensors; every rank returns the same losses.  ``None`` trains
+        on the loop's own ``ctx``."""
         cfg = self.cfg
+        self.ctx = self._ctx if shardings is None else shardings
+        mesh = None if shardings is None else shardings.mesh
+        placed = None if mesh is None else self.state_shardings(shardings)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot hold a "
+                             f"{self.device.type} loop's state")
+        writer = mesh is None or mesh.get_rank() == 0
         ckpt_dir = os.path.join(cfg.out_dir, "ckpt")
         start = latest_step(ckpt_dir)
         if start is not None:
             state = restore_checkpoint(ckpt_dir, start, self.state_like(),
-                                       self.device)
+                                       self.device, placed, mesh)
             step0 = start
         else:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(cfg.seed)
             state = self.init_state(generator)
+            if placed is not None:      # every rank draws it whole
+                state = tree_map(lambda x, pl: place(x, pl, mesh), state,
+                                 placed)
             step0 = 0
 
         losses = []
-        with open(self._metrics_path, "a") as log:
+        with (open(self._metrics_path, "a") if writer
+              else contextlib.nullcontext()) as log:
             for step in range(step0, cfg.steps):
                 if self.failure is not None and \
                         self.failure.check(step) == "crash":
                     raise SimulatedCrash(f"injected crash at step {step}")
                 t0 = time.time()
-                batch = to_device(self.data.batch_at(step), self.device)
+                batch = self.batch(step)
                 m = self.train_step(state, batch)
                 dt = time.time() - t0
                 flagged = self.detector.observe(np.array([dt]))
-                loss = float(m["loss"])
+                loss = _host(m["loss"])
                 losses.append(loss)
                 if step % cfg.log_every == 0 or step == cfg.steps - 1:
                     rec = {"step": step, "loss": loss,
-                           "grad_norm": float(m["grad_norm"]),
-                           "lr": float(m["lr"]), "sec": dt,
+                           "grad_norm": _host(m["grad_norm"]),
+                           "lr": _host(m["lr"]), "sec": dt,
                            "stragglers": flagged}
-                    log.write(json.dumps(rec) + "\n")
-                    log.flush()
+                    if writer:
+                        log.write(json.dumps(rec) + "\n")
+                        log.flush()
                 if (step + 1) % cfg.ckpt_every == 0 or \
                         step == cfg.steps - 1:
                     save_checkpoint(ckpt_dir, step + 1, state)
-                    prune_checkpoints(ckpt_dir, cfg.keep_ckpts)
+                    if writer:
+                        prune_checkpoints(ckpt_dir, cfg.keep_ckpts)
         return {"state": state, "losses": losses, "final_step": cfg.steps}
